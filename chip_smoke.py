@@ -1,31 +1,48 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch port's serving path (kgat_tpu_torch).
+"""GPU smoke run of the PyTorch port (kgat_tpu_torch): serving and training.
 
 Run from the repository root on a machine with one NVIDIA GPU (built for
 an H100, sm_90a):
 
     python3 chip_smoke.py
 
-Phases, each printing one line (or a few):
-  1. device  — requires CUDA; prints nvidia-smi's name and power limit.
-  2. build   — compiles the three kernels from kgat_tpu_torch/ops/hopper/csrc.
-  3. kernels — each kernel against its plain PyTorch version on the card:
-               hand-made rows (empty, one edge, a hub) and the
-               yelp2018-scale graph, with times.
-  4. serving — the yelp2018-scale synthetic dataset and a random
-               full-width model (d = k = 64, layers 64/32/16,
+Phases, each announced by a line ``[n/7] ...``:
+  1. device   — requires CUDA; prints nvidia-smi's name and power limit.
+  2. build    — compiles the kernels from kgat_tpu_torch/ops/hopper/csrc.
+  3. forward kernels (K1 SpMM, K2 SDDMM, K3 softmax) against their plain
+               PyTorch versions on the card: hand-made rows (empty, one
+               edge, a hub) and the yelp2018-scale graph, with times.
+  4. serving  — a random full-width model (d = k = 64, layers 64/32/16,
                bi-interaction) written as a checkpoint, served through
-               ``kgat_tpu_torch.recommend.main`` for 1,024 users at k = 20;
-               checks the lists, that every kernel launched, and the kernel
-               path against the plain path on the card.
+               ``kgat_tpu_torch.recommend.main`` for 1,024 users at k = 20.
+  5. backward kernels (K1 on the reverse CSR, K4 SDDMM backward, K5
+               softmax backward) against float64 plain versions, each held
+               to a bound that grows with its reduction; a second call must
+               be bit-identical; times; then the attention gradient driven
+               through the model (K2 -> K3 -> K5 -> K4).
+  6. training steps at yelp2018 scale and full width: the first CF and KG
+               steps' losses and gradients on the kernel path against the
+               plain path in float64 (same params, batch and dropout mask);
+               more steps on a fixed batch, whose loss must fall; an
+               attention recompute; evaluate(); ms per step and launch
+               counts.
+  7. the trainer CLI — ``kgat_tpu_torch.train.main`` for one epoch, then
+               its best checkpoint served for the users of phase 4.
 Then a JSON line of per-kernel results and, last, the device JSON line.
-Any failure raises, and the script exits non-zero without the last line.
+A failure prints ``chip_smoke: FAILED in phase n: ...`` and re-raises: the
+exit code is non-zero and the last line is not printed.
+
+``run()`` takes the device, the sizes and the timer, so the phases after
+the build also run on the CPU at a tiny size with the plain versions
+(tests/test_torch_chip_smoke.py); ``main()`` refuses to run without CUDA.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -37,85 +54,191 @@ import numpy as np
 import torch
 
 from kgat_tpu_torch import recommend as rec
+from kgat_tpu_torch import train
 from kgat_tpu_torch.data import (load_dataset, save_dataset,
                                  synthetic_dataset)
 from kgat_tpu_torch.graph import build_graph
 from kgat_tpu_torch.models import kgat
 from kgat_tpu_torch.models.kgat import KGATConfig
+from kgat_tpu_torch.ops import ref
 from kgat_tpu_torch.ops.hopper import build
-from kgat_tpu_torch.ops.hopper.sddmm import sddmm_transr, sddmm_transr_plain
-from kgat_tpu_torch.ops.hopper.segment_sum import spmm_csr, spmm_csr_plain
+from kgat_tpu_torch.ops.hopper.sddmm import (sddmm_transr, sddmm_transr_bwd,
+                                             sddmm_transr_bwd_plain,
+                                             sddmm_transr_plain)
+from kgat_tpu_torch.ops.hopper.segment_sum import (spmm_csr, spmm_csr_plain,
+                                                   spmm_csr_rev)
 from kgat_tpu_torch.ops.hopper.softmax import (segment_softmax_csr,
+                                               segment_softmax_csr_bwd,
+                                               segment_softmax_csr_bwd_plain,
                                                segment_softmax_csr_plain)
 from kgat_tpu_torch.utils.checkpoint import save_params
+from kgat_tpu_torch.utils.config import TrainConfig
 
 # yelp2018 at published scale, as the repo's `make datasets` generates it.
 YELP2018 = dict(n_users=45919, n_items=45538, n_entities=90961,
                 n_relations_kg=42, n_interactions=1185068,
                 n_triples=1853704)
-N_USERS = 1024
 TOP_K = 20
-RTOL = ATOL = 1e-4          # kernel vs plain, f32 (sum order differs)
-HUB_DEGREE = 70884          # the largest in-degree of the yelp-scale graph
+RTOL = ATOL = 1e-4          # forward kernel vs plain, f32 (sum order differs)
+# The backward kernels sum up to 10^5 terms per output and are held to a
+# float64 reference under a bound that grows with the reduction (U is the
+# float32 unit roundoff, 2^-24):
+#  * sum_bound, where the terms' magnitudes are at hand (K1 on the reverse
+#    CSR, K5, a training step's layer-weight gradients): n * 2^-23 *
+#    sum|terms| for a sum of n terms. It holds for any summation order
+#    (Higham's gamma_n), so it cannot flake; a sum whose terms repeat one
+#    sign (a node's cotangent met by many of its edges), or cancel (a
+#    weight's gradient over 136,880 nodes), does exceed a fixed multiple
+#    of sqrt(n) roundings of its result.
+#  * stat_bound, where they are not (K4, the other gradients):
+#    C_STAT * U * sqrt(L) * max|reference| over the tensor, L the longest
+#    reduction. That is the size of rounding errors of random sign, as the
+#    random per-edge cotangents here give; it is not a worst case.
+U = 2.0 ** -24
+C_STAT = 8.0
+LOSS_RTOL = 1e-5            # first-step losses, kernel path vs plain path
+
+
+@dataclasses.dataclass(frozen=True)
+class Sizes:
+    """How large a run is: the card's run uses :data:`YELP_SIZES`."""
+
+    dataset: dict         # synthetic_dataset arguments (besides seed, name)
+    hub: int              # in-degree of the hand-made graph's hub row
+    users: int            # users served in phases 4 and 7
+    steps: int = 5        # extra CF and KG steps in phase 6
+    cf_batch: int = 1024  # the reference recipe's batch sizes
+    kg_batch: int = 2048
+
+
+# The largest in-degree of the yelp-scale graph is 70,884.
+YELP_SIZES = Sizes(dataset=YELP2018, hub=70884, users=1024)
 
 KERNELS = {
     "spmm_csr": ("kgat_tpu_torch/ops/hopper/csrc/segment_sum.cu",
                  "kgat_tpu/ops/pallas/segment_sum.py:119"),
+    "spmm_csr_rev": ("kgat_tpu_torch/ops/hopper/csrc/segment_sum.cu",
+                     "kgat_tpu/ops/pallas/segment_sum.py:119"),
     "sddmm_transr": ("kgat_tpu_torch/ops/hopper/csrc/sddmm.cu",
                      "kgat_tpu/ops/pallas/sddmm.py:30"),
     "segment_softmax_csr": ("kgat_tpu_torch/ops/hopper/csrc/softmax.cu",
                             "kgat_tpu/ops/pallas/softmax.py:60"),
+    "sddmm_transr_bwd": ("kgat_tpu_torch/ops/hopper/csrc/sddmm_bwd.cu",
+                         "kgat_tpu/ops/pallas/sddmm.py:98"),
+    "segment_softmax_csr_bwd": ("kgat_tpu_torch/ops/hopper/csrc/softmax.cu",
+                                "kgat_tpu/ops/pallas/softmax.py:180"),
 }
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds per call of ``fn`` (CUDA events, after one
-    warm-up call)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+class CudaTimer:
+    """Device and host timing on the card."""
 
-
-def host_ms(fn, reps: int) -> float:
-    """Median wall milliseconds of ``fn`` ending in a synchronize."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
+    @staticmethod
+    def sync():
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(times))
+
+    def device_ms(self, fn, reps: int) -> float:
+        """Mean device milliseconds per call of ``fn`` (CUDA events, after
+        one warm-up call)."""
+        fn()
+        self.sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        self.sync()
+        return start.elapsed_time(end) / reps
+
+    def host_ms(self, fn, reps: int) -> float:
+        """Median wall milliseconds of ``fn`` ending in a synchronize."""
+        fn()
+        self.sync()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            self.sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+
+class Progress:
+    """The phase being run, for the failure line."""
+
+    def __init__(self):
+        self.n = 0
+
+    def phase(self, n: int, what: str):
+        self.n = n
+        print(f"[{n}/7] {what} ...", flush=True)
 
 
 class Check:
-    """Kernel-vs-plain comparisons, with the worst error per kernel."""
+    """Kernel-vs-plain comparisons, with the worst error per kernel and,
+    for the bounded ones, the worst error as a share of its bound."""
 
-    def __init__(self):
+    def __init__(self, timer):
+        self.timer = timer
         self.max_err = {name: 0.0 for name in KERNELS}
+        self.share = {}
 
-    def __call__(self, name, label, got, want, rtol=RTOL, atol=ATOL):
-        torch.cuda.synchronize()
-        got, want = got.float(), want.float()
+    def _err(self, name, label, got, want):
+        self.timer.sync()
         if got.shape != want.shape:
             raise AssertionError(f"{name} {label}: shape {tuple(got.shape)} "
                                  f"!= {tuple(want.shape)}")
         if not torch.isfinite(got).all():
             raise AssertionError(f"{name} {label}: non-finite output")
-        err = float((got - want).abs().max()) if got.numel() else 0.0
-        self.max_err[name] = max(self.max_err[name], err)
-        if not torch.allclose(got, want, rtol=rtol, atol=atol):
-            raise AssertionError(f"{name} {label}: max abs err {err:.3e} "
-                                 f"beyond rtol {rtol} atol {atol}")
+        err = (got.double() - want.double()).abs()
+        if name in self.max_err and err.numel():
+            self.max_err[name] = max(self.max_err[name], float(err.max()))
         return err
+
+    def __call__(self, name, label, got, want, rtol=RTOL, atol=ATOL):
+        """|got - want| <= atol + rtol |want|, against a float32 plain."""
+        err = self._err(name, label, got, want)
+        worst = float(err.max()) if err.numel() else 0.0
+        if not torch.allclose(got.float(), want.float(), rtol=rtol,
+                              atol=atol):
+            raise AssertionError(f"{name} {label}: max abs err {worst:.3e} "
+                                 f"beyond rtol {rtol} atol {atol}")
+        return worst
+
+    def bounded(self, name, label, got, want64, bound64):
+        """|got - want64| <= bound64 elementwise (see sum_bound and
+        stat_bound); returns (max abs err, the bound where the error is
+        largest against it, that share of the bound)."""
+        err = self._err(name, label, got, want64)
+        if not err.numel():
+            return 0.0, 0.0, 0.0
+        ratio = (err / bound64.clamp(min=1e-300)).flatten()
+        at = int(ratio.argmax())
+        share, bound = float(ratio[at]), float(bound64.flatten()[at])
+        if name in KERNELS:
+            self.share[name] = max(self.share.get(name, 0.0), share)
+        worst = float(err.max())
+        if share > 1.0:
+            raise AssertionError(
+                f"{name} {label}: abs err {float(err.flatten()[at]):.3e} "
+                f"beyond its bound {bound:.3e} ({share:.2f}x)")
+        return worst, bound, share
+
+
+def sum_bound(want64, abs_sum64, n_terms):
+    """n * 2^-23 * sum|terms| + U |reference|: a float32 sum of n terms,
+    in any order, is within it. ``n_terms`` broadcasts against the
+    output (a row's length)."""
+    return 2 * U * n_terms * abs_sum64 + U * want64.abs()
+
+
+def stat_bound(want64, length: int):
+    """C_STAT * U * sqrt(L) * max|reference| + U |reference|, for
+    reductions of at most L terms of random sign whose magnitudes are not
+    at hand."""
+    return (C_STAT * U * math.sqrt(max(length, 1)) * want64.abs().max()
+            + U * want64.abs())
 
 
 def random_inputs(n_nodes, n_rel, d, k, gen, dev):
@@ -127,9 +250,10 @@ def random_inputs(n_nodes, n_rel, d, k, gen, dev):
             u(n_rel, k, fan=n_rel + k))
 
 
-def check_kernels(g, label, check, gen, dev, times=None):
+def check_kernels(g, label, check, gen, dev, timer, times=None):
     """K2 -> K3 -> K1 on graph ``g`` against the plain versions. With
-    ``times`` (a dict), also records per-forward kernel and plain ms."""
+    ``times`` (a dict), also records per-forward kernel and plain ms.
+    Returns the errors and the attention weights."""
     d = k = 64
     emb, w_rel, rel_embed = random_inputs(g.n_nodes, g.n_relations, d, k,
                                           gen, dev)
@@ -151,32 +275,128 @@ def check_kernels(g, label, check, gen, dev, times=None):
         if empty.any() and out[empty].abs().max() != 0:
             raise AssertionError("spmm_csr: an empty row is not 0")
         if times is not None:
-            ms = cuda_ms(lambda: spmm_csr(*a1), 20)
-            plain_ms = cuda_ms(lambda: spmm_csr_plain(*a1), 5)
-            print(f"[3/4] spmm_csr per call at d={dd} {dt}: kernel "
+            ms = timer.device_ms(lambda: spmm_csr(*a1), 20)
+            plain_ms = timer.device_ms(lambda: spmm_csr_plain(*a1), 5)
+            print(f"[3/7] spmm_csr per call at d={dd} {dt}: kernel "
                   f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
             if dt == torch.float32:
-                # The serving forward runs K1 at d = 64, 64, 32.
+                # A forward runs K1 at d = 64, 64, 32.
                 n = 2 if dd == 64 else 1
                 times["spmm_csr"][0] += n * ms
                 times["spmm_csr"][1] += n * plain_ms
     if times is not None:
-        times["sddmm_transr"] = [cuda_ms(lambda: sddmm_transr(*a2), 20),
-                                 cuda_ms(lambda: sddmm_transr_plain(*a2), 5)]
+        times["sddmm_transr"] = [
+            timer.device_ms(lambda: sddmm_transr(*a2), 20),
+            timer.device_ms(lambda: sddmm_transr_plain(*a2), 5)]
         times["segment_softmax_csr"] = [
-            cuda_ms(lambda: segment_softmax_csr(g.row_offsets, logits), 20),
-            cuda_ms(lambda: segment_softmax_csr_plain(g.row_offsets,
-                                                      logits), 5)]
-    return e2, e3, errs
+            timer.device_ms(lambda: segment_softmax_csr(g.row_offsets,
+                                                        logits), 20),
+            timer.device_ms(lambda: segment_softmax_csr_plain(g.row_offsets,
+                                                              logits), 5)]
+    return e2, e3, errs, att
 
 
-def handmade_graph(gen):
+def check_backward_kernels(g, att, label, check, gen, dev, timer,
+                           times=None):
+    """K1 on the reverse CSR, K4 and K5 on graph ``g`` against float64
+    plain versions, each twice (bit-identical). With ``times``, records
+    kernel and plain ms: K1's per CF-step backward (d = 64, 64, 32), K4's
+    and K5's per call."""
+    shares = {}
+    rev_w = att[g.rev_perm.long()].contiguous()
+    rev_len = (g.rev_row_offsets[1:] - g.rev_row_offsets[:-1]).double()
+    for dd in (64, 32):
+        cot = torch.randn(g.n_nodes, dd, generator=gen).to(dev)
+        a1 = (g.rev_row_offsets, g.rev_dst, rev_w, cot)
+        got = spmm_csr_rev(*a1)
+        again = spmm_csr_rev(*a1)
+        want = spmm_csr_plain(g.rev_row_offsets, g.rev_dst, rev_w.double(),
+                              cot.double())
+        terms = spmm_csr_plain(g.rev_row_offsets, g.rev_dst,
+                               rev_w.double().abs(), cot.double().abs())
+        shares[f"K1 rev d={dd}"] = check.bounded(
+            "spmm_csr_rev", f"{label} d={dd}", got, want,
+            sum_bound(want, terms, rev_len[:, None]))
+        check_identical("spmm_csr_rev", got, again)
+        del want, terms
+        if times is not None:
+            ms = timer.device_ms(lambda: spmm_csr_rev(*a1), 20)
+            plain_ms = timer.device_ms(lambda: spmm_csr_plain(*a1), 5)
+            n = 2 if dd == 64 else 1
+            times["spmm_csr_rev"][0] += n * ms
+            times["spmm_csr_rev"][1] += n * plain_ms
+
+    d = k = 64
+    emb, w_rel, rel_embed = random_inputs(g.n_nodes, g.n_relations, d, k,
+                                          gen, dev)
+    cot = torch.randn(g.n_edges, generator=gen).to(dev)
+    a4 = (g, cot, emb, w_rel, rel_embed)
+    got = sddmm_transr_bwd(*a4)
+    again = sddmm_transr_bwd(*a4)
+    want = sddmm_transr_bwd_plain(g, cot.double(), emb.double(),
+                                  w_rel.double(), rel_embed.double())
+    length = k4_length(g, k)
+    for name, a, b, c in zip(("d_emb", "d_w_rel", "d_rel_embed"), got, want,
+                             again):
+        shares[f"K4 {name}"] = check.bounded(
+            "sddmm_transr_bwd", f"{label} {name}", a, b,
+            stat_bound(b, length))
+        check_identical(f"sddmm_transr_bwd {name}", a, c)
+    del got, again, want
+    if times is not None:
+        times["sddmm_transr_bwd"] = [
+            timer.device_ms(lambda: sddmm_transr_bwd(*a4), 5),
+            timer.device_ms(lambda: sddmm_transr_bwd_plain(*a4), 2)]
+
+    cot = torch.randn(g.n_edges, generator=gen).to(dev)
+    got = segment_softmax_csr_bwd(g.row_offsets, att, cot)
+    again = segment_softmax_csr_bwd(g.row_offsets, att, cot)
+    want = segment_softmax_csr_bwd_plain(g.row_offsets, att.double(),
+                                         cot.double())
+    dst = ref.offsets_to_dst(g.row_offsets)
+    row_len = (g.row_offsets[1:] - g.row_offsets[:-1]).double()
+    row_abs = ref.segment_sum_coo(dst, (att.double() * cot.double()).abs(),
+                                  g.n_nodes)
+    # s = sum over the row of w g takes row length + 5 roundings (lanes,
+    # then the shuffle tree), g - s and w (g - s) one each.
+    w64 = att.double()
+    bound = (2 * U * w64 * ((row_len[dst] + 5) * row_abs[dst]
+                            + cot.double().abs())
+             + 2 * U * want.abs())
+    shares["K5"] = check.bounded("segment_softmax_csr_bwd", label, got, want,
+                                 bound)
+    check_identical("segment_softmax_csr_bwd", got, again)
+    if times is not None:
+        times["segment_softmax_csr_bwd"] = [
+            timer.device_ms(lambda: segment_softmax_csr_bwd(
+                g.row_offsets, att, cot), 20),
+            timer.device_ms(lambda: segment_softmax_csr_bwd_plain(
+                g.row_offsets, att, cot), 5)]
+    return shares
+
+
+def k4_length(g, k: int) -> int:
+    """K4's longest reduction: a node's head and tail edges, k terms each,
+    or twice a relation's edges (for d_W)."""
+    deg = (g.row_offsets[1:] - g.row_offsets[:-1]
+           + g.rev_row_offsets[1:] - g.rev_row_offsets[:-1])
+    rel = max((b - a for a, b in zip(g.rel_offsets, g.rel_offsets[1:])),
+              default=0)
+    return max(int(deg.max()) * k, 2 * rel)
+
+
+def check_identical(name, a, b):
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: a second call is not bit-identical")
+
+
+def handmade_graph(gen, hub: int):
     """100 nodes: node 0 has no in-edge, node 1 one, node 2 is a hub of
-    HUB_DEGREE in-edges, the rest 0-40; relation 4 has a single edge."""
+    ``hub`` in-edges, the rest 0-40; relation 4 has a single edge."""
     rs = np.random.default_rng(int(torch.randint(1 << 30, (1,),
                                                  generator=gen)))
     n = 100
-    deg = np.concatenate([[0, 1, HUB_DEGREE], rs.integers(0, 41, n - 3)])
+    deg = np.concatenate([[0, 1, hub], rs.integers(0, 41, n - 3)])
     dst = np.repeat(np.arange(n), deg)
     src = rs.integers(0, n, len(dst))
     ety = rs.integers(0, 4, len(dst))
@@ -184,12 +404,37 @@ def handmade_graph(gen):
     return build_graph(src, dst, ety, n_nodes=n, n_relations=5)
 
 
+def expect_launches(dev, launches, want, what):
+    """On the card, ``launches`` must hold at least the counts in ``want``
+    (or exactly, for the entries given as a tuple (n,)). The plain
+    versions on the CPU launch nothing."""
+    if dev.type != "cuda":
+        return
+    for name, n in want.items():
+        got = launches.get(name, 0)
+        if (got != n[0]) if isinstance(n, tuple) else (got < n):
+            raise AssertionError(f"{what}: {name} launched {got} times, "
+                                 f"expected {n}: {launches}")
+
+
+def check_lists(lines, users, train_user_dict, what):
+    if [ln["user"] for ln in lines] != list(users):
+        raise AssertionError(f"{what}: output users differ from the request")
+    for ln in lines:
+        s = np.asarray(ln["scores"])
+        seen = set(train_user_dict.get(ln["user"], np.zeros(0)).tolist())
+        if (len(ln["items"]) != TOP_K or not np.isfinite(s).all()
+                or (np.diff(s) > 0).any() or seen & set(ln["items"])):
+            raise AssertionError(f"{what}: bad list for user {ln['user']}: "
+                                 f"{ln}")
+
+
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     line = smi.stdout.strip().splitlines()[0]
-    print(f"[1/4] device: torch {torch.__version__}, CUDA "
+    print(f"[1/7] device: torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
     print(line, flush=True)
     return line
@@ -200,9 +445,9 @@ def phase_build():
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))
     build.library()
-    print(f"[2/4] build: nvcc sm_90a {seconds:.1f} s, {len(regs)} kernels, "
-          f"max {max(regs, default=0)} registers, {spills} spill-store bytes",
-          flush=True)
+    print(f"[2/7] build: nvcc sm_90a {seconds:.1f} s (one nvcc per source, "
+          f"in parallel), {len(regs)} kernels, max {max(regs, default=0)} "
+          f"registers, {spills} spill-store bytes", flush=True)
 
 
 def main() -> int:
@@ -210,54 +455,74 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
-    rec.disable_tf32()
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(0)
-    smi_line = phase_device()
-    phase_build()
+    progress = Progress()
+    try:
+        rec.disable_tf32()
+        progress.phase(1, "device")
+        smi_line = phase_device()
+        progress.phase(2, "build")
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            rc = run(tmp, torch.device("cuda"), torch.Generator().manual_seed(0),
+                     smi_line, progress=progress)
+    except Exception as e:
+        print(f"chip_smoke: FAILED in phase {progress.n}: "
+              f"{type(e).__name__}: {e}", flush=True)
+        raise
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return rc
 
-    with tempfile.TemporaryDirectory() as tmp:
-        return run(tmp, dev, gen, smi_line)
 
+def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
+        sizes: Sizes = YELP_SIZES, timer=None, progress=None) -> int:
+    """Phases 3-7 in ``tmp``, on ``dev``; prints the kernels' JSON line."""
+    timer = timer or CudaTimer()
+    progress = progress or Progress()
+    check = Check(timer)
 
-def run(tmp: str, dev: torch.device, gen: torch.Generator,
-        smi_line: str) -> int:
-    # --- 3. kernels against their plain versions ---------------------------
+    # --- 3. forward kernels against their plain versions -------------------
+    progress.phase(3, "forward kernels against their plain versions")
     # The graph is built from the dataset as written and read back, as the
-    # serving CLI builds it, so both see one canonical edge order.
-    check = Check()
+    # CLIs build it, so all see one canonical edge order.
     t0 = time.perf_counter()
-    save_dataset(synthetic_dataset(seed=0, name="yelp2018", **YELP2018), tmp)
+    save_dataset(synthetic_dataset(seed=0, name="yelp2018", **sizes.dataset),
+                 tmp)
     ds = load_dataset(tmp, "yelp2018")
     g_host, meta = ds.build()
     gen_s = time.perf_counter() - t0
     deg = (g_host.row_offsets[1:] - g_host.row_offsets[:-1])
-    print(f"[3/4] yelp2018-scale graph: {g_host.n_edges} edges, "
+    print(f"[3/7] yelp2018-scale graph: {g_host.n_edges} edges, "
           f"{g_host.n_nodes} nodes, {g_host.n_relations} relations, "
           f"max in-degree {int(deg.max())}, {int((deg == 0).sum())} empty "
           f"rows, {g_host.tiles.shape[0]} tiles (generated, written, read "
           f"and built in {gen_s:.1f} s on the host)", flush=True)
-    hand = handmade_graph(gen).to(dev)
-    e2, e3, e1 = check_kernels(hand, "hand-made", check, gen, dev)
-    print(f"[3/4] hand-made rows (empty, one edge, hub of {HUB_DEGREE}): "
+    hand = handmade_graph(gen, sizes.hub).to(dev)
+    e2, e3, e1, hand_att = check_kernels(hand, "hand-made", check, gen, dev,
+                                         timer)
+    print(f"[3/7] hand-made rows (empty, one edge, hub of {sizes.hub}): "
           f"max abs err sddmm {e2:.2e}, softmax {e3:.2e}, spmm "
           f"{', '.join(f'{e:.2e}' for e in e1)} (d64, d32, d64 bf16)",
           flush=True)
     g = g_host.to(dev)
-    times = {"spmm_csr": [0.0, 0.0]}
-    e2, e3, e1 = check_kernels(g, "yelp2018", check, gen, dev, times)
-    print(f"[3/4] yelp2018 shapes: max abs err sddmm {e2:.2e}, softmax "
+    times = {"spmm_csr": [0.0, 0.0], "spmm_csr_rev": [0.0, 0.0]}
+    e2, e3, e1, att = check_kernels(g, "yelp2018", check, gen, dev, timer,
+                                    times)
+    print(f"[3/7] yelp2018 shapes: max abs err sddmm {e2:.2e}, softmax "
           f"{e3:.2e}, spmm {', '.join(f'{e:.2e}' for e in e1)} "
           f"(d64, d32, d64 bf16)", flush=True)
     for name, (ms, plain_ms) in times.items():
-        print(f"[3/4] time per serving forward ({smi_line}): {name} "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+        if ms:
+            print(f"[3/7] time per forward ({smi_line}): {name} kernel "
+                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
 
     # --- 4. serving at full width ------------------------------------------
+    progress.phase(4, "serving CLI")
     cfg = KGATConfig(ops_backend="hopper")
     model = kgat.init_params(meta.n_nodes, meta.n_relations, cfg,
                              generator=gen)
-    users = np.asarray(sorted(ds.test_user_dict)[:N_USERS])
+    users = np.asarray(sorted(ds.test_user_dict)[:sizes.users])
     ckpt = os.path.join(tmp, "yelp2018_random")
     save_params(ckpt, kgat.numpy_params(model), {
         "dataset": "yelp2018",
@@ -271,25 +536,18 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator,
     rc = rec.main(["--ckpt", ckpt, "--data-root", tmp, "--device", str(dev),
                    "--users", ",".join(str(u) for u in users),
                    "--k", str(TOP_K), "--out", out_path])
-    torch.cuda.synchronize()
+    timer.sync()
     cli_s = time.perf_counter() - t0
     launches = dict(build.launch_counts)
     with open(out_path) as f:
         lines = [json.loads(ln) for ln in f]
     if rc != 0:
         raise AssertionError(f"recommend.main returned {rc}")
-    missing = [n for n in KERNELS if launches.get(n, 0) == 0]
-    if missing:
-        raise AssertionError(f"serving never launched {missing}: {launches}")
-    if [ln["user"] for ln in lines] != users.tolist():
-        raise AssertionError("CLI output users differ from the request")
-    for ln in lines:
-        s = np.asarray(ln["scores"])
-        train = set(ds.train_user_dict.get(ln["user"], np.zeros(0)).tolist())
-        if (len(ln["items"]) != TOP_K or not np.isfinite(s).all()
-                or (np.diff(s) > 0).any() or train & set(ln["items"])):
-            raise AssertionError(f"bad list for user {ln['user']}: {ln}")
-    print(f"[4/4] serving CLI: {len(lines)} users x top-{TOP_K} valid in "
+    expect_launches(dev, launches, {"sddmm_transr": 1,
+                                    "segment_softmax_csr": 1, "spmm_csr": 3},
+                    "serving")
+    check_lists(lines, users.tolist(), ds.train_user_dict, "serving CLI")
+    print(f"[4/7] serving CLI: {len(lines)} users x top-{TOP_K} valid in "
           f"{cli_s:.1f} s (load, build, forward, score); launches {launches}",
           flush=True)
 
@@ -297,7 +555,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator,
     cfg_plain = dataclasses.replace(cfg, ops_backend="ref")
     emb_k = rec._forward(cfg, model, g)
     emb_p = rec._forward(cfg_plain, model, g)
-    torch.cuda.synchronize()
+    timer.sync()
     if emb_k.shape != (meta.n_nodes, cfg.out_dim):
         raise AssertionError(f"all_embed shape {tuple(emb_k.shape)}")
     if not torch.isfinite(emb_k).all():
@@ -337,31 +595,355 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator,
                 f"user {users[i]}: CLI items {cli_items[i].tolist()} != "
                 f"kernel path {items_k[i, :TOP_K].tolist()}")
     same_order = int((cli_items == items_k[:, :TOP_K]).all(axis=1).sum())
-    fwd_ms = host_ms(lambda: rec._forward(cfg, model, g), 5)
-    fwd_plain_ms = host_ms(lambda: rec._forward(cfg_plain, model, g), 3)
+    fwd_ms = timer.host_ms(lambda: rec._forward(cfg, model, g), 5)
+    fwd_plain_ms = timer.host_ms(lambda: rec._forward(cfg_plain, model, g), 3)
     server = rec.Recommender(model, g, meta, cfg,
                              train_user_dict=ds.train_user_dict)
-    serve_ms = host_ms(lambda: server.recommend(users, k=TOP_K), 5)
-    print(f"[4/4] kernel path vs plain path on the card: all_embed max abs "
+    serve_ms = timer.host_ms(lambda: server.recommend(users, k=TOP_K), 5)
+    print(f"[4/7] kernel path vs plain path on the card: all_embed max abs "
           f"err {err:.2e}; top-{TOP_K} scores within rtol {RTOL}; item sets "
           f"equal for {int(clear.sum())}/{len(users)} users with a "
           f"20th/21st gap > 1e-4, same order for {int(ordered.sum())} with "
           f"every gap > 1e-4; CLI lists in the same order for "
           f"{same_order}/{len(users)} users; a second kernel forward is "
           f"{'bit-identical' if repeat else 'NOT bit-identical'}", flush=True)
-    print(f"[4/4] forward {fwd_ms:.2f} ms (plain path {fwd_plain_ms:.2f} "
+    print(f"[4/7] forward {fwd_ms:.2f} ms (plain path {fwd_plain_ms:.2f} "
           f"ms); serve {len(users)} users top-{TOP_K} from the cached "
           f"forward {serve_ms:.2f} ms ({smi_line})", flush=True)
+    del emb_k, emb_p, server
 
+    # --- 5. backward kernels against float64 plain versions ---------------
+    progress.phase(5, "backward kernels against float64 plain versions")
+    for label, graph, w, t in (("hand-made", hand, hand_att, None),
+                               ("yelp2018", g, att, times)):
+        shares = check_backward_kernels(graph, w, label, check, gen, dev,
+                                        timer, t)
+        print(f"[5/7] {label}: max abs err, and the bound where the error "
+              f"is largest against it: "
+              + ", ".join(f"{k} {e:.2e} (bound {b:.2e}, {s:.3f} of it)"
+                          for k, (e, b, s) in shares.items())
+              + "; second calls bit-identical", flush=True)
+    for name in ("spmm_csr_rev", "sddmm_transr_bwd",
+                 "segment_softmax_csr_bwd"):
+        ms, plain_ms = times[name]
+        per = "per CF-step backward (d = 64, 64, 32)" if name == \
+            "spmm_csr_rev" else "per call"
+        print(f"[5/7] {name} {per}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+              f"ms ({smi_line})", flush=True)
+    del att, hand_att
+
+    # The attention gradient through the model: logits -> softmax -> a
+    # random linear functional (K2, K3 forward; K5, K4 backward), against
+    # autograd of the plain path in float64.
+    cot = torch.randn(g.n_edges, generator=gen).to(dev)
+    grads = {}
+    build.launch_counts.clear()
+    for path, mcfg in (("kernel", cfg), ("plain", cfg_plain)):
+        m = model if path == "kernel" else copy.deepcopy(model).double()
+        m.zero_grad(set_to_none=True)
+        (kgat.compute_attention(m, g, mcfg)
+         * cot.to(m.entity_embed.dtype)).sum().backward()
+        grads[path] = [m.entity_embed.grad, m.w_rel.grad, m.rel_embed.grad]
+        if path == "kernel":
+            att_launches = dict(build.launch_counts)
+    expect_launches(dev, att_launches, {
+        "sddmm_transr": (1,), "segment_softmax_csr": (1,),
+        "sddmm_transr_bwd": (1,), "segment_softmax_csr_bwd": (1,)},
+        "attention gradient")
+    length = k4_length(g, cfg.relation_dim)
+    errs = [check.bounded("attention gradient", name, a, b,
+                          stat_bound(b, length))
+            for name, a, b in zip(("d_entity_embed", "d_w_rel",
+                                   "d_rel_embed"), *grads.values())]
+    print(f"[5/7] attention gradient through compute_attention, kernel path "
+          f"vs float64 plain path: "
+          + ", ".join(f"{n} {e:.2e} (bound {b:.2e}, {s:.3f} of it)"
+                      for n, (e, b, s) in zip(
+                          ("d_entity_embed", "d_w_rel", "d_rel_embed"), errs))
+          + f"; launches {att_launches}", flush=True)
+    del grads, cot
+    model.zero_grad(set_to_none=True)
+
+    # --- 6. training steps at full width -----------------------------------
+    progress.phase(6, "training steps, kernel path against plain path")
+    t0 = time.perf_counter()
+    tcfg = TrainConfig(dataset="yelp2018", data_root=tmp, device=str(dev),
+                       log_dir=None, cf_batch_size=sizes.cf_batch,
+                       kg_batch_size=sizes.kg_batch, seed=0)
+    trainer = train.Trainer(tcfg, dataset=ds)
+    build_s = time.perf_counter() - t0
+    train_stats = phase_train_steps(trainer, sizes, check, timer, dev)
+    print(f"[6/7] trainer built in {build_s:.1f} s ({trainer.n_cf_batches} "
+          f"CF and {trainer.n_kg_batches} KG batches an epoch); "
+          + train_stats, flush=True)
+    del trainer
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # --- 7. the trainer CLI, then serving its checkpoint -------------------
+    progress.phase(7, "trainer CLI for one epoch, then serving its "
+                      "best checkpoint")
+    log_dir = os.path.join(tmp, "runs")
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    train.main(["--dataset", "yelp2018", "--data-root", tmp, "--epochs", "1",
+                "--eval-every", "1", "--device", str(dev), "--log-dir",
+                log_dir, "--run-name", "smoke", "--seed", "0",
+                "--cf-batch-size", str(sizes.cf_batch),
+                "--kg-batch-size", str(sizes.kg_batch)])
+    timer.sync()
+    cli_s = time.perf_counter() - t0
+    main_launches = dict(build.launch_counts)
+    with open(os.path.join(log_dir, "smoke.jsonl")) as f:
+        events = [json.loads(ln) for ln in f]
+    check_events(events)
+    epoch = next(e for e in events if e["event"] == "epoch")
+    ev = next(e for e in events if e["event"] == "eval")
+    n_cf = next(e for e in events if e["event"] == "start")["cf_batches"]
+    # Per CF step: K1 three times forward, three times on the reverse CSR;
+    # K2 and K3 once per attention recompute (epoch start and end).
+    expect_launches(dev, main_launches, {
+        "spmm_csr": 3 * n_cf, "spmm_csr_rev": (3 * n_cf,),
+        "sddmm_transr": (2,), "segment_softmax_csr": (2,)}, "trainer CLI")
+    best = os.path.join(log_dir, "smoke_best")
+    with open(best + ".json") as f:
+        side = json.load(f)
+    if side.get("dataset") != "yelp2018" or side["model"]["conv_dims"] != [
+            64, 32, 16]:
+        raise AssertionError(f"best checkpoint sidecar: {side}")
+    out_path = os.path.join(tmp, "recs_trained.jsonl")
+    rc = rec.main(["--ckpt", best, "--data-root", tmp, "--device", str(dev),
+                   "--users", ",".join(str(u) for u in users),
+                   "--k", str(TOP_K), "--out", out_path])
+    with open(out_path) as f:
+        lines = [json.loads(ln) for ln in f]
+    if rc != 0:
+        raise AssertionError(f"recommend.main returned {rc}")
+    check_lists(lines, users.tolist(), ds.train_user_dict,
+                "serving the trained checkpoint")
+    print(f"[7/7] trainer CLI: 1 epoch in {epoch['secs']:.1f} s "
+          f"({cli_s:.1f} s with data load, build, eval and checkpoints), "
+          f"cf_loss {epoch['cf_loss']:.4f}, kg_loss {epoch['kg_loss']:.4f}, "
+          f"recall@20 {ev['recall']:.4f}, ndcg@20 {ev['ndcg']:.4f}; events "
+          f"{[e['event'] for e in events]}; served {len(lines)} users "
+          f"top-{TOP_K} from smoke_best; launches {main_launches} "
+          f"({smi_line})", flush=True)
+
+    paths = {"sddmm_transr_bwd": ("attention gradient", att_launches),
+             "segment_softmax_csr_bwd": ("attention gradient", att_launches)}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[name], "max_abs_err": check.max_err[name],
+         "launches": paths.get(name, ("train CLI", main_launches))[1].get(
+             name, 0),
+         "path": paths.get(name, ("train CLI",))[0],
+         "max_abs_err": check.max_err[name],
+         "share_of_bound": check.share.get(name),
          "ms": times[name][0], "plain_ms": times[name][1]}
         for name, (src, tpu) in KERNELS.items()]}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# JSONL keys of kgat_tpu's trainer, per event.
+EVENT_KEYS = {
+    "start": {"event", "t", "dataset", "n_nodes", "n_edges", "n_relations",
+              "cf_batches", "kg_batches", "aggregator", "backend",
+              "sampler"},
+    "epoch": {"event", "t", "epoch", "cf_loss", "kg_loss", "secs",
+              "edges_per_s"},
+    "eval": {"event", "t", "epoch", "recall", "ndcg", "precision", "hit"},
+    "done": {"event", "t", "best_recall"},
+}
+
+
+def check_events(events):
+    names = [e["event"] for e in events]
+    if names != ["start", "epoch", "eval", "done"]:
+        raise AssertionError(f"trainer events {names}")
+    for e in events:
+        if set(e) != EVENT_KEYS[e["event"]]:
+            raise AssertionError(f"{e['event']} keys {sorted(e)}")
+    epoch = events[1]
+    if not (math.isfinite(epoch["cf_loss"]) and math.isfinite(
+            epoch["kg_loss"])):
+        raise AssertionError(f"non-finite losses {epoch}")
+    for key in ("recall", "ndcg", "precision", "hit"):
+        if not 0.0 <= events[2][key] <= 1.0:
+            raise AssertionError(f"eval {key} = {events[2][key]}")
+
+
+def _grads(params):
+    return [p.grad.detach().clone() for p in params]
+
+
+def phase_train_steps(trainer, sizes, check, timer, dev) -> str:
+    """The first CF and KG steps on the kernel and the plain path, more
+    steps on a fixed batch, a recompute and an evaluate(); returns the
+    summary line."""
+    model, mcfg = trainer.model, trainer.cfg.model
+    plain = dataclasses.replace(mcfg, ops_backend="ref")
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+    mask_gen = lambda: torch.Generator(device=dev).manual_seed(7)  # noqa: E731
+    # The longest reduction of a gradient: a CSR row, or every node for a
+    # layer weight.
+    g = trainer.graph
+    length = max(int((g.row_offsets[1:] - g.row_offsets[:-1]).max()),
+                 g.n_nodes)
+
+    def plain_grads(loss_fn):
+        """Loss and gradients of the plain path in float64, from a copy
+        of the current parameters, and the term magnitudes of the layer
+        weights' gradients. (A float32 plain path would sum with atomics
+        in a new order each run, and two float32 paths can then differ by
+        far more than either differs from the exact value.)"""
+        model64 = copy.deepcopy(model).double()
+        params64 = dict(model64.named_parameters())
+        with LayerProducts(params64) as products:
+            loss = loss_fn(model64)
+        outs = [z for _, _, z in products.found]
+        grads = torch.autograd.grad(loss, [*params64.values(), *outs],
+                                    allow_unused=True)
+        return (loss.item(),
+                [torch.zeros_like(p) if gp is None else gp
+                 for p, gp in zip(params64.values(), grads)],
+                products.term_magnitudes(grads[len(params64):]))
+
+    # The first CF step: one batch, one dropout mask, both paths.
+    att = trainer.attention()
+    cf_batch = trainer.sample_cf()
+    loss_k = float(trainer.cf_grad(att, *cf_batch, generator=mask_gen()))
+    loss_p, grads_p, terms = plain_grads(lambda m: kgat.cf_loss(
+        m, g, kgat.attention_for_training(m, g, plain), trainer.meta,
+        *cf_batch[:3], plain, generator=mask_gen(), train=True,
+        weight=cf_batch[3]))
+    cf_errs = compare_step("CF", loss_k, loss_p, names, _grads(params),
+                           grads_p, terms, check, length)
+    trainer.opt.step()
+    del grads_p, terms
+
+    # The first KG step (no graph op: the two paths run the same code).
+    kg_batch = trainer.sample_kg()
+    kg_loss_k = float(trainer.kg_grad(*kg_batch))
+    kg_loss_p, grads_p, terms = plain_grads(lambda m: kgat.kg_loss(
+        m, *kg_batch[:4], plain, weight=kg_batch[4]))
+    kg_errs = compare_step("KG", kg_loss_k, kg_loss_p, names, _grads(params),
+                           grads_p, terms, check, length)
+    trainer.opt.step()
+    del grads_p, terms
+
+    # More steps on one fixed batch and dropout mask: the loss on it falls.
+    build.launch_counts.clear()
+    cf_losses = [float(trainer.cf_step(att, *cf_batch, generator=mask_gen()))
+                 for _ in range(sizes.steps)]
+    cf_losses.append(float(trainer.cf_grad(att, *cf_batch,
+                                           generator=mask_gen())))
+    step_launches = dict(build.launch_counts)
+    kg_losses = [float(trainer.kg_step(*kg_batch)) for _ in range(sizes.steps)]
+    kg_losses.append(float(trainer.kg_grad(*kg_batch)))
+    for what, losses in (("CF", cf_losses), ("KG", kg_losses)):
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{what} losses not finite: {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{what} loss on a fixed batch did not fall "
+                                 f"over {sizes.steps} steps: {losses}")
+    expect_launches(dev, step_launches, {
+        "spmm_csr": (3 * (sizes.steps + 1),),
+        "spmm_csr_rev": (3 * (sizes.steps + 1),)}, "CF steps")
+
+    cf_ms = timer.host_ms(lambda: trainer.cf_step(att, *trainer.sample_cf()),
+                          5)
+
+    def plain_cf_step():
+        """The same step on the plain path: sample, loss, backward, Adam."""
+        u, i_pos, i_neg, weight = trainer.sample_cf()
+        trainer.opt.zero_grad(set_to_none=False)
+        kgat.cf_loss(model, trainer.graph, att, trainer.meta, u, i_pos,
+                     i_neg, plain, generator=trainer.generator,
+                     weight=weight).backward()
+        trainer.opt.step()
+    cf_plain_ms = timer.host_ms(plain_cf_step, 3)
+    kg_ms = timer.host_ms(lambda: trainer.kg_step(*trainer.sample_kg()), 10)
+    build.launch_counts.clear()
+    trainer._att = trainer.attention()
+    recompute_launches = dict(build.launch_counts)
+    expect_launches(dev, recompute_launches, {"sddmm_transr": (1,),
+                                              "segment_softmax_csr": (1,)},
+                    "attention recompute")
+    att_ms = timer.host_ms(trainer.attention, 5)
+    t0 = time.perf_counter()
+    metrics = trainer.evaluate()
+    eval_s = time.perf_counter() - t0
+    for key in ("recall", "ndcg"):
+        if not 0.0 <= metrics[key] <= 1.0:
+            raise AssertionError(f"{key}@20 = {metrics[key]}")
+    return (f"first CF step, kernel path vs float64 plain path: {cf_errs}; "
+            f"first KG step: "
+            f"{kg_errs}; {sizes.steps} CF steps on a fixed batch, loss "
+            f"{cf_losses[0]:.5f} -> {cf_losses[-1]:.5f}, launches "
+            f"{step_launches}; {sizes.steps} KG steps, loss "
+            f"{kg_losses[0]:.5f} -> {kg_losses[-1]:.5f}; CF step (sample + "
+            f"step) median {cf_ms:.2f} ms (plain path {cf_plain_ms:.2f} ms), "
+            f"KG step {kg_ms:.2f} ms, attention "
+            f"recompute {att_ms:.2f} ms (launches {recompute_launches}), "
+            f"evaluate {eval_s:.2f} s: recall@20 {metrics['recall']:.4f}, "
+            f"ndcg@20 {metrics['ndcg']:.4f}")
+
+
+class LayerProducts(torch.overrides.TorchFunctionMode):
+    """Records each product Z = X @ W of a layer weight W made inside it,
+    so that the magnitudes of the terms W's gradient sums over the nodes
+    (|X|^T |dZ|), and the bias added to Z sums (the column sums of
+    |dZ|), are at hand once dZ is."""
+
+    def __init__(self, params: dict):
+        super().__init__()
+        self.names = {id(p): n for n, p in params.items()
+                      if n.rsplit(".", 1)[-1].startswith("w")
+                      and n.startswith("layers.")}
+        self.found = []   # (weight name, X, Z)
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        # ``x @ w`` arrives as Tensor.matmul or __matmul__ by torch version.
+        if (getattr(func, "__name__", "") in ("matmul", "__matmul__")
+                and len(args) == 2 and id(args[1]) in self.names):
+            self.found.append((self.names[id(args[1])], args[0].detach(),
+                               out))
+        return out
+
+    def term_magnitudes(self, d_outs) -> dict:
+        terms = {}
+        for (name, x, _), dz in zip(self.found, d_outs):
+            if dz is None:
+                continue
+            head, leaf = name.rsplit(".", 1)
+            bias = f"{head}.b{leaf[1:]}"
+            terms[name] = terms.get(name, 0) + x.abs().T @ dz.abs()
+            terms[bias] = terms.get(bias, 0) + dz.abs().sum(0)
+        return terms
+
+
+def compare_step(what, loss_k, loss_p, names, grads_k, grads_p, terms,
+                 check, length) -> str:
+    """Losses to LOSS_RTOL; each parameter's gradient against the float64
+    plain path's. A layer weight's or bias's gradient is a sum over the
+    nodes whose term magnitudes ``terms`` holds: it is held to
+    :func:`sum_bound` with twice ``length`` roundings (the sum, and as many
+    again for its inputs, themselves sums); the rest to :func:`stat_bound`."""
+    if not math.isfinite(loss_k) or abs(loss_k - loss_p) > LOSS_RTOL * abs(
+            loss_p):
+        raise AssertionError(f"{what} loss kernel {loss_k} vs plain {loss_p}")
+    worst = (0.0, -1.0, "")
+    for name, a, b in zip(names, grads_k, grads_p):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{what} gradient of {name} not finite")
+        bound = (sum_bound(b, terms[name], 2 * length) if name in terms
+                 else stat_bound(b, length))
+        _, _, share = check.bounded(f"{what} step", name, a, b, bound)
+        if share > worst[1]:
+            worst = (float((a.double() - b).abs().max()), share, name)
+    return (f"loss {loss_k:.6f} vs {loss_p:.6f}, worst gradient {worst[2]} "
+            f"max abs err {worst[0]:.2e} ({worst[1]:.3f} of its bound)")
 
 
 if __name__ == "__main__":

@@ -16,6 +16,13 @@ the real edges only, in the shape a Hopper kernel walks:
   ranges of ``rel_perm`` with ``count <= rel_tile``. No tile spans two
   relations, so a thread block stages one relation's W_r once. Nothing is
   padded.
+* **The reverse CSR**, for the SpMM's gradient w.r.t. its features:
+  ``rev_perm`` lists the canonical edge ids sorted stably by src,
+  ``rev_row_offsets`` is the CSR over sources and ``rev_dst`` is
+  ``dst[rev_perm]``. The out-edges of node u are ``rev_perm[
+  rev_row_offsets[u]:rev_row_offsets[u+1]]``, so the backward is the same
+  row-wise SpMM, reading ``g`` at each edge's dst (the counterpart of
+  ``kgat_tpu.graph``'s ``rev_layout``).
 
 Edge orientation and relation numbering are those of ``kgat_tpu``: a
 triple (h, r, t) is the message edge t -> h; its inverse has relation
@@ -52,6 +59,9 @@ class Graph:
     rel_perm: torch.Tensor     # (E,) int32 canonical edge ids grouped by relation
     tiles: torch.Tensor        # (n_tiles, 3) int32 (relation, start, count) in rel_perm
     rel_offsets: Tuple[int, ...]  # (n_relations + 1,) rel_perm range per relation
+    rev_perm: torch.Tensor     # (E,) int32 canonical edge ids sorted by src
+    rev_row_offsets: torch.Tensor  # (n_nodes + 1,) int32 CSR offsets over src
+    rev_dst: torch.Tensor      # (E,) int32 dst[rev_perm]
     n_nodes: int
     n_relations: int
 
@@ -112,13 +122,33 @@ def build_graph(src: np.ndarray, dst: np.ndarray, etype: np.ndarray,
     rel_perm = np.argsort(etype, kind="stable")
     rel_offsets = np.searchsorted(etype[rel_perm], np.arange(n_relations + 1),
                                   side="left")
+    rev_perm = np.argsort(src, kind="stable")
+    rev_row_offsets = np.searchsorted(src[rev_perm], np.arange(n_nodes + 1),
+                                      side="left")
     as32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))  # noqa: E731
     return Graph(
         src=as32(src), dst=as32(dst), etype=as32(etype),
         row_offsets=as32(row_offsets), rel_perm=as32(rel_perm),
         tiles=torch.from_numpy(_relation_tiles(rel_offsets, rel_tile)),
         rel_offsets=tuple(int(x) for x in rel_offsets),
+        rev_perm=as32(rev_perm), rev_row_offsets=as32(rev_row_offsets),
+        rev_dst=as32(dst[rev_perm]),
         n_nodes=int(n_nodes), n_relations=int(n_relations))
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeWeights:
+    """Edge weights staged for the SpMM and its backward: ``fwd`` in
+    canonical order and ``rev`` = ``fwd[graph.rev_perm]``, the order of
+    the reverse CSR. Made once per attention recompute (the counterpart
+    of ``kgat_tpu.ops.pallas_backend.EdgeWeights``)."""
+
+    fwd: torch.Tensor
+    rev: torch.Tensor
+
+    @staticmethod
+    def stage(graph: Graph, w: torch.Tensor) -> "EdgeWeights":
+        return EdgeWeights(fwd=w, rev=w[graph.rev_perm.long()].contiguous())
 
 
 @dataclasses.dataclass(frozen=True)

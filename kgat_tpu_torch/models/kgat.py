@@ -1,21 +1,23 @@
-"""KGAT serving forward as a PyTorch module.
+"""KGAT as a PyTorch module: the serving forward and the training losses.
 
-Port of the inference half of ``kgat_tpu/models/kgat.py``:
+Port of ``kgat_tpu/models/kgat.py``:
 
   (A4) attention logit   pi(h,r,t) = (W_r e_t)^T tanh(W_r e_h + e_r)
   (A5) edge softmax      per-dst segment softmax (edges oriented t -> h)
   (A1-A3) propagation    GCN / GraphSage / bi-interaction aggregators
   final representation   e* = e^(0) || norm(e^(1)) || ... || norm(e^(L))
+  BPR CF loss (eq.13), TransR KG loss (eqs.1-2)
 
 Parameters keep the JAX package's names and layouts (``w_rel`` is
 (R, d, k); a layer weight is (d_in, d_out), not ``nn.Linear``'s
 transpose), so :func:`params_from_jax` is a plain copy and the two
 packages can be compared array for array. The layer-output handling is
-the JAX package's: the L2-normalised copy of each layer's output goes into
-the concat, the initial embedding enters it unnormalised.
+the JAX package's: message dropout applies to the layer output that feeds
+the next layer, the L2-normalised copy of it goes into the concat, and the
+initial embedding enters the concat unnormalised.
 
-Message dropout, the losses and gradients belong to training, which is not
-ported yet: :func:`propagate` is the eval-mode forward.
+Randomness comes from explicit ``torch.Generator``s: the dropout masks of
+:func:`propagate` from the one passed in (on the graph's device).
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from kgat_tpu_torch.graph import CKGMeta, Graph
+from kgat_tpu_torch.graph import CKGMeta, EdgeWeights, Graph
 from kgat_tpu_torch.ops import BACKENDS, get_backend
 
 AGGREGATORS = ("gcn", "graphsage", "bi-interaction")
@@ -35,13 +38,16 @@ AGGREGATORS = ("gcn", "graphsage", "bi-interaction")
 
 @dataclasses.dataclass(frozen=True)
 class KGATConfig:
-    """Reference hyperparameter recipe (the fields serving reads)."""
+    """Reference hyperparameter recipe (SURVEY.md §2.9)."""
 
     embed_dim: int = 64           # entity/user embedding dim d
     relation_dim: int = 64        # relation space dim k
     conv_dims: Tuple[int, ...] = (64, 32, 16)
+    mess_dropout: Tuple[float, ...] = (0.1, 0.1, 0.1)  # per layer, training
     aggregator: str = "bi-interaction"  # gcn | graphsage | bi-interaction
     leaky_relu_slope: float = 0.2
+    reg_cf: float = 1e-5
+    reg_kg: float = 1e-5
     ops_backend: str = "ref"            # ref | hopper
     # SpMM value-stream dtype on the hopper backend (None = float32;
     # torch.bfloat16 halves the gathered bytes, accumulation stays f32).
@@ -182,18 +188,34 @@ def _l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.sqrt(torch.clamp((x * x).sum(-1, keepdim=True), min=eps))
 
 
-def propagate(model: KGAT, graph: Graph, edge_att: torch.Tensor,
-              cfg: KGATConfig) -> torch.Tensor:
+def attention_for_training(model: KGAT, graph: Graph,
+                           cfg: KGATConfig) -> EdgeWeights:
+    """Per-epoch attention recompute, no grad, staged for the hot loop:
+    canonical weights and their reverse-CSR order, which the SpMM's
+    backward reads (``kgat_tpu``'s ``attention_for_training``)."""
+    with torch.no_grad():
+        return EdgeWeights.stage(graph, compute_attention(model, graph, cfg))
+
+
+def propagate(model: KGAT, graph: Graph, edge_att, cfg: KGATConfig, *,
+              train: bool = False,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """L-layer attentive propagation -> (n_nodes, cfg.out_dim).
 
     SpMM per layer: e_N(h) = sum over edges (t -> h) of att * e_t.
+    ``edge_att`` is canonical (E,) weights or staged :class:`EdgeWeights`.
+    ``train=True`` applies message dropout, with masks drawn from
+    ``generator`` (on the graph's device).
     """
     ops = get_backend(cfg.ops_backend)
     low = cfg.compute_dtype if cfg.ops_backend == "hopper" else None
     slope = cfg.leaky_relu_slope
+    if train and len(cfg.mess_dropout) != len(cfg.conv_dims):
+        raise ValueError(f"{len(cfg.mess_dropout)} dropout rates for "
+                         f"{len(cfg.conv_dims)} layers")
     ego = model.entity_embed
     outs = [ego]
-    for layer in model.layers:
+    for li, layer in enumerate(model.layers):
         side = ops.spmm(graph, edge_att, ego if low is None else ego.to(low))
         if cfg.aggregator == "gcn":
             ego = _leaky((ego + side) @ layer["w"] + layer["b"], slope)
@@ -203,6 +225,13 @@ def propagate(model: KGAT, graph: Graph, edge_att: torch.Tensor,
         else:  # bi-interaction
             ego = (_leaky((ego + side) @ layer["w1"] + layer["b1"], slope)
                    + _leaky((ego * side) @ layer["w2"] + layer["b2"], slope))
+        if train and cfg.mess_dropout[li] > 0:
+            if generator is None:
+                raise ValueError("propagate(train=True) needs a generator")
+            keep = 1.0 - cfg.mess_dropout[li]
+            mask = torch.rand(ego.shape, generator=generator,
+                              device=ego.device) < keep
+            ego = torch.where(mask, ego / keep, 0.0)
         outs.append(_l2norm(ego))
     return torch.cat(outs, dim=-1)
 
@@ -211,3 +240,74 @@ def cf_scores(all_embed: torch.Tensor, meta: CKGMeta, users: torch.Tensor,
               items: torch.Tensor) -> torch.Tensor:
     """y(u, i) = <e*_u, e*_i> for aligned index tensors (paper eq.12)."""
     return (all_embed[meta.user_node(users)] * all_embed[items]).sum(-1)
+
+
+# ---------------------------------------------------------------------------
+# CF (BPR) and KG (TransR) losses.
+# ---------------------------------------------------------------------------
+
+def _l2_reg_mean(*tensors: torch.Tensor) -> torch.Tensor:
+    """0.5 * sum of squares, averaged over the batch (torch-reference
+    style)."""
+    b = tensors[0].shape[0]
+    return sum(0.5 * (t.float() ** 2).sum() for t in tensors) / b
+
+
+def _weighted_mean(terms: torch.Tensor,
+                   weight: Optional[torch.Tensor]) -> torch.Tensor:
+    if weight is None:
+        return terms.mean()
+    return (terms * weight).sum() / weight.sum().clamp(min=1.0)
+
+
+def cf_loss(model: KGAT, graph: Graph, edge_att, meta: CKGMeta,
+            users: torch.Tensor, pos_items: torch.Tensor,
+            neg_items: torch.Tensor, cfg: KGATConfig, *,
+            generator: Optional[torch.Generator] = None, train: bool = True,
+            weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """BPR loss over a minibatch with full-graph propagation (SURVEY.md
+    §3.3). ``weight`` (B,) optionally down-weights batch rows (the device
+    sampler gives weight 0 to a row with no allowed negative)."""
+    all_embed = propagate(model, graph, edge_att, cfg, train=train,
+                          generator=generator)
+    u = all_embed[meta.user_node(users)]
+    ip = all_embed[pos_items]
+    ineg = all_embed[neg_items]
+    bpr = -F.logsigmoid((u * ip).sum(-1) - (u * ineg).sum(-1))
+    return _weighted_mean(bpr, weight) + cfg.reg_cf * _l2_reg_mean(u, ip,
+                                                                   ineg)
+
+
+def kg_pair_terms_rows(eh: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,
+                       e_r: torch.Tensor, w_r: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-based TransR core: per-pair losses and the 0.5 * sum-of-squares
+    regularizer from gathered rows — eh/ep/en (B, d) head, positive and
+    negative tail rows, e_r (B, k), w_r (B, d, k)."""
+    proj = lambda e: torch.einsum("bd,bdk->bk", e, w_r)  # noqa: E731
+    ph, pp, pn = proj(eh), proj(ep), proj(en)
+    g_pos = ((ph + e_r - pp) ** 2).sum(-1)
+    g_neg = ((ph + e_r - pn) ** 2).sum(-1)
+    pair = -F.logsigmoid(g_neg - g_pos)
+    ssq = sum(0.5 * (t.float() ** 2).sum() for t in (ph, e_r, pp, pn))
+    return pair, ssq
+
+
+def kg_pair_terms(model: KGAT, h: torch.Tensor, r: torch.Tensor,
+                  t_pos: torch.Tensor, t_neg: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """TransR per-pair loss terms and regularizer sum for index tensors."""
+    emb = model.entity_embed
+    return kg_pair_terms_rows(emb[h], emb[t_pos], emb[t_neg],
+                              model.rel_embed[r], model.w_rel[r])
+
+
+def kg_loss(model: KGAT, h: torch.Tensor, r: torch.Tensor,
+            t_pos: torch.Tensor, t_neg: torch.Tensor, cfg: KGATConfig,
+            weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """TransR pairwise loss (paper eqs.1-2): plausibility g(h,r,t) =
+    ||W_r e_h + e_r - W_r e_t||^2, minimise -log sigmoid(g(h,r,t-) -
+    g(h,r,t+)), plus ``reg_kg`` times the mean regularizer. No graph ops
+    (SURVEY.md §3.4)."""
+    pair, ssq = kg_pair_terms(model, h, r, t_pos, t_neg)
+    return _weighted_mean(pair, weight) + cfg.reg_kg * ssq / h.shape[0]

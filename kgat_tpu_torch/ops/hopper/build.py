@@ -1,9 +1,10 @@
 """Build and load the Hopper kernel library; checks shared by the wrappers.
 
 The kernels are CUDA C++ in ``csrc/*.cu`` with a plain C interface. At
-first use they are compiled with nvcc for sm_90a into one shared library
-under ``build/`` (gitignored) and loaded with ``ctypes``; the library is
-rebuilt when a source is newer than it. Nothing is compiled at import:
+first use they are compiled with nvcc for sm_90a, one process per source
+in parallel, and linked into one shared library under ``build/``
+(gitignored), loaded with ``ctypes``; the library is rebuilt when a source
+is newer than it. Nothing is compiled at import:
 this module, like every wrapper, imports on a machine without CUDA.
 
 Every C entry point launches on the stream it is given and returns
@@ -27,7 +28,8 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libkgat_hopper.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # Kernel launches per wrapper, counted where each wrapper launches its
 # kernel. Callers clear it to see which kernels a run went through.
@@ -43,6 +45,12 @@ _SIGNATURES = {
     "kgat_sddmm_transr": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # row_offsets, logits, out, n_rows, stream
     "kgat_segment_softmax_csr": (_P, _P, _P, _I, _P),
+    # row_offsets, w, g, out, n_rows, stream
+    "kgat_segment_softmax_csr_bwd": (_P, _P, _P, _P, _I, _P),
+    # rel_perm, tiles, tile_offsets, src, dst, row_offsets, rev_row_offsets,
+    # rev_perm, emb, w_rel, rel_embed, g, deh, det, part_w, part_er, d_emb,
+    # d_w, d_er, n_tiles, n_rel, n_nodes, d, k, stream
+    "kgat_sddmm_transr_bwd": (_P,) * 19 + (_I,) * 5 + (_P,),
 }
 
 
@@ -58,30 +66,48 @@ def _nvcc() -> str:
                        "to build the Hopper kernels")
 
 
+def _run(cmds) -> str:
+    """Run the commands all at once; return their joined stderr, or raise
+    RuntimeError naming the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {p.returncode}:\n"
+                               f"{' '.join(cmd)}\n{err}")
+    return "".join(err for _, err in outs)
+
+
 def build(force: bool = False) -> tuple:
     """Compile ``csrc/*.cu`` into the kernel library if it is missing or
-    older than a source. Returns (library path, build seconds, nvcc log);
-    seconds is 0.0 and the log empty when the library was up to date.
-    Raises RuntimeError when nvcc fails."""
+    older than a source: one nvcc per source, all started together, then
+    one link. Returns (library path, build seconds, nvcc log); seconds is
+    0.0 and the log empty when the library was up to date. Raises
+    RuntimeError when nvcc fails."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     deps = sources + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
     if (not force and os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH)
             >= max(os.path.getmtime(p) for p in deps)):
         return LIB_PATH, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(s)[:-3] + f".{tag}.o")
+            for s in sources]
+    tmp = f"{LIB_PATH}.{tag}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                    for src, obj in zip(sources, objs)])
+        _run([[nvcc, *LINK_FLAGS, "-o", tmp, *objs]])
         os.replace(tmp, LIB_PATH)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return LIB_PATH, time.perf_counter() - t0, proc.stderr
+        for path in (*objs, tmp):
+            if os.path.exists(path):
+                os.unlink(path)
+    return LIB_PATH, time.perf_counter() - t0, log
 
 
 @functools.cache
@@ -112,7 +138,11 @@ def use_kernel(name: str, *tensors: torch.Tensor) -> bool:
     """Route a wrapper call: False when every input lies on the CPU (the
     wrapper takes the plain version), True when all lie on one CUDA device
     (it launches the kernel). Raises for mixed or other devices, and for an
-    input that would need a gradient: the kernels have no backward yet."""
+    input that would need a gradient: a launch wrapper records nothing for
+    autograd. The differentiable ops (``segment_sum.spmm``,
+    ``sddmm.attention_logits``, ``softmax.segment_softmax``) call the
+    wrappers inside their ``autograd.Function``s, where grad mode is off,
+    and give the gradient by their backward kernels."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs lie on several devices {devices}")
@@ -122,8 +152,9 @@ def use_kernel(name: str, *tensors: torch.Tensor) -> bool:
     if device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name}: the kernel has no backward; call it "
-                           f"under torch.no_grad()")
+        raise RuntimeError(f"{name}: the launch wrapper has no backward; "
+                           f"call it under torch.no_grad() or differentiate "
+                           f"through kgat_tpu_torch.ops.hopper_backend")
     return True
 
 

@@ -61,6 +61,36 @@ segment_softmax_csr_kernel(const int* __restrict__ row_offsets,
   for (int e = lo + lane; e < hi; e += 32) out[e] = expf(logits[e] - m) / s;
 }
 
+// K5: the backward of K3, d_logit[e] = w[e] * (g[e] - sum_row w * g).
+//
+// Replaces kgat_tpu/ops/pallas/softmax.py::_wsum_kernel and _dlogit_kernel
+// (segment_softmax_aligned_bwd): two TPU passes over the aligned layout,
+// with the row sums stored between them. Here one warp owns a CSR row:
+// pass 1 sums w * g per lane and merges the lanes with a fixed shuffle
+// tree, pass 2 writes w * (g - s). Bounded by bytes like K3 (two reads of
+// w and g, one write: 20 bytes per edge); the sum order is fixed, so two
+// calls are bit-identical. Empty rows own no edge and write nothing.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+segment_softmax_csr_bwd_kernel(const int* __restrict__ row_offsets,
+                               const float* __restrict__ w,
+                               const float* __restrict__ g,
+                               float* __restrict__ out, int n_rows) {
+  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= n_rows) return;  // whole warps exit together
+  const int lo = row_offsets[row];
+  const int hi = row_offsets[row + 1];
+  if (lo >= hi) return;
+
+  float s = 0.f;
+#pragma unroll 4
+  for (int e = lo + lane; e < hi; e += 32) s = fmaf(w[e], g[e], s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFullMask, s, off);
+#pragma unroll 4
+  for (int e = lo + lane; e < hi; e += 32) out[e] = w[e] * (g[e] - s);
+}
+
 }  // namespace
 
 extern "C" int kgat_segment_softmax_csr(const void* row_offsets,
@@ -72,5 +102,18 @@ extern "C" int kgat_segment_softmax_csr(const void* row_offsets,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(row_offsets), static_cast<const float*>(logits),
       static_cast<float*>(out), n_rows);
+  return cudaGetLastError();
+}
+
+extern "C" int kgat_segment_softmax_csr_bwd(const void* row_offsets,
+                                            const void* w, const void* g,
+                                            void* out, int n_rows,
+                                            void* stream) {
+  if (n_rows <= 0) return cudaErrorInvalidValue;
+  const dim3 grid((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  segment_softmax_csr_bwd_kernel<<<grid, kWarpsPerBlock * 32, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(row_offsets), static_cast<const float*>(w),
+      static_cast<const float*>(g), static_cast<float*>(out), n_rows);
   return cudaGetLastError();
 }

@@ -1,9 +1,11 @@
-"""K3 wrapper: per-destination segment softmax over the CSR
-(``csrc/softmax.cu``).
+"""K3 and K5 wrappers: per-destination segment softmax over the CSR and
+its backward (``csrc/softmax.cu``).
 
-Replaces ``kgat_tpu/ops/pallas/softmax.py::_max_kernel``,
-``_expsum_kernel`` and ``_norm_kernel``. The serving forward calls it once,
-to normalise the attention logits.
+K3 replaces ``kgat_tpu/ops/pallas/softmax.py::_max_kernel``,
+``_expsum_kernel`` and ``_norm_kernel``; K5 replaces ``_wsum_kernel`` and
+``_dlogit_kernel`` (``segment_softmax_aligned_bwd``). The serving forward
+and each attention recompute call K3 once; K5 runs where the attention
+itself is differentiated (:func:`segment_softmax`).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import ctypes
 
 import torch
 
+from kgat_tpu_torch.graph import Graph
 from kgat_tpu_torch.ops import ref
 from kgat_tpu_torch.ops.hopper import build
 
@@ -26,6 +29,7 @@ def segment_softmax_csr_plain(row_offsets: torch.Tensor,
 def segment_softmax_csr(row_offsets: torch.Tensor,
                         logits: torch.Tensor) -> torch.Tensor:
     """Softmax of ``logits`` within each CSR row -> (E,) float32 weights.
+    Forward only: :func:`segment_softmax` has the backward.
 
     row_offsets: (n_rows + 1,) int32 offsets, from 0 to E; logits: (E,)
     float32 in CSR (canonical) order. CPU tensors take
@@ -47,3 +51,60 @@ def segment_softmax_csr(row_offsets: torch.Tensor,
     build.check_launch(lib, code, "segment_softmax_csr")
     build.launch_counts["segment_softmax_csr"] += 1
     return out
+
+
+def segment_softmax_csr_bwd_plain(row_offsets: torch.Tensor, w: torch.Tensor,
+                                  g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`segment_softmax_csr_bwd` (in
+    float64 when the inputs are)."""
+    return ref.segment_softmax_coo_bwd(ref.offsets_to_dst(row_offsets), w, g,
+                                       row_offsets.numel() - 1)
+
+
+def segment_softmax_csr_bwd(row_offsets: torch.Tensor, w: torch.Tensor,
+                            g: torch.Tensor) -> torch.Tensor:
+    """K5: d_logit = w * (g - sum over the row of w * g) -> (E,) float32.
+
+    w: (E,) float32 softmax output (from :func:`segment_softmax_csr`); g:
+    (E,) float32 cotangent of ``w``; both in CSR order. CPU tensors take
+    :func:`segment_softmax_csr_bwd_plain`; CUDA tensors launch the kernel.
+    """
+    if not build.use_kernel("segment_softmax_csr_bwd", row_offsets, w, g):
+        return segment_softmax_csr_bwd_plain(row_offsets, w, g)
+    build.check_tensor("row_offsets", row_offsets, (torch.int32,), 1)
+    build.check_tensor("w", w, (torch.float32,), 1)
+    build.check_tensor("g", g, (torch.float32,), 1)
+    if w.shape != g.shape:
+        raise ValueError(f"w {tuple(w.shape)} != g {tuple(g.shape)}")
+    out = torch.empty_like(w)
+    n_rows = row_offsets.numel() - 1
+    if n_rows == 0 or w.numel() == 0:
+        return out
+    lib = build.library()
+    with torch.cuda.device(w.device):
+        code = lib.kgat_segment_softmax_csr_bwd(
+            row_offsets.data_ptr(), w.data_ptr(), g.data_ptr(),
+            out.data_ptr(), n_rows, ctypes.c_void_p(build.stream_ptr(w.device)))
+    build.check_launch(lib, code, "segment_softmax_csr_bwd")
+    build.launch_counts["segment_softmax_csr_bwd"] += 1
+    return out
+
+
+class _SegmentSoftmax(torch.autograd.Function):
+    """K3 forward, K5 backward."""
+
+    @staticmethod
+    def forward(ctx, logits, row_offsets):
+        w = segment_softmax_csr(row_offsets, logits)
+        ctx.save_for_backward(row_offsets, w)
+        return w
+
+    @staticmethod
+    def backward(ctx, g):
+        row_offsets, w = ctx.saved_tensors
+        return segment_softmax_csr_bwd(row_offsets, w, g.contiguous()), None
+
+
+def segment_softmax(graph: Graph, logits: torch.Tensor) -> torch.Tensor:
+    """Per-dst softmax of canonical-order logits, differentiable."""
+    return _SegmentSoftmax.apply(logits, graph.row_offsets)

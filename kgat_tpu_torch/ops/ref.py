@@ -11,11 +11,11 @@ The port's graph has no pad edges, so nothing here needs an edge mask.
 
 from __future__ import annotations
 
-from typing import Iterable, Tuple
+from typing import Iterable, Tuple, Union
 
 import torch
 
-from kgat_tpu_torch.graph import Graph
+from kgat_tpu_torch.graph import EdgeWeights, Graph
 
 
 def offsets_to_dst(row_offsets: torch.Tensor) -> torch.Tensor:
@@ -34,12 +34,15 @@ def segment_sum_coo(dst: torch.Tensor, vals: torch.Tensor,
 
 def spmm_coo(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
              x: torch.Tensor, n_nodes: int) -> torch.Tensor:
-    """out[v] = sum over edges (u -> v) of w[e] * x[u], in float32.
+    """out[v] = sum over edges (u -> v) of w[e] * x[u], in float32 (in
+    float64 when ``w`` or ``x`` is).
 
     A bfloat16 ``x`` is widened to float32 before the multiply, as the
     kernel does, so the two see the same products.
     """
-    msgs = x.index_select(0, src).float() * w.float()[:, None]
+    dt = torch.promote_types(torch.promote_types(x.dtype, w.dtype),
+                             torch.float32)
+    msgs = x.index_select(0, src).to(dt) * w.to(dt)[:, None]
     return segment_sum_coo(dst, msgs, n_nodes)
 
 
@@ -58,6 +61,15 @@ def segment_softmax_coo(dst: torch.Tensor, logits: torch.Tensor,
     return shifted / denom[dst.long()]
 
 
+def segment_softmax_coo_bwd(dst: torch.Tensor, w: torch.Tensor,
+                            g: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Gradient of :func:`segment_softmax_coo` w.r.t. the logits, given its
+    output ``w`` and the cotangent ``g``: w * (g - sum over the row of
+    w * g) (``kgat_tpu.ops.pallas.softmax.segment_softmax_aligned_bwd``)."""
+    row_sum = segment_sum_coo(dst, w * g, n_nodes)
+    return w * (g - row_sum[dst.long()])
+
+
 def transr_logits(rel_perm: torch.Tensor,
                   rel_ranges: Iterable[Tuple[int, int, int]],
                   src: torch.Tensor, dst: torch.Tensor, emb: torch.Tensor,
@@ -71,7 +83,8 @@ def transr_logits(rel_perm: torch.Tensor,
     edges, which share one W_r. (A per-edge ``w_rel[etype]`` gather would
     be an (E, d, k) tensor: 73 GB at yelp2018 scale.)
     """
-    out = torch.empty(rel_perm.shape[0], dtype=torch.float32,
+    out = torch.empty(rel_perm.shape[0],
+                      dtype=torch.promote_types(emb.dtype, torch.float32),
                       device=emb.device)
     for r, lo, hi in rel_ranges:
         if hi <= lo:
@@ -84,14 +97,53 @@ def transr_logits(rel_perm: torch.Tensor,
     return out
 
 
+def transr_logits_bwd(g: torch.Tensor, rel_perm: torch.Tensor,
+                      rel_ranges: Iterable[Tuple[int, int, int]],
+                      src: torch.Tensor, dst: torch.Tensor, emb: torch.Tensor,
+                      w_rel: torch.Tensor, rel_embed: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of :func:`transr_logits` w.r.t. (emb, w_rel, rel_embed)
+    given the logits' cotangent ``g``, one relation at a time
+    (``kgat_tpu.ops.pallas.sddmm._bwd_kernel``'s algebra):
+
+      s = tanh(W_r e_h + e_r);  d_pt = g s;  d_ph = g pt (1 - s^2)
+      d_e_h = d_ph W_r^T;  d_e_t = d_pt W_r^T
+      d_W_r = sum e_h^T d_ph + e_t^T d_pt;  d_e_r = sum d_ph
+    """
+    d_emb = torch.zeros_like(emb)
+    d_w = torch.zeros_like(w_rel)
+    d_er = torch.zeros_like(rel_embed)
+    for r, lo, hi in rel_ranges:
+        if hi <= lo:
+            continue
+        idx = rel_perm[lo:hi].long()
+        h, t = dst[idx].long(), src[idx].long()
+        eh, et, w_r = emb[h], emb[t], w_rel[r]
+        ph, pt = eh @ w_r, et @ w_r
+        s = torch.tanh(ph + rel_embed[r])
+        ge = g[idx].to(emb.dtype)[:, None]
+        d_pt = ge * s
+        d_ph = ge * pt * (1 - s * s)
+        d_emb.index_add_(0, h, d_ph @ w_r.T)
+        d_emb.index_add_(0, t, d_pt @ w_r.T)
+        d_w[r] = eh.T @ d_ph + et.T @ d_pt
+        d_er[r] = d_ph.sum(0)
+    return d_emb, d_w, d_er
+
+
 # --- graph-level API (the ``ref`` backend) ---------------------------------
 
 def segment_sum(graph: Graph, edge_vals: torch.Tensor) -> torch.Tensor:
     return segment_sum_coo(graph.dst, edge_vals, graph.n_nodes)
 
 
-def spmm(graph: Graph, edge_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """out[v] = sum over edges (u -> v) of edge_w[e] * x[u]."""
+def spmm(graph: Graph, edge_w: Union[torch.Tensor, EdgeWeights],
+         x: torch.Tensor) -> torch.Tensor:
+    """out[v] = sum over edges (u -> v) of edge_w[e] * x[u]; autograd
+    differentiates the gather and ``index_add_``. ``edge_w`` may be staged
+    :class:`EdgeWeights` (this path reads only their canonical order)."""
+    if isinstance(edge_w, EdgeWeights):
+        edge_w = edge_w.fwd
     return spmm_coo(graph.src, graph.dst, edge_w, x, graph.n_nodes)
 
 

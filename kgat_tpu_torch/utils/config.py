@@ -1,0 +1,224 @@
+"""Run configuration: a dataclass, argparse overrides and named presets.
+
+Port of ``kgat_tpu/utils/config.py`` with the same flags. The defaults are
+the reference recipe (SURVEY.md §2.9) on one GPU: ``--device cuda
+--ops-backend hopper``. Flags whose module is not ported yet are refused
+with the ROADMAP.md item that will bring them, never accepted and ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Optional
+
+import torch
+
+from kgat_tpu_torch.models.kgat import KGATConfig
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    # data
+    dataset: str = "synthetic"          # synthetic | amazon-book | last-fm | yelp2018
+    data_root: str = "datasets"
+    # model (SURVEY.md §2.9 reference defaults)
+    model: KGATConfig = dataclasses.field(
+        default_factory=lambda: KGATConfig(ops_backend="hopper"))
+    # optimization: one dense Adam over every parameter, both phases
+    lr: float = 1e-4
+    cf_batch_size: int = 1024
+    kg_batch_size: int = 2048
+    epochs: int = 1000
+    eval_every: int = 10
+    stopping_steps: int = 10            # bad evals on recall@K before stop
+    k: int = 20
+    ks: tuple = ()                      # extra report-only cutoffs, e.g. (40, 100)
+    test_block: int = 2048
+    seed: int = 1234
+    # infra
+    device: str = "cuda"                # cuda | cpu (the plain path)
+    log_dir: Optional[str] = "runs"
+    run_name: str = "kgat"
+    ckpt_path: Optional[str] = None     # defaults to <log_dir>/<run_name>_best
+    profile_epochs: int = 0             # torch.profiler trace of the first N epochs
+    # synthetic dataset scale (used when dataset == synthetic)
+    syn_users: int = 300
+    syn_items: int = 200
+    syn_entities: int = 500
+    syn_relations: int = 8
+    syn_interactions: int = 6000
+    syn_triples: int = 4000
+
+
+# The single-device run configs of kgat_tpu's PRESETS (BASELINE.json),
+# with the pallas backend replaced by the Hopper kernels.
+PRESETS = {
+    # 1: CPU-runnable smoke: 1-layer GCN, small graph
+    "smoke-gcn": dict(
+        dataset="synthetic", epochs=30, eval_every=5, lr=1e-3,
+        cf_batch_size=256, kg_batch_size=512,
+        model=KGATConfig(aggregator="gcn", conv_dims=(32,),
+                         mess_dropout=(0.1,), ops_backend="hopper"),
+    ),
+    # 2: reference recipe, 3-layer bi-interaction
+    "lastfm-bi": dict(dataset="last-fm",
+                      model=KGATConfig(aggregator="bi-interaction",
+                                       ops_backend="hopper")),
+    # 3: GraphSage ablation on Amazon-book
+    "amazon-graphsage": dict(dataset="amazon-book",
+                             model=KGATConfig(aggregator="graphsage",
+                                              ops_backend="hopper")),
+    # 4: Yelp2018 with device-side BPR sampling
+    "yelp-device-sampling": dict(dataset="yelp2018",
+                                 model=KGATConfig(
+                                     aggregator="bi-interaction",
+                                     ops_backend="hopper")),
+}
+
+_MULTI_GPU = ("multi-GPU training is not ported yet (ROADMAP.md queue 1, "
+              "item 13, multi-GPU)")
+
+# (flag as named to the user, test on the parsed args, why it is refused)
+_UNPORTED = (
+    ("--preset yelp-partitioned", lambda a: a.preset == "yelp-partitioned",
+     _MULTI_GPU),
+    ("--n-devices", lambda a: a.n_devices not in (None, 1), _MULTI_GPU),
+    ("--dp-replicas", lambda a: a.dp_replicas not in (None, 1), _MULTI_GPU),
+    ("--halo-exchange", lambda a: a.halo_exchange is not None, _MULTI_GPU),
+    ("--ring-transport", lambda a: a.ring_transport is not None, _MULTI_GPU),
+    ("--sparse-adam", lambda a: a.sparse_adam,
+     "lazy sparse Adam is not ported yet (ROADMAP.md queue 1, item 10)"),
+    ("--use-pretrain", lambda a: a.pretrain_path is not None,
+     "pretrain is not ported yet (ROADMAP.md queue 1, item 9)"),
+    ("--sampler host", lambda a: a.sampler == "host",
+     "the host samplers are not ported yet (ROADMAP.md queue 1, item 6)"),
+    ("--resume", lambda a: a.resume,
+     "the full-state checkpoint and resume are not ported yet (ROADMAP.md "
+     "queue 1, item 7)"),
+    ("--graph-cache", lambda a: a.graph_cache is not None,
+     "the npz graph cache is not ported yet (ROADMAP.md queue 1, item 2)"),
+    ("--att-impl dense", lambda a: a.att_impl == "dense",
+     "the dense-projection attention route is not ported (ROADMAP.md "
+     "queue 1, 'Not to port'); the port always runs the relation-tile "
+     "kernel"),
+)
+
+
+def parse_args(argv=None) -> TrainConfig:
+    p = argparse.ArgumentParser(
+        description="KGAT trainer (PyTorch, Hopper kernels)")
+    p.add_argument("--preset", choices=sorted(PRESETS) + ["yelp-partitioned"],
+                   default=None)
+    p.add_argument("--dataset", default=None)
+    p.add_argument("--data-root", default=None)
+    p.add_argument("--aggregator", default=None,
+                   choices=["gcn", "graphsage", "bi-interaction"])
+    p.add_argument("--conv-dims", default=None,
+                   help="comma-separated, e.g. 64,32,16")
+    p.add_argument("--mess-dropout", default=None, help="comma-separated")
+    p.add_argument("--embed-dim", type=int, default=None)
+    p.add_argument("--relation-dim", type=int, default=None)
+    p.add_argument("--reg-cf", type=float, default=None,
+                   help="L2 reg on CF embeddings (reference --regs[0])")
+    p.add_argument("--reg-kg", type=float, default=None,
+                   help="L2 reg on TransR triples (reference --regs[1])")
+    p.add_argument("--ops-backend", default=None, choices=["ref", "hopper"],
+                   help="hopper (default): the CUDA kernels; ref: plain "
+                        "PyTorch")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; cpu runs the plain "
+                        "PyTorch versions)")
+    p.add_argument("--att-impl", default=None,
+                   choices=["auto", "dense", "relblock"],
+                   help="attention logits route; the port has the "
+                        "relation-tile kernel only (auto = relblock)")
+    p.add_argument("--no-coalesce", action="store_true",
+                   help="accepted for kgat_tpu's command lines: the port "
+                        "never coalesces multi-edges")
+    p.add_argument("--compute-dtype", default=None, choices=["f32", "bf16"],
+                   help="SpMM value-stream dtype (hopper backend); bf16 "
+                        "halves the gathered bytes, accumulation stays f32")
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--cf-batch-size", type=int, default=None)
+    p.add_argument("--kg-batch-size", type=int, default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--eval-every", type=int, default=None)
+    p.add_argument("--stopping-steps", type=int, default=None)
+    p.add_argument("--k", type=int, default=None)
+    p.add_argument("--ks", default=None,
+                   help="comma-separated extra eval cutoffs; --k stays the "
+                        "early-stopping metric")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--sampler", default=None, choices=["device", "host"])
+    p.add_argument("--sparse-adam", action="store_true", default=None,
+                   help="not ported yet (ROADMAP.md queue 1, item 10)")
+    p.add_argument("--log-dir", default=None)
+    p.add_argument("--run-name", default=None)
+    p.add_argument("--resume", action="store_true",
+                   help="not ported yet (ROADMAP.md queue 1, item 7)")
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="1 only: multi-GPU is ROADMAP.md queue 1, item 13")
+    p.add_argument("--dp-replicas", type=int, default=None)
+    p.add_argument("--halo-exchange", default=None,
+                   choices=["allgather", "ring", "a2a"])
+    p.add_argument("--ring-transport", default=None,
+                   choices=["ppermute", "dma", "fused"])
+    p.add_argument("--use-pretrain", dest="pretrain_path", default=None,
+                   help="not ported yet (ROADMAP.md queue 1, item 9)")
+    p.add_argument("--profile-epochs", type=int, default=None,
+                   help="write a torch.profiler trace of the first N "
+                        "epochs into --log-dir")
+    p.add_argument("--graph-cache", default=None, metavar="DIR",
+                   help="not ported yet (ROADMAP.md queue 1, item 2)")
+    for f in ("users", "items", "entities", "relations", "interactions",
+              "triples"):
+        p.add_argument(f"--syn-{f}", type=int, default=None,
+                       help=f"synthetic dataset: number of {f}")
+    a = p.parse_args(argv)
+    for flag, given, why in _UNPORTED:
+        if given(a):
+            p.error(f"{flag}: {why}")
+
+    cfg = TrainConfig(**PRESETS[a.preset]) if a.preset else TrainConfig()
+    for field in ("dataset", "data_root", "lr", "cf_batch_size",
+                  "kg_batch_size", "epochs", "eval_every", "stopping_steps",
+                  "k", "seed", "device", "log_dir", "run_name",
+                  "profile_epochs", "syn_users", "syn_items", "syn_entities",
+                  "syn_relations", "syn_interactions", "syn_triples"):
+        v = getattr(a, field)
+        if v is not None:
+            setattr(cfg, field, v)
+    if a.ks:
+        cfg.ks = tuple(int(x) for x in a.ks.split(","))
+
+    m = {}
+    if a.aggregator:
+        m["aggregator"] = a.aggregator
+    if a.conv_dims:
+        m["conv_dims"] = tuple(int(x) for x in a.conv_dims.split(","))
+    if a.mess_dropout:
+        m["mess_dropout"] = tuple(float(x) for x in a.mess_dropout.split(","))
+    if a.embed_dim:
+        m["embed_dim"] = a.embed_dim
+    if a.relation_dim:
+        m["relation_dim"] = a.relation_dim
+    if a.reg_cf is not None:
+        m["reg_cf"] = a.reg_cf
+    if a.reg_kg is not None:
+        m["reg_kg"] = a.reg_kg
+    if a.ops_backend:
+        m["ops_backend"] = a.ops_backend
+    if a.compute_dtype:
+        m["compute_dtype"] = (torch.bfloat16 if a.compute_dtype == "bf16"
+                              else None)
+    if m:
+        if ("conv_dims" in m) != ("mess_dropout" in m):
+            base = m.get("conv_dims", cfg.model.conv_dims)
+            m.setdefault("mess_dropout", tuple(0.1 for _ in base))
+        cfg.model = dataclasses.replace(cfg.model, **m)
+    if len(cfg.model.conv_dims) != len(cfg.model.mess_dropout):
+        p.error(f"--conv-dims has {len(cfg.model.conv_dims)} layers but "
+                f"--mess-dropout has {len(cfg.model.mess_dropout)} rates; "
+                "they must match")
+    return cfg

@@ -28,5 +28,5 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n_modules, leaked = proc.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 12, proc.stdout
+    assert int(n_modules) >= 21, proc.stdout
     assert leaked.strip() == "[]", proc.stdout
