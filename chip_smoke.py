@@ -6,7 +6,7 @@ an H100, sm_90a):
 
     python3 chip_smoke.py
 
-Phases, each announced by a line ``[n/7] ...``:
+Phases, each announced by a line ``[n/8] ...``:
   1. device   — requires CUDA; prints nvidia-smi's name and power limit.
   2. build    — compiles the kernels from kgat_tpu_torch/ops/hopper/csrc.
   3. forward kernels (K1 SpMM, K2 SDDMM, K3 softmax) against their plain
@@ -28,13 +28,29 @@ Phases, each announced by a line ``[n/7] ...``:
                counts.
   7. the trainer CLI — ``kgat_tpu_torch.train.main`` for one epoch, then
                its best checkpoint served for the users of phase 4.
-Then a JSON line of per-kernel results and, last, the device JSON line.
+  8. the edge-partitioned trainer, P = 4 partitions on the card: the
+               ring kernels (K6 segment sum, K7 ring shift, K8 fused
+               reduce + send) against their plain versions on the real
+               ring buckets and on hand-made ones (K6 and K8's sums under
+               a float64 bound, K7 and K8's send bit-exact), with times;
+               attention and all_embed of every exchange against the
+               single-device paths; the first CF step of every exchange
+               (loss and gradients) and a KG step; the launch counts each
+               exchange predicts; then the trainer CLI for one epoch with
+               ``--n-devices 4 --halo-exchange ring --ring-transport fused``.
+Then a JSON line of per-kernel results (each kernel's launches on its
+path, error, time beside its plain version, the library call that
+computes the same function where there is one, and the bound: the least
+time the card could take for the same bytes or operations) and, last,
+the device JSON line.
 A failure prints ``chip_smoke: FAILED in phase n: ...`` and re-raises: the
 exit code is non-zero and the last line is not printed.
 
 ``run()`` takes the device, the sizes and the timer, so the phases after
 the build also run on the CPU at a tiny size with the plain versions
 (tests/test_torch_chip_smoke.py); ``main()`` refuses to run without CUDA.
+The rates behind the bounds are the H100 SXM's published peaks: 3.35 TB/s
+of HBM3 and 67 TFLOP/s of float32 outside the tensor cores.
 """
 
 from __future__ import annotations
@@ -62,15 +78,22 @@ from kgat_tpu_torch.models import kgat
 from kgat_tpu_torch.models.kgat import KGATConfig
 from kgat_tpu_torch.ops import ref
 from kgat_tpu_torch.ops.hopper import build
+from kgat_tpu_torch.ops.hopper.remote_ring import reduce_send, ring_shift
 from kgat_tpu_torch.ops.hopper.sddmm import (sddmm_transr, sddmm_transr_bwd,
                                              sddmm_transr_bwd_plain,
                                              sddmm_transr_plain)
-from kgat_tpu_torch.ops.hopper.segment_sum import (spmm_csr, spmm_csr_plain,
+from kgat_tpu_torch.ops.hopper.segment_sum import (segment_sum_csr, spmm_csr,
+                                                   spmm_csr_plain,
                                                    spmm_csr_rev)
 from kgat_tpu_torch.ops.hopper.softmax import (segment_softmax_csr,
                                                segment_softmax_csr_bwd,
                                                segment_softmax_csr_bwd_plain,
                                                segment_softmax_csr_plain)
+from kgat_tpu_torch.parallel import dp, halo
+from kgat_tpu_torch.parallel.partition import (build_ring_buckets,
+                                               partition_graph)
+from kgat_tpu_torch.sampler import (CFSampleTable, KGSampleTable,
+                                    sample_cf_batch, sample_kg_batch)
 from kgat_tpu_torch.utils.checkpoint import save_params
 from kgat_tpu_torch.utils.config import TrainConfig
 
@@ -127,7 +150,68 @@ KERNELS = {
                          "kgat_tpu/ops/pallas/sddmm.py:98"),
     "segment_softmax_csr_bwd": ("kgat_tpu_torch/ops/hopper/csrc/softmax.cu",
                                 "kgat_tpu/ops/pallas/softmax.py:180"),
+    "segment_sum_csr": ("kgat_tpu_torch/ops/hopper/csrc/segment_sum.cu",
+                        "kgat_tpu/ops/pallas/segment_sum.py:45"),
+    "ring_shift": ("kgat_tpu_torch/ops/hopper/csrc/remote_ring.cu",
+                   "kgat_tpu/ops/pallas/remote_ring.py:52"),
+    "reduce_send": ("kgat_tpu_torch/ops/hopper/csrc/remote_ring.cu",
+                    "kgat_tpu/ops/pallas/remote_ring.py:102"),
 }
+
+# The H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bandwidth and
+# float32 outside the tensor cores (every kernel here computes in f32).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+P_PARTS = 4                 # phase 8's partitions, all on the one card
+
+
+class Times:
+    """Per-kernel numbers of the JSON line, for one unit of work each
+    (K1: a forward's three launches; K1 rev: a CF step's backward; the
+    others: one launch): device ms of the kernel, its plain version and
+    the one PyTorch call that computes the same function (None where
+    there is none), and the bytes and operations that work needs, each
+    input read once and each output written once."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def add(self, name, ms, plain_ms, library_ms=None, nbytes=0, flops=0,
+            n=1):
+        r = self.rows.setdefault(name, dict(ms=0.0, plain_ms=0.0,
+                                            library_ms=None, bytes=0,
+                                            flops=0))
+        r["ms"] += n * ms
+        r["plain_ms"] += n * plain_ms
+        if library_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + n * library_ms
+        r["bytes"] += n * nbytes
+        r["flops"] += n * flops
+
+    def bound(self, name):
+        """(least ms on the card, "bytes" or "operations")."""
+        r = self.rows[name]
+        t_b, t_o = r["bytes"] / HBM_BYTES_PER_S, r["flops"] / F32_FLOPS
+        return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+    def line(self, name):
+        r = self.rows[name]
+        bound_ms, by = self.bound(name)
+        share = f", {bound_ms / r['ms']:.3f} of the bound" if r["ms"] else ""
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.3f} ms")
+        return (f"{name} kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
+                f"ms, library {lib}, bound {bound_ms:.4f} ms by {by}{share}")
+
+
+def spmm_bytes(n_rows, n_edges, n_in, d, elt=4):
+    """K1: x (n_in, d) read once, (src, w) per edge, the offsets, and the
+    (n_rows, d) f32 output."""
+    return n_in * d * elt + n_edges * 8 + (n_rows + 1) * 4 + n_rows * d * 4
+
+
+def csr_lengths(row_offsets):
+    return (row_offsets[1:] - row_offsets[:-1]).double()
 
 
 class CudaTimer:
@@ -172,7 +256,7 @@ class Progress:
 
     def phase(self, n: int, what: str):
         self.n = n
-        print(f"[{n}/7] {what} ...", flush=True)
+        print(f"[{n}/8] {what} ...", flush=True)
 
 
 class Check:
@@ -277,22 +361,31 @@ def check_kernels(g, label, check, gen, dev, timer, times=None):
         if times is not None:
             ms = timer.device_ms(lambda: spmm_csr(*a1), 20)
             plain_ms = timer.device_ms(lambda: spmm_csr_plain(*a1), 5)
-            print(f"[3/7] spmm_csr per call at d={dd} {dt}: kernel "
+            print(f"[3/8] spmm_csr per call at d={dd} {dt}: kernel "
                   f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
             if dt == torch.float32:
                 # A forward runs K1 at d = 64, 64, 32.
-                n = 2 if dd == 64 else 1
-                times["spmm_csr"][0] += n * ms
-                times["spmm_csr"][1] += n * plain_ms
+                csr = torch.sparse_csr_tensor(g.row_offsets, g.src, att,
+                                              (g.n_nodes, g.n_nodes))
+                lib_ms = timer.device_ms(lambda: torch.sparse.mm(csr, x), 5)
+                times.add("spmm_csr", ms, plain_ms, lib_ms,
+                          spmm_bytes(g.n_nodes, g.n_edges, g.n_nodes, dd),
+                          2 * g.n_edges * dd, n=2 if dd == 64 else 1)
     if times is not None:
-        times["sddmm_transr"] = [
-            timer.device_ms(lambda: sddmm_transr(*a2), 20),
-            timer.device_ms(lambda: sddmm_transr_plain(*a2), 5)]
-        times["segment_softmax_csr"] = [
-            timer.device_ms(lambda: segment_softmax_csr(g.row_offsets,
-                                                        logits), 20),
-            timer.device_ms(lambda: segment_softmax_csr_plain(g.row_offsets,
-                                                              logits), 5)]
+        n_rel = g.n_relations
+        times.add("sddmm_transr",
+                  timer.device_ms(lambda: sddmm_transr(*a2), 20),
+                  timer.device_ms(lambda: sddmm_transr_plain(*a2), 5),
+                  nbytes=(g.n_nodes * d + n_rel * (d * k + k)
+                          + 4 * g.n_edges) * 4 + g.tiles.numel() * 4,
+                  flops=g.n_edges * (4 * d * k + 3 * k))
+        times.add("segment_softmax_csr",
+                  timer.device_ms(lambda: segment_softmax_csr(g.row_offsets,
+                                                              logits), 20),
+                  timer.device_ms(lambda: segment_softmax_csr_plain(
+                      g.row_offsets, logits), 5),
+                  nbytes=2 * g.n_edges * 4 + (g.n_nodes + 1) * 4,
+                  flops=5 * g.n_edges)
     return e2, e3, errs, att
 
 
@@ -320,11 +413,14 @@ def check_backward_kernels(g, att, label, check, gen, dev, timer,
         check_identical("spmm_csr_rev", got, again)
         del want, terms
         if times is not None:
-            ms = timer.device_ms(lambda: spmm_csr_rev(*a1), 20)
-            plain_ms = timer.device_ms(lambda: spmm_csr_plain(*a1), 5)
-            n = 2 if dd == 64 else 1
-            times["spmm_csr_rev"][0] += n * ms
-            times["spmm_csr_rev"][1] += n * plain_ms
+            csr = torch.sparse_csr_tensor(g.rev_row_offsets, g.rev_dst,
+                                          rev_w, (g.n_nodes, g.n_nodes))
+            times.add("spmm_csr_rev",
+                      timer.device_ms(lambda: spmm_csr_rev(*a1), 20),
+                      timer.device_ms(lambda: spmm_csr_plain(*a1), 5),
+                      timer.device_ms(lambda: torch.sparse.mm(csr, cot), 5),
+                      spmm_bytes(g.n_nodes, g.n_edges, g.n_nodes, dd),
+                      2 * g.n_edges * dd, n=2 if dd == 64 else 1)
 
     d = k = 64
     emb, w_rel, rel_embed = random_inputs(g.n_nodes, g.n_relations, d, k,
@@ -344,9 +440,14 @@ def check_backward_kernels(g, att, label, check, gen, dev, timer,
         check_identical(f"sddmm_transr_bwd {name}", a, c)
     del got, again, want
     if times is not None:
-        times["sddmm_transr_bwd"] = [
-            timer.device_ms(lambda: sddmm_transr_bwd(*a4), 5),
-            timer.device_ms(lambda: sddmm_transr_bwd_plain(*a4), 2)]
+        n_rel = g.n_relations
+        times.add("sddmm_transr_bwd",
+                  timer.device_ms(lambda: sddmm_transr_bwd(*a4), 5),
+                  timer.device_ms(lambda: sddmm_transr_bwd_plain(*a4), 2),
+                  nbytes=(2 * g.n_nodes * d + 2 * n_rel * (d * k + k)
+                          + 5 * g.n_edges + 2 * (g.n_nodes + 1)) * 4
+                  + g.tiles.numel() * 4,
+                  flops=12 * d * k * g.n_edges)
 
     cot = torch.randn(g.n_edges, generator=gen).to(dev)
     got = segment_softmax_csr_bwd(g.row_offsets, att, cot)
@@ -367,11 +468,13 @@ def check_backward_kernels(g, att, label, check, gen, dev, timer,
                                  bound)
     check_identical("segment_softmax_csr_bwd", got, again)
     if times is not None:
-        times["segment_softmax_csr_bwd"] = [
-            timer.device_ms(lambda: segment_softmax_csr_bwd(
-                g.row_offsets, att, cot), 20),
-            timer.device_ms(lambda: segment_softmax_csr_bwd_plain(
-                g.row_offsets, att, cot), 5)]
+        times.add("segment_softmax_csr_bwd",
+                  timer.device_ms(lambda: segment_softmax_csr_bwd(
+                      g.row_offsets, att, cot), 20),
+                  timer.device_ms(lambda: segment_softmax_csr_bwd_plain(
+                      g.row_offsets, att, cot), 5),
+                  nbytes=3 * g.n_edges * 4 + (g.n_nodes + 1) * 4,
+                  flops=4 * g.n_edges)
     return shares
 
 
@@ -434,7 +537,7 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     line = smi.stdout.strip().splitlines()[0]
-    print(f"[1/7] device: torch {torch.__version__}, CUDA "
+    print(f"[1/8] device: torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
     print(line, flush=True)
     return line
@@ -445,7 +548,7 @@ def phase_build():
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))
     build.library()
-    print(f"[2/7] build: nvcc sm_90a {seconds:.1f} s (one nvcc per source, "
+    print(f"[2/8] build: nvcc sm_90a {seconds:.1f} s (one nvcc per source, "
           f"in parallel), {len(regs)} kernels, max {max(regs, default=0)} "
           f"registers, {spills} spill-store bytes", flush=True)
 
@@ -493,7 +596,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     g_host, meta = ds.build()
     gen_s = time.perf_counter() - t0
     deg = (g_host.row_offsets[1:] - g_host.row_offsets[:-1])
-    print(f"[3/7] yelp2018-scale graph: {g_host.n_edges} edges, "
+    print(f"[3/8] yelp2018-scale graph: {g_host.n_edges} edges, "
           f"{g_host.n_nodes} nodes, {g_host.n_relations} relations, "
           f"max in-degree {int(deg.max())}, {int((deg == 0).sum())} empty "
           f"rows, {g_host.tiles.shape[0]} tiles (generated, written, read "
@@ -501,21 +604,20 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     hand = handmade_graph(gen, sizes.hub).to(dev)
     e2, e3, e1, hand_att = check_kernels(hand, "hand-made", check, gen, dev,
                                          timer)
-    print(f"[3/7] hand-made rows (empty, one edge, hub of {sizes.hub}): "
+    print(f"[3/8] hand-made rows (empty, one edge, hub of {sizes.hub}): "
           f"max abs err sddmm {e2:.2e}, softmax {e3:.2e}, spmm "
           f"{', '.join(f'{e:.2e}' for e in e1)} (d64, d32, d64 bf16)",
           flush=True)
     g = g_host.to(dev)
-    times = {"spmm_csr": [0.0, 0.0], "spmm_csr_rev": [0.0, 0.0]}
+    times = Times()
     e2, e3, e1, att = check_kernels(g, "yelp2018", check, gen, dev, timer,
                                     times)
-    print(f"[3/7] yelp2018 shapes: max abs err sddmm {e2:.2e}, softmax "
+    print(f"[3/8] yelp2018 shapes: max abs err sddmm {e2:.2e}, softmax "
           f"{e3:.2e}, spmm {', '.join(f'{e:.2e}' for e in e1)} "
           f"(d64, d32, d64 bf16)", flush=True)
-    for name, (ms, plain_ms) in times.items():
-        if ms:
-            print(f"[3/7] time per forward ({smi_line}): {name} kernel "
-                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+    for name in ("spmm_csr", "sddmm_transr", "segment_softmax_csr"):
+        print(f"[3/8] time per {'forward' if name == 'spmm_csr' else 'call'}"
+              f" ({smi_line}): {times.line(name)}", flush=True)
 
     # --- 4. serving at full width ------------------------------------------
     progress.phase(4, "serving CLI")
@@ -547,7 +649,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                                     "segment_softmax_csr": 1, "spmm_csr": 3},
                     "serving")
     check_lists(lines, users.tolist(), ds.train_user_dict, "serving CLI")
-    print(f"[4/7] serving CLI: {len(lines)} users x top-{TOP_K} valid in "
+    print(f"[4/8] serving CLI: {len(lines)} users x top-{TOP_K} valid in "
           f"{cli_s:.1f} s (load, build, forward, score); launches {launches}",
           flush=True)
 
@@ -600,14 +702,14 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     server = rec.Recommender(model, g, meta, cfg,
                              train_user_dict=ds.train_user_dict)
     serve_ms = timer.host_ms(lambda: server.recommend(users, k=TOP_K), 5)
-    print(f"[4/7] kernel path vs plain path on the card: all_embed max abs "
+    print(f"[4/8] kernel path vs plain path on the card: all_embed max abs "
           f"err {err:.2e}; top-{TOP_K} scores within rtol {RTOL}; item sets "
           f"equal for {int(clear.sum())}/{len(users)} users with a "
           f"20th/21st gap > 1e-4, same order for {int(ordered.sum())} with "
           f"every gap > 1e-4; CLI lists in the same order for "
           f"{same_order}/{len(users)} users; a second kernel forward is "
           f"{'bit-identical' if repeat else 'NOT bit-identical'}", flush=True)
-    print(f"[4/7] forward {fwd_ms:.2f} ms (plain path {fwd_plain_ms:.2f} "
+    print(f"[4/8] forward {fwd_ms:.2f} ms (plain path {fwd_plain_ms:.2f} "
           f"ms); serve {len(users)} users top-{TOP_K} from the cached "
           f"forward {serve_ms:.2f} ms ({smi_line})", flush=True)
     del emb_k, emb_p, server
@@ -618,18 +720,16 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                                ("yelp2018", g, att, times)):
         shares = check_backward_kernels(graph, w, label, check, gen, dev,
                                         timer, t)
-        print(f"[5/7] {label}: max abs err, and the bound where the error "
+        print(f"[5/8] {label}: max abs err, and the bound where the error "
               f"is largest against it: "
               + ", ".join(f"{k} {e:.2e} (bound {b:.2e}, {s:.3f} of it)"
                           for k, (e, b, s) in shares.items())
               + "; second calls bit-identical", flush=True)
     for name in ("spmm_csr_rev", "sddmm_transr_bwd",
                  "segment_softmax_csr_bwd"):
-        ms, plain_ms = times[name]
         per = "per CF-step backward (d = 64, 64, 32)" if name == \
             "spmm_csr_rev" else "per call"
-        print(f"[5/7] {name} {per}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-              f"ms ({smi_line})", flush=True)
+        print(f"[5/8] {per} ({smi_line}): {times.line(name)}", flush=True)
     del att, hand_att
 
     # The attention gradient through the model: logits -> softmax -> a
@@ -655,7 +755,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                           stat_bound(b, length))
             for name, a, b in zip(("d_entity_embed", "d_w_rel",
                                    "d_rel_embed"), *grads.values())]
-    print(f"[5/7] attention gradient through compute_attention, kernel path "
+    print(f"[5/8] attention gradient through compute_attention, kernel path "
           f"vs float64 plain path: "
           + ", ".join(f"{n} {e:.2e} (bound {b:.2e}, {s:.3f} of it)"
                       for n, (e, b, s) in zip(
@@ -673,7 +773,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     trainer = train.Trainer(tcfg, dataset=ds)
     build_s = time.perf_counter() - t0
     train_stats = phase_train_steps(trainer, sizes, check, timer, dev)
-    print(f"[6/7] trainer built in {build_s:.1f} s ({trainer.n_cf_batches} "
+    print(f"[6/8] trainer built in {build_s:.1f} s ({trainer.n_cf_batches} "
           f"CF and {trainer.n_kg_batches} KG batches an epoch); "
           + train_stats, flush=True)
     del trainer
@@ -721,7 +821,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
         raise AssertionError(f"recommend.main returned {rc}")
     check_lists(lines, users.tolist(), ds.train_user_dict,
                 "serving the trained checkpoint")
-    print(f"[7/7] trainer CLI: 1 epoch in {epoch['secs']:.1f} s "
+    print(f"[7/8] trainer CLI: 1 epoch in {epoch['secs']:.1f} s "
           f"({cli_s:.1f} s with data load, build, eval and checkpoints), "
           f"cf_loss {epoch['cf_loss']:.4f}, kg_loss {epoch['kg_loss']:.4f}, "
           f"recall@20 {ev['recall']:.4f}, ndcg@20 {ev['ndcg']:.4f}; events "
@@ -729,17 +829,30 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
           f"top-{TOP_K} from smoke_best; launches {main_launches} "
           f"({smi_line})", flush=True)
 
+    # --- 8. the edge-partitioned trainer, P = 4 on the card -----------------
+    progress.phase(8, f"edge-partitioned trainer, {P_PARTS} partitions on "
+                      f"the card")
+    part_launches = phase_partitioned(tmp, ds, g_host, g, meta, sizes, check,
+                                      times, gen, dev, timer, smi_line)
+
     paths = {"sddmm_transr_bwd": ("attention gradient", att_launches),
-             "segment_softmax_csr_bwd": ("attention gradient", att_launches)}
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": paths.get(name, ("train CLI", main_launches))[1].get(
-             name, 0),
-         "path": paths.get(name, ("train CLI",))[0],
-         "max_abs_err": check.max_err[name],
-         "share_of_bound": check.share.get(name),
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, (src, tpu) in KERNELS.items()]}), flush=True)
+             "segment_softmax_csr_bwd": ("attention gradient", att_launches),
+             "segment_sum_csr": ("partitioned train CLI", part_launches),
+             "ring_shift": ("partitioned train CLI", part_launches),
+             "reduce_send": ("partitioned train CLI", part_launches)}
+    rows = []
+    for name, (src, tpu) in KERNELS.items():
+        path, launches = paths.get(name, ("train CLI", main_launches))
+        bound_ms, bound_by = times.bound(name)
+        r = times.rows[name]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": tpu, "launches": launches.get(name, 0),
+                     "path": path, "max_abs_err": check.max_err[name],
+                     "share_of_bound": check.share.get(name),
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": rows}), flush=True)
     return 0
 
 
@@ -775,6 +888,25 @@ def _grads(params):
     return [p.grad.detach().clone() for p in params]
 
 
+def plain_grads(model, loss_fn):
+    """Loss and gradients of the plain path in float64, from a copy of
+    ``model``'s current parameters, and the term magnitudes of the layer
+    weights' gradients. (A float32 plain path would sum with atomics in a
+    new order each run, and two float32 paths can then differ by far more
+    than either differs from the exact value.)"""
+    model64 = copy.deepcopy(model).double()
+    params64 = dict(model64.named_parameters())
+    with LayerProducts(params64) as products:
+        loss = loss_fn(model64)
+    outs = [z for _, _, z in products.found]
+    grads = torch.autograd.grad(loss, [*params64.values(), *outs],
+                                allow_unused=True)
+    return (loss.item(),
+            [torch.zeros_like(p) if gp is None else gp
+             for p, gp in zip(params64.values(), grads)],
+            products.term_magnitudes(grads[len(params64):]))
+
+
 def phase_train_steps(trainer, sizes, check, timer, dev) -> str:
     """The first CF and KG steps on the kernel and the plain path, more
     steps on a fixed batch, a recompute and an evaluate(); returns the
@@ -790,29 +922,11 @@ def phase_train_steps(trainer, sizes, check, timer, dev) -> str:
     length = max(int((g.row_offsets[1:] - g.row_offsets[:-1]).max()),
                  g.n_nodes)
 
-    def plain_grads(loss_fn):
-        """Loss and gradients of the plain path in float64, from a copy
-        of the current parameters, and the term magnitudes of the layer
-        weights' gradients. (A float32 plain path would sum with atomics
-        in a new order each run, and two float32 paths can then differ by
-        far more than either differs from the exact value.)"""
-        model64 = copy.deepcopy(model).double()
-        params64 = dict(model64.named_parameters())
-        with LayerProducts(params64) as products:
-            loss = loss_fn(model64)
-        outs = [z for _, _, z in products.found]
-        grads = torch.autograd.grad(loss, [*params64.values(), *outs],
-                                    allow_unused=True)
-        return (loss.item(),
-                [torch.zeros_like(p) if gp is None else gp
-                 for p, gp in zip(params64.values(), grads)],
-                products.term_magnitudes(grads[len(params64):]))
-
     # The first CF step: one batch, one dropout mask, both paths.
     att = trainer.attention()
     cf_batch = trainer.sample_cf()
     loss_k = float(trainer.cf_grad(att, *cf_batch, generator=mask_gen()))
-    loss_p, grads_p, terms = plain_grads(lambda m: kgat.cf_loss(
+    loss_p, grads_p, terms = plain_grads(model, lambda m: kgat.cf_loss(
         m, g, kgat.attention_for_training(m, g, plain), trainer.meta,
         *cf_batch[:3], plain, generator=mask_gen(), train=True,
         weight=cf_batch[3]))
@@ -824,7 +938,7 @@ def phase_train_steps(trainer, sizes, check, timer, dev) -> str:
     # The first KG step (no graph op: the two paths run the same code).
     kg_batch = trainer.sample_kg()
     kg_loss_k = float(trainer.kg_grad(*kg_batch))
-    kg_loss_p, grads_p, terms = plain_grads(lambda m: kgat.kg_loss(
+    kg_loss_p, grads_p, terms = plain_grads(model, lambda m: kgat.kg_loss(
         m, *kg_batch[:4], plain, weight=kg_batch[4]))
     kg_errs = compare_step("KG", kg_loss_k, kg_loss_p, names, _grads(params),
                            grads_p, terms, check, length)
@@ -944,6 +1058,362 @@ def compare_step(what, loss_k, loss_p, names, grads_k, grads_p, terms,
             worst = (float((a.double() - b).abs().max()), share, name)
     return (f"loss {loss_k:.6f} vs {loss_p:.6f}, worst gradient {worst[2]} "
             f"max abs err {worst[0]:.2e} ({worst[1]:.3f} of its bound)")
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the edge-partitioned trainer.
+# ---------------------------------------------------------------------------
+
+EXCHANGES = (("allgather", "ppermute"), ("ring", "ppermute"), ("ring", "dma"),
+             ("ring", "fused"))
+
+
+def partitioned_launches(exchange, transport, n_layers, n_parts,
+                         backward=True):
+    """The launches one forward (and its backward) of an exchange makes,
+    each wrapper launching once per partition and ring step: K1 per
+    shard and layer on the all-gather (K1 on the reverse CSR backward);
+    on the ring a bucket reduce per partition, step and layer, K6 or,
+    at the P - 1 steps that send under 'fused', K8; the sends of the
+    P - 1 steps by K7 under 'dma'; backward, K6 on every bucket's reverse
+    CSR and (under 'dma' and 'fused') K7 the other way at every send."""
+    L, P = n_layers, n_parts
+    sends = L * P * (P - 1)
+    if exchange == "allgather":
+        fwd, bwd = {"spmm_csr": L * P}, {"spmm_csr_rev": L * P}
+    else:
+        if transport == "fused":
+            fwd = {"reduce_send": sends, "segment_sum_csr": L * P}
+        else:
+            fwd = {"segment_sum_csr": L * P * P}
+            if transport == "dma":
+                fwd["ring_shift"] = sends
+        bwd = {"segment_sum_csr": L * P * P}
+        if transport != "ppermute":
+            bwd["ring_shift"] = sends
+    if not backward:
+        return fwd
+    return {k: fwd.get(k, 0) + bwd.get(k, 0) for k in {*fwd, *bwd}}
+
+
+def expect_exact(dev, launches, want, what):
+    """On the card, ``launches`` must be exactly ``want`` (no kernel
+    missing, none extra)."""
+    if dev.type == "cuda" and launches != want:
+        raise AssertionError(f"{what}: launches {launches}, predicted "
+                             f"{want}")
+
+
+def check_k6(label, ro, vals, check):
+    """K6 against float64 under sum_bound, and a second call identical."""
+    got = segment_sum_csr(ro, vals)
+    again = segment_sum_csr(ro, vals)
+    want = ref.segment_sum_csr(ro, vals.double())
+    terms = ref.segment_sum_csr(ro, vals.double().abs())
+    share = check.bounded("segment_sum_csr", label, got, want, sum_bound(
+        want, terms, csr_lengths(ro)[:, None]))
+    check_identical("segment_sum_csr", got, again)
+    return share
+
+
+def check_ring_kernels(buckets, info, hub, check, times, gen, dev, timer):
+    """K6, K7 and K8 against their plain versions on the real buckets and
+    on hand-made ones; times at d = 64 f32 on the largest bucket. Returns
+    the summary."""
+    P, R = info.n_parts, info.rows_per_part
+    rs = np.random.default_rng(int(torch.randint(1 << 30, (1,),
+                                                 generator=gen)))
+    deg = np.concatenate([[0, 1, max(hub // P, 1)],
+                          rs.integers(0, 21, R - 3)])
+    hand = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)]).astype(
+        np.int32)).to(dev)
+    empty = torch.zeros(R + 1, dtype=torch.int32, device=dev)
+    flat = [(f"bucket ({p},{s})", b) for p, row in enumerate(buckets)
+            for s, b in enumerate(row)]
+    big_label, big = max(flat, key=lambda lb: lb[1].n_edges)
+
+    def stream(ro, d, dt, bucket=None):
+        """A value stream: chunk[src] * w for a real bucket (w an
+        attention-like weight in [0, 1)), else random values."""
+        n = int(ro[-1])
+        if bucket is None:
+            return torch.randn(n, d, generator=gen).to(dev, dt)
+        chunk = torch.randn(R, d, generator=gen).to(dev)
+        w = torch.rand(n, generator=gen).to(dev)
+        return (chunk[bucket.src.long()] * w[:, None]).to(dt)
+
+    configs = ((64, torch.float32), (32, torch.float32),
+               (16, torch.float32), (64, torch.bfloat16),
+               (16, torch.bfloat16))
+    worst6 = (0.0, 0.0, 0.0)
+    for d, dt in configs:
+        cases = [("hand-made", hand, None), ("empty bucket", empty, None)]
+        cases += [(lb, b.row_offsets, b) for lb, b in flat]
+        for label, ro, b in cases:
+            e = check_k6(f"{label} d={d} {dt}", ro, stream(ro, d, dt, b),
+                         check)
+            worst6 = max(worst6, e, key=lambda t: t[2])
+
+    # K7: both directions bit-exact, and aliased receive buffers refused.
+    for d, dt in configs:
+        parts = [torch.randn(R, d, generator=gen).to(dev, dt)
+                 for _ in range(P)]
+        for step in (1, -1):
+            for j, (a, b) in enumerate(zip(ring_shift(parts, step),
+                                           ref.ring_shift(parts, step))):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"ring_shift d={d} {dt} step "
+                                         f"{step}: partition {j} differs")
+    try:
+        ring_shift(parts, 1, out=parts[-1:] + parts[:-1])
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("ring_shift took aliased receive buffers")
+
+    # K8: every sending step's buckets (and a ring of hand-made ones).
+    worst8 = (0.0, 0.0, 0.0)
+    rings = [(f"step {s}", [row[s].row_offsets for row in buckets],
+              [row[s] for row in buckets]) for s in range(P - 1)]
+    rings.append(("hand-made ring", [empty, hand] + [buckets[p][0].row_offsets
+                                                     for p in range(2, P)],
+                  [None, None] + [buckets[p][0] for p in range(2, P)]))
+    for d, dt in ((64, torch.float32), (32, torch.bfloat16),
+                  (16, torch.float32)):
+        for label, ros, bks in rings:
+            vals = [stream(ro, d, dt, b) for ro, b in zip(ros, bks)]
+            chunks = [torch.randn(R, d, generator=gen).to(dev, dt)
+                      for _ in range(P)]
+            sums, nxt = reduce_send(ros, vals, chunks)
+            for p, (ro, v, got) in enumerate(zip(ros, vals, sums)):
+                want = ref.segment_sum_csr(ro, v.double())
+                terms = ref.segment_sum_csr(ro, v.double().abs())
+                e = check.bounded("reduce_send", f"{label} p={p} d={d} {dt}",
+                                  got, want, sum_bound(
+                                      want, terms, csr_lengths(ro)[:, None]))
+                worst8 = max(worst8, e, key=lambda t: t[2])
+            for j, (a, b) in enumerate(zip(nxt, ref.ring_shift(chunks, 1))):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"reduce_send {label} d={d} {dt}: "
+                                         f"partition {j}'s chunk differs")
+
+    # Times at the trainer's widest layer, d = 64 f32, on the largest
+    # bucket: one launch each (a ring of one partition for K7 and K8).
+    d, e_b = 64, big.n_edges
+    vals = stream(big.row_offsets, d, torch.float32, big)
+    chunk = torch.randn(R, d, generator=gen).to(dev)
+    buf = torch.empty_like(chunk)
+    offsets = big.row_offsets.long()
+    k6_bytes = e_b * d * 4 + (R + 1) * 4 + R * d * 4
+    k7_bytes = 2 * R * d * 4
+
+    def library_k8():
+        torch.segment_reduce(vals, "sum", offsets=offsets, unsafe=True)
+        buf.copy_(chunk)
+
+    times.add("segment_sum_csr",
+              timer.device_ms(lambda: segment_sum_csr(big.row_offsets, vals),
+                              20),
+              timer.device_ms(lambda: ref.segment_sum_csr(big.row_offsets,
+                                                          vals), 5),
+              timer.device_ms(lambda: torch.segment_reduce(
+                  vals, "sum", offsets=offsets, unsafe=True), 5),
+              k6_bytes, e_b * d)
+    times.add("ring_shift",
+              timer.device_ms(lambda: ring_shift([chunk], 1, out=[buf]), 20),
+              timer.device_ms(lambda: ref.ring_shift([chunk], 1), 5),
+              timer.device_ms(lambda: buf.copy_(chunk), 20), k7_bytes, 0)
+    times.add("reduce_send",
+              timer.device_ms(lambda: reduce_send([big.row_offsets], [vals],
+                                                  [chunk], out=[buf]), 20),
+              timer.device_ms(lambda: ref.reduce_send([big.row_offsets],
+                                                      [vals], [chunk]), 5),
+              timer.device_ms(library_k8, 5), k6_bytes + k7_bytes, e_b * d)
+    return (f"K6 on {len(flat)} real buckets, a hand-made one (rows empty, "
+            f"one edge, {max(hub // P, 1)} edges) and an empty one at d = "
+            f"64/32/16 f32 and 64/16 bf16: worst {worst6[2]:.3f} of its "
+            f"float64 bound (abs err {worst6[0]:.2e}); K7 bit-exact both "
+            f"ways at the same widths, aliased buffers refused; K8 on the "
+            f"{P - 1} sending steps and a hand-made ring: sums worst "
+            f"{worst8[2]:.3f} of the bound, sends bit-exact; second calls "
+            f"bit-identical. Times on the largest bucket, {big_label} "
+            f"({e_b} edges), d = 64 f32, per launch: "
+            + "; ".join(times.line(n) for n in ("segment_sum_csr",
+                                                "ring_shift", "reduce_send")))
+
+
+def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
+                      dev, timer, smi_line):
+    """Phase 8; returns the launch counts of the partitioned CLI epoch."""
+    P, L = P_PARTS, 3
+    t0 = time.perf_counter()
+    src, dst = g_host.src.numpy(), g_host.dst.numpy()
+    shards, info = partition_graph(src, dst, g_host.etype.numpy(),
+                                   meta.n_nodes, meta.n_relations, P)
+    buckets = build_ring_buckets(src, dst, info)
+    host_s = time.perf_counter() - t0
+    shards = [s.to(dev) for s in shards]
+    buckets = [[b.to(dev) for b in row] for row in buckets]
+    b_edges = [[b.n_edges for b in row] for row in buckets]
+    print(f"[8/8] partitioned on the host in {host_s:.1f} s: R = "
+          f"{info.rows_per_part}, n_pad = {info.n_nodes_pad}, shard edges "
+          f"{[s.n_edges for s in shards]}, ring bucket edges per (p, s) "
+          f"{b_edges}", flush=True)
+    summary = check_ring_kernels(buckets, info, sizes.hub, check, times, gen,
+                                 dev, timer)
+    print(f"[8/8] ring kernels ({smi_line}): {summary}", flush=True)
+
+    # Attention and all_embed of every exchange against the single-device
+    # paths, on one random full-width model.
+    cfg = KGATConfig(ops_backend="hopper", mess_dropout=(0.0,) * L)
+    plain = dataclasses.replace(cfg, ops_backend="ref")
+    model = kgat.init_params(meta.n_nodes, meta.n_relations, cfg,
+                             generator=gen, device=dev)
+    mesh = dp.make_mesh(P, dev)
+    parts = {key: halo.Partitioned(
+        mesh, shards, info, meta, cfg, exchange=key[0],
+        ring_buckets=buckets if key[0] == "ring" else None,
+        ring_transport=key[1]) for key in EXCHANGES}
+    with torch.no_grad():
+        att_single = kgat.compute_attention(model, g, cfg)
+        model64 = copy.deepcopy(model).double()
+        want = kgat.propagate(model64, g, kgat.compute_attention(
+            model64, g, plain), plain)
+        del model64
+    staged, lines = {}, []
+    for key, part in parts.items():
+        build.launch_counts.clear()
+        atts, staged[key] = part.attention(model)
+        att_launches = dict(build.launch_counts)
+        expect_exact(dev, att_launches, {"sddmm_transr": P,
+                                         "segment_softmax_csr": P},
+                     f"{key} attention")
+        att_err = max(check("partitioned attention", f"{key} p={p}", a,
+                            att_single[s.edge_ids.to(dev)], atol=1e-6)
+                      for p, (a, s) in enumerate(zip(atts, shards)))
+        build.launch_counts.clear()
+        got = part.propagate_eval(model, staged[key])
+        timer.sync()
+        fwd_launches = dict(build.launch_counts)
+        expect_exact(dev, fwd_launches, partitioned_launches(
+            *key, L, P, backward=False), f"{key} eval forward")
+        err = check("partitioned all_embed", "/".join(key), got, want)
+        ms = timer.host_ms(lambda: part.propagate_eval(model, staged[key]),
+                           3)
+        lines.append(f"{'/'.join(key)}: attention max abs err {att_err:.2e}"
+                     f" vs single-device kernels (launches {att_launches}), "
+                     f"all_embed {err:.2e} vs float64 plain, eval forward "
+                     f"{ms:.2f} ms (launches {fwd_launches})")
+    del want, att_single
+    print(f"[8/8] partitioned forward against single-device ("
+          f"{smi_line}): " + "; ".join(lines), flush=True)
+
+    # The first CF step of every exchange (dropout 0): the loss against
+    # the single-device kernel path's, the gradients against float64.
+    cf_table = CFSampleTable.build(ds.cf_train, meta.n_users, meta.n_items,
+                                   device=dev)
+    samp = torch.Generator(device=dev).manual_seed(0)
+    u, ip, ineg, w = sample_cf_batch(cf_table, samp,
+                                     dp.round_batch(sizes.cf_batch, P))
+    if not bool((w == 1).all()):
+        raise AssertionError("a CF row without an allowed negative")
+    with torch.no_grad():
+        loss_single = float(kgat.cf_loss(
+            model, g, kgat.attention_for_training(model, g, cfg), meta, u,
+            ip, ineg, cfg, train=True, weight=w))
+    loss_p, grads_p, terms = plain_grads(model, lambda m: kgat.cf_loss(
+        m, g, kgat.attention_for_training(m, g, plain), meta, u, ip, ineg,
+        plain, train=True, weight=w))
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+    length = max(int(csr_lengths(g.row_offsets).max()), g.n_nodes)
+
+    def cf_grads(part, st):
+        loss = part.cf_loss(model, st, u, ip, ineg, weight=w)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return loss.item(), [torch.zeros_like(p) if gp is None else gp
+                             for p, gp in zip(params, grads)]
+
+    lines = []
+    for key, part in parts.items():
+        build.launch_counts.clear()
+        loss_k, grads_k = cf_grads(part, staged[key])
+        timer.sync()
+        step_launches = dict(build.launch_counts)
+        expect_exact(dev, step_launches, partitioned_launches(*key, L, P),
+                     f"{key} CF step")
+        if abs(loss_k - loss_single) > LOSS_RTOL * abs(loss_single):
+            raise AssertionError(f"{key} CF loss {loss_k} vs single-device "
+                                 f"kernel path {loss_single}")
+        errs = compare_step(f"CF {'/'.join(key)}", loss_k, loss_p, names,
+                            grads_k, grads_p, terms, check, length)
+        del grads_k
+        ms = timer.host_ms(lambda: cf_grads(part, staged[key]), 3)
+        lines.append(f"{'/'.join(key)}: {errs}; forward + backward {ms:.2f}"
+                     f" ms (launches {step_launches})")
+    del grads_p, terms
+    print(f"[8/8] first CF step (batch {u.numel()}, dropout 0) against the "
+          f"single-device kernel path ({loss_single:.6f}) and the float64 "
+          f"plain path ({smi_line}): " + "; ".join(lines), flush=True)
+
+    # The KG step: the same TransR step on the global batch for every
+    # exchange (the data-parallel loss in one process).
+    kg_table = KGSampleTable.build(
+        np.stack([dst, g_host.etype.numpy(), src], axis=1),
+        n_entities=meta.n_nodes, n_relations=meta.n_relations, device=dev)
+    kg_batch = sample_kg_batch(kg_table, samp,
+                               dp.round_batch(sizes.kg_batch, P))
+    kg_loss = kgat.kg_loss(model, *kg_batch[:4], cfg, weight=kg_batch[4])
+    kg_grads = torch.autograd.grad(kg_loss, params, allow_unused=True)
+    kg_loss_p, grads_p, terms = plain_grads(model, lambda m: kgat.kg_loss(
+        m, *kg_batch[:4], plain, weight=kg_batch[4]))
+    kg_errs = compare_step("KG partitioned", kg_loss.item(), kg_loss_p,
+                           names, [torch.zeros_like(p) if gp is None else gp
+                                   for p, gp in zip(params, kg_grads)],
+                           grads_p, terms, check, length)
+    print(f"[8/8] KG step (batch {kg_batch[0].numel()}) against the float64 "
+          f"plain path: {kg_errs}", flush=True)
+    del grads_p, terms, kg_grads, parts, staged, model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # The trainer CLI, one epoch, ring exchange with the fused transport.
+    log_dir = os.path.join(tmp, "runs_partitioned")
+    argv = ["--dataset", "yelp2018", "--data-root", tmp, "--epochs", "1",
+            "--eval-every", "1", "--device", str(dev), "--log-dir", log_dir,
+            "--run-name", "part", "--seed", "0", "--cf-batch-size",
+            str(sizes.cf_batch), "--kg-batch-size", str(sizes.kg_batch),
+            "--n-devices", str(P), "--halo-exchange", "ring",
+            "--ring-transport", "fused"]
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    train.main(argv)
+    timer.sync()
+    cli_s = time.perf_counter() - t0
+    launches = dict(build.launch_counts)
+    with open(os.path.join(log_dir, "part.jsonl")) as f:
+        events = [json.loads(ln) for ln in f]
+    check_events(events)
+    epoch = next(e for e in events if e["event"] == "epoch")
+    ev = next(e for e in events if e["event"] == "eval")
+    n_cf = next(e for e in events if e["event"] == "start")["cf_batches"]
+    step = partitioned_launches("ring", "fused", L, P)
+    evalf = partitioned_launches("ring", "fused", L, P, backward=False)
+    # Per CF step a forward and backward; the eval forward once; K2 and K3
+    # on every shard at the epoch's two attention recomputes.
+    want_launches = {k: n_cf * step.get(k, 0) + evalf.get(k, 0)
+                     for k in {*step, *evalf}}
+    want_launches.update(sddmm_transr=2 * P, segment_softmax_csr=2 * P)
+    expect_exact(dev, launches, want_launches, "partitioned trainer CLI")
+    print(f"[8/8] partitioned trainer CLI (python -m kgat_tpu_torch.train "
+          f"{' '.join(argv[argv.index('--n-devices'):])}): 1 epoch in "
+          f"{epoch['secs']:.1f} s ({cli_s:.1f} s with data load, partition, "
+          f"eval and checkpoints), cf_loss {epoch['cf_loss']:.4f}, kg_loss "
+          f"{epoch['kg_loss']:.4f}, recall@20 {ev['recall']:.4f}, ndcg@20 "
+          f"{ev['ndcg']:.4f}; events {[e['event'] for e in events]}; "
+          f"launches {launches} ({n_cf} CF steps; predicted per step "
+          f"{step}) ({smi_line})", flush=True)
+    return launches
 
 
 if __name__ == "__main__":

@@ -184,7 +184,7 @@ def _leaky(x: torch.Tensor, slope: float) -> torch.Tensor:
     return torch.where(x >= 0, x, slope * x)
 
 
-def _l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+def l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.sqrt(torch.clamp((x * x).sum(-1, keepdim=True), min=eps))
 
 
@@ -195,6 +195,39 @@ def attention_for_training(model: KGAT, graph: Graph,
     backward reads (``kgat_tpu``'s ``attention_for_training``)."""
     with torch.no_grad():
         return EdgeWeights.stage(graph, compute_attention(model, graph, cfg))
+
+
+def aggregate(ego: torch.Tensor, side: torch.Tensor, layer,
+              cfg: KGATConfig) -> torch.Tensor:
+    """One layer's aggregator (A1-A3) over a node's own embedding ``ego``
+    and its neighbourhood sum ``side``; ``layer`` maps the layer's
+    parameter names to tensors."""
+    slope = cfg.leaky_relu_slope
+    if cfg.aggregator == "gcn":
+        return _leaky((ego + side) @ layer["w"] + layer["b"], slope)
+    if cfg.aggregator == "graphsage":
+        return _leaky(torch.cat([ego, side], -1) @ layer["w"] + layer["b"],
+                      slope)
+    return (_leaky((ego + side) @ layer["w1"] + layer["b1"], slope)
+            + _leaky((ego * side) @ layer["w2"] + layer["b2"], slope))
+
+
+def dropout(ego: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Message dropout: each entry kept with probability 1 - rate and
+    scaled by 1 / (1 - rate), with the mask drawn from ``generator``."""
+    if generator is None:
+        raise ValueError("message dropout needs a generator")
+    keep = 1.0 - rate
+    mask = torch.rand(ego.shape, generator=generator,
+                      device=ego.device) < keep
+    return torch.where(mask, ego / keep, 0.0)
+
+
+def check_dropout(cfg: KGATConfig) -> None:
+    if len(cfg.mess_dropout) != len(cfg.conv_dims):
+        raise ValueError(f"{len(cfg.mess_dropout)} dropout rates for "
+                         f"{len(cfg.conv_dims)} layers")
 
 
 def propagate(model: KGAT, graph: Graph, edge_att, cfg: KGATConfig, *,
@@ -209,30 +242,16 @@ def propagate(model: KGAT, graph: Graph, edge_att, cfg: KGATConfig, *,
     """
     ops = get_backend(cfg.ops_backend)
     low = cfg.compute_dtype if cfg.ops_backend == "hopper" else None
-    slope = cfg.leaky_relu_slope
-    if train and len(cfg.mess_dropout) != len(cfg.conv_dims):
-        raise ValueError(f"{len(cfg.mess_dropout)} dropout rates for "
-                         f"{len(cfg.conv_dims)} layers")
+    if train:
+        check_dropout(cfg)
     ego = model.entity_embed
     outs = [ego]
     for li, layer in enumerate(model.layers):
         side = ops.spmm(graph, edge_att, ego if low is None else ego.to(low))
-        if cfg.aggregator == "gcn":
-            ego = _leaky((ego + side) @ layer["w"] + layer["b"], slope)
-        elif cfg.aggregator == "graphsage":
-            ego = _leaky(torch.cat([ego, side], -1) @ layer["w"] + layer["b"],
-                         slope)
-        else:  # bi-interaction
-            ego = (_leaky((ego + side) @ layer["w1"] + layer["b1"], slope)
-                   + _leaky((ego * side) @ layer["w2"] + layer["b2"], slope))
+        ego = aggregate(ego, side, layer, cfg)
         if train and cfg.mess_dropout[li] > 0:
-            if generator is None:
-                raise ValueError("propagate(train=True) needs a generator")
-            keep = 1.0 - cfg.mess_dropout[li]
-            mask = torch.rand(ego.shape, generator=generator,
-                              device=ego.device) < keep
-            ego = torch.where(mask, ego / keep, 0.0)
-        outs.append(_l2norm(ego))
+            ego = dropout(ego, cfg.mess_dropout[li], generator)
+        outs.append(l2norm(ego))
     return torch.cat(outs, dim=-1)
 
 

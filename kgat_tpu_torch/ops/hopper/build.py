@@ -35,12 +35,21 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 # kernel. Callers clear it to see which kernels a run went through.
 launch_counts: collections.Counter = collections.Counter()
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 # C entry point -> argtypes (pointers and the stream as c_void_p, sizes as
-# c_int). Each returns a cudaError_t as int.
+# c_int, byte counts as c_size_t). Each returns a cudaError_t as int.
 _SIGNATURES = {
     # row_offsets, src, w, x, out, n_rows, d, x_is_bf16, stream
     "kgat_spmm_csr": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # row_offsets, vals, out, n_rows, d, vals_is_bf16, stream
+    "kgat_segment_sum_csr": (_P, _P, _P, _I, _I, _I, _P),
+    # src, dst, nbytes, stream
+    "kgat_ring_shift": (_P, _P, _S, _P),
+    # row_offsets, vals, sums, n_rows, d, vals_is_bf16, chunk, next, nbytes,
+    # stream
+    "kgat_reduce_send": (_P, _P, _P, _I, _I, _I, _P, _P, _S, _P),
+    # device, peer
+    "kgat_enable_peer_access": (_I, _I),
     # rel_perm, tiles, src, dst, emb, w_rel, rel_embed, out, n_tiles, d, k, stream
     "kgat_sddmm_transr": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # row_offsets, logits, out, n_rows, stream
@@ -142,11 +151,16 @@ def use_kernel(name: str, *tensors: torch.Tensor) -> bool:
     autograd. The differentiable ops (``segment_sum.spmm``,
     ``sddmm.attention_logits``, ``softmax.segment_softmax``) call the
     wrappers inside their ``autograd.Function``s, where grad mode is off,
-    and give the gradient by their backward kernels."""
+    and give the gradient by their backward kernels. (The ring wrappers of
+    ``remote_ring``, whose source and destination may lie on two peer
+    cards, route with :func:`use_ring_kernel` instead.)"""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs lie on several devices {devices}")
-    device = devices.pop()
+    return _use_device(name, devices.pop(), tensors)
+
+
+def _use_device(name: str, device: torch.device, tensors) -> bool:
     if device.type == "cpu":
         return False
     if device.type != "cuda":
@@ -156,6 +170,59 @@ def use_kernel(name: str, *tensors: torch.Tensor) -> bool:
                            f"call it under torch.no_grad() or differentiate "
                            f"through kgat_tpu_torch.ops.hopper_backend")
     return True
+
+
+def use_ring_kernel(name: str, dest: torch.device,
+                    *tensors: torch.Tensor) -> bool:
+    """Route one partition's launch of a ring wrapper (K7, K8): its inputs
+    lie on one device, the source partition's, and the buffer it stores
+    into on ``dest``, which may be a peer card. False when both are the
+    CPU, True for CUDA devices once the source card may store into the
+    destination's memory. Raises for a CPU/CUDA mix, for a card that
+    cannot reach the other (``torch.cuda.can_device_access_peer``), and
+    as :func:`use_kernel` does."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: inputs lie on several devices {devices}")
+    src = devices.pop()
+    if (src.type == "cpu") != (dest.type == "cpu"):
+        raise ValueError(f"{name}: source on {src}, destination on {dest}")
+    use = _use_device(name, src, tensors)
+    if use and src != dest:
+        enable_peer_access(src, dest)
+    return use
+
+
+_PEERS: set = set()
+
+
+def enable_peer_access(src: torch.device, dest: torch.device) -> None:
+    """Let kernels on card ``src`` store into card ``dest``'s memory."""
+    if (src.index, dest.index) in _PEERS:
+        return
+    if not torch.cuda.can_device_access_peer(src.index, dest.index):
+        raise RuntimeError(f"{src} cannot access {dest}: the ring kernels "
+                           f"need peer access between the cards")
+    lib = library()
+    check_launch(lib, lib.kgat_enable_peer_access(src.index, dest.index),
+                 "enable_peer_access")
+    _PEERS.add((src.index, dest.index))
+
+
+def check_disjoint(name: str, outs, ins) -> None:
+    """Raise unless every output buffer's memory is apart from every
+    input's and from the other outputs': a ring kernel must never store
+    into a buffer that a launch of the same step reads."""
+    def span(t):
+        return t.device, t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()
+
+    outs = [span(t) for t in outs]
+    for i, (dev, lo, hi) in enumerate(outs):
+        for other in [*outs[:i], *(span(t) for t in ins)]:
+            if other[0] == dev and lo < other[2] and other[1] < hi:
+                raise ValueError(f"{name}: an output buffer aliases a buffer "
+                                 f"of the same step; give each partition a "
+                                 f"receive buffer of its own")
 
 
 def check_tensor(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:

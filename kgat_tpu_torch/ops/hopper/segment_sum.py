@@ -1,12 +1,17 @@
-"""K1 wrapper: weighted CSR SpMM (``csrc/segment_sum.cu``), and the SpMM
-with a backward.
+"""K1 and K6 wrappers (``csrc/segment_sum.cu``): the weighted CSR SpMM,
+the SpMM with a backward, and the segment sum of a value stream.
 
-Replaces ``kgat_tpu/ops/pallas/segment_sum.py::_kernel_w``. A CF training
-step launches it six times for the reference recipe: once per layer in the
-forward (d = 64, 64, 32) on the dst-sorted CSR, and once per layer in the
-backward on the src-sorted (reverse) CSR, for the gradient w.r.t. the
-features (``pallas_backend._spmm_bwd``'s ``d_x``). The serving forward
-launches the first three.
+K1 replaces ``kgat_tpu/ops/pallas/segment_sum.py::_kernel_w``. A CF
+training step launches it six times for the reference recipe: once per
+layer in the forward (d = 64, 64, 32) on the dst-sorted CSR, and once per
+layer in the backward on the src-sorted (reverse) CSR, for the gradient
+w.r.t. the features (``pallas_backend._spmm_bwd``'s ``d_x``). The serving
+forward launches the first three. The partitioned trainer's all-gather
+exchange launches it on each shard's CSRs (``parallel/halo.py``).
+
+K6 (:func:`segment_sum_csr`) replaces ``segment_sum.py::accum_step``: the
+partitioned ring exchange reduces each bucket's pre-gathered value stream
+with it, forward and backward.
 """
 
 from __future__ import annotations
@@ -82,6 +87,40 @@ def spmm_csr_rev(rev_row_offsets: torch.Tensor, rev_dst: torch.Tensor,
     return _launch("spmm_csr_rev", rev_row_offsets, rev_dst, w_rev, g)
 
 
+def segment_sum_csr(row_offsets: torch.Tensor,
+                    vals: torch.Tensor) -> torch.Tensor:
+    """K6: out[r] = sum over e in [row_offsets[r], row_offsets[r+1]) of
+    vals[e] -> (n_rows, d) float32, every row written (an empty row as 0).
+
+    Replaces ``kgat_tpu/ops/pallas/segment_sum.py::accum_step`` (the
+    ``_kernel`` of ``segment_sum_aligned``), the reduce of every ring
+    bucket. row_offsets: (n_rows + 1,) int32 CSR offsets from 0 to E;
+    vals: (E, d) float32 or bfloat16 pre-gathered values in CSR order,
+    accumulated in float32; E may be 0. It shares its row reduction with
+    K1 and K8 (``csrc/row_reduce.cuh``). CPU tensors take
+    ``ref.segment_sum_csr``; CUDA tensors launch the kernel."""
+    name = "segment_sum_csr"
+    if not build.use_kernel(name, row_offsets, vals):
+        return ref.segment_sum_csr(row_offsets, vals)
+    build.check_tensor("row_offsets", row_offsets, (torch.int32,), 1)
+    build.check_tensor("vals", vals, (torch.float32, torch.bfloat16), 2)
+    n_rows, d = row_offsets.numel() - 1, vals.shape[1]
+    if not 0 < d <= MAX_DIM:
+        raise ValueError(f"feature dim {d} not in (0, {MAX_DIM}]")
+    out = torch.empty((n_rows, d), dtype=torch.float32, device=vals.device)
+    if n_rows == 0:
+        return out
+    lib = build.library()
+    with torch.cuda.device(vals.device):
+        code = lib.kgat_segment_sum_csr(
+            row_offsets.data_ptr(), vals.data_ptr(), out.data_ptr(), n_rows,
+            d, int(vals.dtype == torch.bfloat16),
+            ctypes.c_void_p(build.stream_ptr(vals.device)))
+    build.check_launch(lib, code, name)
+    build.launch_counts[name] += 1
+    return out
+
+
 def edge_dot(src: torch.Tensor, dst: torch.Tensor, x: torch.Tensor,
              g: torch.Tensor) -> torch.Tensor:
     """The SpMM's gradient w.r.t. its weights: <x[src_e], g[dst_e]> per
@@ -114,6 +153,57 @@ class _Spmm(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             d_w = edge_dot(graph.src, graph.dst, x, g).to(w.dtype)
         return d_w, d_x, None, None
+
+
+def bucket_vals(bucket, w: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
+    """A ring bucket's value stream chunk[src] * w in forward-CSR order,
+    gathered in torch (as XLA does at ``pallas_backend.py:227``)."""
+    return (chunk.index_select(0, bucket.src.long())
+            * w.to(chunk.dtype)[:, None]).contiguous()
+
+
+def bucket_cotangent(bucket, w_rev: torch.Tensor, g: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """A bucket SpMM's gradient w.r.t. its chunk: K6 on the bucket's
+    reverse CSR over g[dst] * w, reduced at the chunk's dtype (the
+    single-device dual of ``pallas_backend._spmm_bwd``)."""
+    vals = (g.to(dtype).index_select(0, bucket.rev_dst.long())
+            * w_rev.to(dtype)[:, None]).contiguous()
+    return segment_sum_csr(bucket.rev_row_offsets, vals).to(dtype)
+
+
+class _BucketSpmm(torch.autograd.Function):
+    """A ring bucket's SpMM: the value stream chunk[src] * w gathered in
+    torch, then K6 on the bucket's forward CSR; backward: K6 on its
+    reverse CSR for d_chunk (``halo.py:83-84``), the per-edge dot for
+    d_w only when it is asked for."""
+
+    @staticmethod
+    def forward(ctx, w, chunk, w_rev, bucket):
+        ctx.bucket = bucket
+        ctx.save_for_backward(chunk, w_rev)
+        return segment_sum_csr(bucket.row_offsets,
+                               bucket_vals(bucket, w, chunk))
+
+    @staticmethod
+    def backward(ctx, g):
+        chunk, w_rev = ctx.saved_tensors
+        b = ctx.bucket
+        g = g.contiguous()
+        d_chunk = (bucket_cotangent(b, w_rev, g, chunk.dtype)
+                   if ctx.needs_input_grad[1] else None)
+        d_w = (edge_dot(b.src, b.dst, chunk, g)
+               if ctx.needs_input_grad[0] else None)
+        return d_w, d_chunk, None, None
+
+
+def bucket_spmm(bucket, edge_w: EdgeWeights,
+                chunk: torch.Tensor) -> torch.Tensor:
+    """One ring bucket's partial: out[r] = sum over the bucket's edges
+    (u -> r) of w * chunk[u] -> (R, d) float32, differentiable in the
+    chunk and the forward weights. ``bucket`` is a
+    ``parallel.partition.Bucket``, ``edge_w`` its staged weights."""
+    return _BucketSpmm.apply(edge_w.fwd, chunk, edge_w.rev, bucket)
 
 
 def spmm(graph: Graph, edge_w: Union[torch.Tensor, EdgeWeights],

@@ -11,7 +11,7 @@ The port's graph has no pad edges, so nothing here needs an edge mask.
 
 from __future__ import annotations
 
-from typing import Iterable, Tuple, Union
+from typing import Iterable, List, Sequence, Tuple, Union
 
 import torch
 
@@ -44,6 +44,41 @@ def spmm_coo(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
                              torch.float32)
     msgs = x.index_select(0, src).to(dt) * w.to(dt)[:, None]
     return segment_sum_coo(dst, msgs, n_nodes)
+
+
+def segment_sum_csr(row_offsets: torch.Tensor,
+                    vals: torch.Tensor) -> torch.Tensor:
+    """out[r] = sum over e in [row_offsets[r], row_offsets[r+1]) of
+    vals[e]: the segment sum of a pre-gathered (E, d) value stream (K6's
+    plain version), in float32, or float64 when ``vals`` is. A bfloat16
+    stream is widened to float32 first, as the kernel does. Every row is
+    written; a row with no edge is 0."""
+    dt = torch.promote_types(vals.dtype, torch.float32)
+    return segment_sum_coo(offsets_to_dst(row_offsets), vals.to(dt),
+                           row_offsets.numel() - 1)
+
+
+def ring_shift(parts: Sequence[torch.Tensor],
+               step: int) -> List[torch.Tensor]:
+    """Partition j receives a copy of partition (j - step) mod P's tensor,
+    on partition j's device (K7's plain version). step = +1 moves data
+    left to right, as ``lax.ppermute(x, axis, [(i, (i + 1) % P)])``; its
+    transpose is step = -1."""
+    n = len(parts)
+    return [parts[(j - step) % n].to(parts[j].device, copy=True)
+            for j in range(n)]
+
+
+def reduce_send(row_offsets: Sequence[torch.Tensor],
+                vals: Sequence[torch.Tensor],
+                chunks: Sequence[torch.Tensor]
+                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """One fused ring step (K8's plain version): per partition p, the
+    segment sums of its bucket's value stream ``vals[p]`` over the CSR
+    ``row_offsets[p]``, and the chunks sent one hop right
+    (``ring_shift(chunks, 1)``)."""
+    return ([segment_sum_csr(r, v) for r, v in zip(row_offsets, vals)],
+            ring_shift(chunks, 1))
 
 
 def segment_softmax_coo(dst: torch.Tensor, logits: torch.Tensor,
@@ -145,6 +180,15 @@ def spmm(graph: Graph, edge_w: Union[torch.Tensor, EdgeWeights],
     if isinstance(edge_w, EdgeWeights):
         edge_w = edge_w.fwd
     return spmm_coo(graph.src, graph.dst, edge_w, x, graph.n_nodes)
+
+
+def bucket_spmm(bucket, edge_w: EdgeWeights,
+                x: torch.Tensor) -> torch.Tensor:
+    """A ring bucket's partial (``parallel.partition.Bucket``): out[r] =
+    sum over the bucket's edges (u -> r) of w * x[u], x the chunk it
+    reads; autograd differentiates the gather and ``index_add_``."""
+    return spmm_coo(bucket.src, bucket.dst, edge_w.fwd, x,
+                    bucket.row_offsets.numel() - 1)
 
 
 def segment_softmax(graph: Graph, logits: torch.Tensor) -> torch.Tensor:

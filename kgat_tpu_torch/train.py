@@ -15,6 +15,16 @@ The default is ``--device cuda --ops-backend hopper``: the CF step runs
 the SpMM kernel forward and on the reverse CSR backward, the attention
 recompute the SDDMM and softmax kernels, and it fails if there is no GPU.
 
+``--n-devices P`` (P > 1) trains edge-partitioned, as ``kgat_tpu``'s
+BASELINE config 5 does: P destination-block partitions, partition p on
+``cuda:(p % device_count)`` (so four partitions share one card), the CF
+phase through ``parallel.halo`` with ``--halo-exchange allgather|ring``
+and ``--ring-transport ppermute|dma|fused``, the KG phase the same TransR
+step on a global batch, batch sizes rounded up to a multiple of P:
+
+    python -m kgat_tpu_torch.train --dataset yelp2018 --n-devices 4 \\
+        --halo-exchange ring --ring-transport fused
+
 PyTorch runs eagerly, so each step is its own sequence of launches; the
 losses stay on the device through an epoch and are read once at its end.
 One ``torch.optim.Adam`` with optax's defaults spans every parameter in
@@ -26,15 +36,17 @@ zero gradient where torch would skip a parameter whose ``.grad`` is None.
 from __future__ import annotations
 
 import time
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from kgat_tpu_torch import eval as evaluation
 from kgat_tpu_torch.data import Dataset, load_dataset, synthetic_dataset
-from kgat_tpu_torch.graph import EdgeWeights
 from kgat_tpu_torch.models import kgat
+from kgat_tpu_torch.parallel import dp, halo
+from kgat_tpu_torch.parallel.partition import (build_ring_buckets,
+                                               partition_graph)
 from kgat_tpu_torch.recommend import disable_tf32
 from kgat_tpu_torch.sampler import (CFSampleTable, KGSampleTable,
                                     sample_cf_batch, sample_kg_batch)
@@ -102,44 +114,89 @@ class Trainer:
             generator=torch.Generator().manual_seed(cfg.seed), device=dev)
         self.generator = torch.Generator(device=dev).manual_seed(cfg.seed)
         self.opt = make_optimizer(self.model.parameters(), cfg.lr)
+        self.cf_batch_size, self.kg_batch_size = (cfg.cf_batch_size,
+                                                  cfg.kg_batch_size)
+        self.n_parts = dp.n_parts_for(cfg.n_devices, dev)
+        self.partitioned = self.n_parts > 1
+        self.part: Optional[halo.Partitioned] = None
+        if self.partitioned:
+            self._build_partitioned(graph)
         self.epoch = 0
         self.best_metric = -1.0
         self.bad_evals = 0
         # Attention staged after each KG phase (reference order): it serves
         # evaluate() and the next epoch's CF phase.
-        self._att: Optional[EdgeWeights] = None
+        self._att = None
         self._prof = None
 
+    def _build_partitioned(self, graph) -> None:
+        """The edge-partitioned CF phase (``kgat_tpu/train.py:264-340``):
+        the CKG cut into P destination blocks, the ring buckets when the
+        exchange is the ring, one dropout generator per partition, and
+        both batch sizes rounded up to a multiple of P. The KG phase is
+        ``kg_step`` on the global batch: in one process it is the
+        data-parallel TransR loss (``parallel/dp.py``)."""
+        cfg, P = self.cfg, self.n_parts
+        mesh = dp.make_mesh(P, self.device)
+        src, dst = graph.src.numpy(), graph.dst.numpy()
+        shards, self.pinfo = partition_graph(
+            src, dst, graph.etype.numpy(), self.meta.n_nodes,
+            self.meta.n_relations, P)
+        ring = cfg.halo_exchange == "ring"
+        self.part = halo.Partitioned(
+            mesh, shards, self.pinfo, self.meta, cfg.model,
+            exchange=cfg.halo_exchange,
+            ring_buckets=build_ring_buckets(src, dst, self.pinfo)
+            if ring else None, ring_transport=cfg.ring_transport)
+        self.part_generators = [
+            torch.Generator(device=d).manual_seed(cfg.seed + 1 + p)
+            for p, d in enumerate(mesh.devices)]
+        self.cf_batch_size = dp.round_batch(cfg.cf_batch_size, P)
+        self.kg_batch_size = dp.round_batch(cfg.kg_batch_size, P)
+
     # ------------------------------------------------------------------
-    def attention(self) -> EdgeWeights:
+    def attention(self):
+        """Attention recomputed with no gradient and staged for the CF
+        phase: :class:`EdgeWeights`, or per partition when partitioned."""
+        if self.partitioned:
+            return self.part.attention(self.model)[1]
         return kgat.attention_for_training(self.model, self.graph,
                                            self.cfg.model)
 
     def sample_cf(self):
         """(u, i+, i-, weight) for one CF step, on the device."""
         return sample_cf_batch(self.cf_table, self.generator,
-                               self.cfg.cf_batch_size)
+                               self.cf_batch_size)
 
     def sample_kg(self):
         """(h, r, t+, t-, weight) for one KG step, on the device."""
         return sample_kg_batch(self.kg_table, self.generator,
-                               self.cfg.kg_batch_size)
+                               self.kg_batch_size)
 
-    def cf_grad(self, att: EdgeWeights, u, i_pos, i_neg, weight=None, *,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def cf_grad(self, att, u, i_pos, i_neg, weight=None, *,
+                generator: Union[None, torch.Generator,
+                                 Sequence[torch.Generator]] = None
+                ) -> torch.Tensor:
         """The BPR loss of one batch, with its gradient in every
         parameter's ``.grad`` (zeros for ``w_rel`` and ``rel_embed``).
-        Dropout masks come from ``generator`` (default: the trainer's)."""
+        Dropout masks come from ``generator`` (default: the trainer's),
+        or when partitioned from one generator per partition (default:
+        ``part_generators``)."""
         self.opt.zero_grad(set_to_none=False)
-        loss = kgat.cf_loss(self.model, self.graph, att, self.meta, u, i_pos,
-                            i_neg, self.cfg.model,
-                            generator=generator or self.generator,
-                            train=True, weight=weight)
+        if self.partitioned:
+            loss = self.part.cf_loss(
+                self.model, att, u, i_pos, i_neg, weight=weight,
+                generators=generator or self.part_generators)
+        else:
+            loss = kgat.cf_loss(self.model, self.graph, att, self.meta, u,
+                                i_pos, i_neg, self.cfg.model,
+                                generator=generator or self.generator,
+                                train=True, weight=weight)
         loss.backward()
         return loss.detach()
 
-    def cf_step(self, att: EdgeWeights, u, i_pos, i_neg, weight=None, *,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def cf_step(self, att, u, i_pos, i_neg, weight=None, *,
+                generator=None) -> torch.Tensor:
         """One CF step: loss, gradient, Adam update. Returns the loss on
         the device."""
         loss = self.cf_grad(att, u, i_pos, i_neg, weight, generator=generator)
@@ -182,6 +239,8 @@ class Trainer:
     def all_embed(self) -> torch.Tensor:
         """The eval-mode forward over the cached attention."""
         att = self._att if self._att is not None else self.attention()
+        if self.partitioned:
+            return self.part.propagate_eval(self.model, att)
         with torch.no_grad():
             return kgat.propagate(self.model, self.graph, att, self.cfg.model)
 

@@ -4,12 +4,17 @@ Port of ``kgat_tpu/utils/config.py`` with the same flags. The defaults are
 the reference recipe (SURVEY.md §2.9) on one GPU: ``--device cuda
 --ops-backend hopper``. Flags whose module is not ported yet are refused
 with the ROADMAP.md item that will bring them, never accepted and ignored.
+
+``--n-devices P`` trains edge-partitioned over P partitions placed
+round-robin over the visible GPUs (``parallel/dp.py``); more partitions
+than GPUs share a GPU, as ``kgat_tpu``'s tests share virtual CPU devices.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from typing import Optional
 
 import torch
@@ -42,6 +47,11 @@ class TrainConfig:
     run_name: str = "kgat"
     ckpt_path: Optional[str] = None     # defaults to <log_dir>/<run_name>_best
     profile_epochs: int = 0             # torch.profiler trace of the first N epochs
+    # edge partitioning (BASELINE config 5): > 1 partitions the CF phase;
+    # 0 = one partition per visible GPU
+    n_devices: int = 1
+    halo_exchange: str = "allgather"    # allgather | ring
+    ring_transport: str = "ppermute"    # ppermute | dma | fused (ring only)
     # synthetic dataset scale (used when dataset == synthetic)
     syn_users: int = 300
     syn_items: int = 200
@@ -51,8 +61,8 @@ class TrainConfig:
     syn_triples: int = 4000
 
 
-# The single-device run configs of kgat_tpu's PRESETS (BASELINE.json),
-# with the pallas backend replaced by the Hopper kernels.
+# The run configs of kgat_tpu's PRESETS (BASELINE.json), with the pallas
+# backend replaced by the Hopper kernels.
 PRESETS = {
     # 1: CPU-runnable smoke: 1-layer GCN, small graph
     "smoke-gcn": dict(
@@ -74,19 +84,23 @@ PRESETS = {
                                  model=KGATConfig(
                                      aggregator="bi-interaction",
                                      ops_backend="hopper")),
+    # 5: edge-partitioned Yelp2018, one partition per visible GPU
+    "yelp-partitioned": dict(dataset="yelp2018", n_devices=0,
+                             model=KGATConfig(aggregator="bi-interaction",
+                                              ops_backend="hopper")),
 }
 
-_MULTI_GPU = ("multi-GPU training is not ported yet (ROADMAP.md queue 1, "
-              "item 13, multi-GPU)")
+_ITEM_13 = "(ROADMAP.md queue 1, item 13, multi-GPU: what is left of it)"
 
 # (flag as named to the user, test on the parsed args, why it is refused)
 _UNPORTED = (
-    ("--preset yelp-partitioned", lambda a: a.preset == "yelp-partitioned",
-     _MULTI_GPU),
-    ("--n-devices", lambda a: a.n_devices not in (None, 1), _MULTI_GPU),
-    ("--dp-replicas", lambda a: a.dp_replicas not in (None, 1), _MULTI_GPU),
-    ("--halo-exchange", lambda a: a.halo_exchange is not None, _MULTI_GPU),
-    ("--ring-transport", lambda a: a.ring_transport is not None, _MULTI_GPU),
+    ("--halo-exchange a2a", lambda a: a.halo_exchange == "a2a",
+     f"the selective halo all-to-all is not ported yet {_ITEM_13}"),
+    ("--dp-replicas", lambda a: a.dp_replicas not in (None, 1),
+     f"the 2D (dp, ep) mesh is not ported yet {_ITEM_13}"),
+    ("NUM_PROCESSES > 1", lambda a: int(os.environ.get("NUM_PROCESSES", 1))
+     > 1, f"multi-host training over torch.distributed is not ported yet "
+     f"{_ITEM_13}"),
     ("--sparse-adam", lambda a: a.sparse_adam,
      "lazy sparse Adam is not ported yet (ROADMAP.md queue 1, item 10)"),
     ("--use-pretrain", lambda a: a.pretrain_path is not None,
@@ -108,8 +122,7 @@ _UNPORTED = (
 def parse_args(argv=None) -> TrainConfig:
     p = argparse.ArgumentParser(
         description="KGAT trainer (PyTorch, Hopper kernels)")
-    p.add_argument("--preset", choices=sorted(PRESETS) + ["yelp-partitioned"],
-                   default=None)
+    p.add_argument("--preset", choices=sorted(PRESETS), default=None)
     p.add_argument("--dataset", default=None)
     p.add_argument("--data-root", default=None)
     p.add_argument("--aggregator", default=None,
@@ -135,7 +148,9 @@ def parse_args(argv=None) -> TrainConfig:
                         "relation-tile kernel only (auto = relblock)")
     p.add_argument("--no-coalesce", action="store_true",
                    help="accepted for kgat_tpu's command lines: the port "
-                        "never coalesces multi-edges")
+                        "never coalesces multi-edges (coalesced shards "
+                        "under partitioning are ROADMAP.md queue 1, item "
+                        "13)")
     p.add_argument("--compute-dtype", default=None, choices=["f32", "bf16"],
                    help="SpMM value-stream dtype (hopper backend); bf16 "
                         "halves the gathered bytes, accumulation stays f32")
@@ -158,12 +173,22 @@ def parse_args(argv=None) -> TrainConfig:
     p.add_argument("--resume", action="store_true",
                    help="not ported yet (ROADMAP.md queue 1, item 7)")
     p.add_argument("--n-devices", type=int, default=None,
-                   help="1 only: multi-GPU is ROADMAP.md queue 1, item 13")
-    p.add_argument("--dp-replicas", type=int, default=None)
+                   help="partitions for edge-partitioned training, placed "
+                        "round-robin over the visible GPUs (several may "
+                        "share one); 0 = one per GPU; 1 = one device")
+    p.add_argument("--dp-replicas", type=int, default=None,
+                   help="1 only: the 2D (dp, ep) mesh is ROADMAP.md queue "
+                        "1, item 13")
     p.add_argument("--halo-exchange", default=None,
-                   choices=["allgather", "ring", "a2a"])
+                   choices=["allgather", "ring", "a2a"],
+                   help="partitioned exchange: per-layer all-gather, or "
+                        "the ring of bucket reduces (a2a: ROADMAP.md queue "
+                        "1, item 13)")
     p.add_argument("--ring-transport", default=None,
-                   choices=["ppermute", "dma", "fused"])
+                   choices=["ppermute", "dma", "fused"],
+                   help="ring chunk transport: a plain tensor copy, the "
+                        "ring-shift kernel (K7), or the fused reduce + send "
+                        "kernel (K8)")
     p.add_argument("--use-pretrain", dest="pretrain_path", default=None,
                    help="not ported yet (ROADMAP.md queue 1, item 9)")
     p.add_argument("--profile-epochs", type=int, default=None,
@@ -184,7 +209,8 @@ def parse_args(argv=None) -> TrainConfig:
     for field in ("dataset", "data_root", "lr", "cf_batch_size",
                   "kg_batch_size", "epochs", "eval_every", "stopping_steps",
                   "k", "seed", "device", "log_dir", "run_name",
-                  "profile_epochs", "syn_users", "syn_items", "syn_entities",
+                  "profile_epochs", "n_devices", "halo_exchange",
+                  "ring_transport", "syn_users", "syn_items", "syn_entities",
                   "syn_relations", "syn_interactions", "syn_triples"):
         v = getattr(a, field)
         if v is not None:
@@ -217,6 +243,8 @@ def parse_args(argv=None) -> TrainConfig:
             base = m.get("conv_dims", cfg.model.conv_dims)
             m.setdefault("mess_dropout", tuple(0.1 for _ in base))
         cfg.model = dataclasses.replace(cfg.model, **m)
+    if cfg.n_devices < 0:
+        p.error(f"--n-devices must be >= 0, got {cfg.n_devices}")
     if len(cfg.model.conv_dims) != len(cfg.model.mess_dropout):
         p.error(f"--conv-dims has {len(cfg.model.conv_dims)} layers but "
                 f"--mess-dropout has {len(cfg.model.mess_dropout)} rates; "

@@ -1,7 +1,7 @@
 """chip_smoke.py rehearsed on the CPU.
 
 Its phases run only on the GPU machine, where a Python fault would show
-for the first time. Here ``run()`` drives phases 3-7 at a tiny size with
+for the first time. Here ``run()`` drives phases 3-8 at a tiny size with
 the plain versions and a stub timer, in a subprocess where importing jax
 or the JAX package raises (the GPU machine has no jax). ``main()`` itself
 must refuse to run without CUDA, and the script must fail outside the
@@ -40,9 +40,10 @@ class StubTimer:
         return 0.0
 
 
+# 400 nodes: phase 8's four partitions of 128 rows all hold edges.
 sizes = chip_smoke.Sizes(
-    dataset=dict(n_users=60, n_items=40, n_entities=90, n_relations_kg=4,
-                 n_interactions=700, n_triples=500),
+    dataset=dict(n_users=150, n_items=100, n_entities=250, n_relations_kg=4,
+                 n_interactions=1500, n_triples=1000),
     hub=300, users=16, steps=3, cf_batch=64, kg_batch=128)
 torch.manual_seed(0)
 with tempfile.TemporaryDirectory() as tmp:
@@ -57,20 +58,26 @@ print("RC", rc, leaked)
 
 
 def test_phases_3_to_7_run_on_the_cpu_without_jax():
+    """Phases 3-7, and phase 8 after them (the partitioned trainer)."""
     proc = subprocess.run([sys.executable, "-I", "-c",
                            REHEARSAL.format(repo=REPO)],
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     assert lines[-1] == "RC 0 []", lines[-1]
-    for n in range(3, 8):
-        assert any(ln.startswith(f"[{n}/7]") for ln in lines), n
+    for n in range(3, 9):
+        assert any(ln.startswith(f"[{n}/8]") for ln in lines), n
     kernels = json.loads(lines[-2])["kernels"]
     assert [k["name"] for k in kernels] == [
         "spmm_csr", "spmm_csr_rev", "sddmm_transr", "segment_softmax_csr",
-        "sddmm_transr_bwd", "segment_softmax_csr_bwd"]
+        "sddmm_transr_bwd", "segment_softmax_csr_bwd", "segment_sum_csr",
+        "ring_shift", "reduce_send"]
     for k in kernels:
         assert k["route"] == "cuda"
+        assert k["bound_by"] in ("bytes", "operations") and k["bound_ms"] > 0
+        assert (k["library_ms"] is None) == (k["name"] in (
+            "sddmm_transr", "segment_softmax_csr", "sddmm_transr_bwd",
+            "segment_softmax_csr_bwd")), k
         assert os.path.exists(os.path.join(REPO, k["source"]))
         path, line = k["replaces"].split(":")
         assert os.path.exists(os.path.join(REPO, path)) and int(line) > 0

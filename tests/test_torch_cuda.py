@@ -21,7 +21,9 @@ from kgat_tpu_torch.ops.hopper import build
 from kgat_tpu_torch.ops.hopper.sddmm import (sddmm_transr, sddmm_transr_bwd,
                                              sddmm_transr_bwd_plain,
                                              sddmm_transr_plain)
-from kgat_tpu_torch.ops.hopper.segment_sum import spmm_csr, spmm_csr_plain
+from kgat_tpu_torch.ops.hopper.remote_ring import reduce_send, ring_shift
+from kgat_tpu_torch.ops.hopper.segment_sum import (segment_sum_csr, spmm_csr,
+                                                   spmm_csr_plain)
 from kgat_tpu_torch.ops.hopper.softmax import (segment_softmax_csr,
                                                segment_softmax_csr_bwd,
                                                segment_softmax_csr_bwd_plain,
@@ -237,6 +239,125 @@ def test_wrappers_refuse_grad_and_bad_inputs(dev, hand_graph):
     with pytest.raises(ValueError, match="contiguous"):
         segment_softmax_csr(g.row_offsets,
                             torch.zeros(2 * g.n_edges, device=dev)[::2])
+
+
+def _bucket_csr(rs, n_rows, hub):
+    """CSR offsets of ``n_rows`` rows: row 0 empty, row 1 one edge, row 2
+    a hub of ``hub`` edges, the rest 0-20."""
+    deg = np.concatenate([[0, 1, hub], rs.integers(0, 21, n_rows - 3)])
+    return torch.from_numpy(np.concatenate([[0], np.cumsum(deg)]).astype(
+        np.int32))
+
+
+@pytest.mark.parametrize("d,dtype", [(64, torch.float32), (32, torch.float32),
+                                     (16, torch.float32), (64, torch.bfloat16),
+                                     (200, torch.float32)])
+def test_segment_sum_csr_matches_float64_plain(dev, d, dtype):
+    """K6 against its plain version in float64, under Higham's bound on
+    each row (n * 2^-23 * sum|terms|); a second call bit-identical; an
+    empty row and an empty bucket written as 0."""
+    rs = np.random.default_rng(d)
+    ro = _bucket_csr(rs, 300, 3000).to(dev)
+    vals = torch.from_numpy(rs.normal(size=(int(ro[-1]), d)).astype(
+        np.float32)).to(dev, dtype)
+    n = build.launch_counts["segment_sum_csr"]
+    got = segment_sum_csr(ro, vals)
+    again = segment_sum_csr(ro, vals)
+    torch.cuda.synchronize()
+    assert build.launch_counts["segment_sum_csr"] == n + 2
+    assert torch.equal(got, again) and got.dtype == torch.float32
+    want = ref.segment_sum_csr(ro, vals.double())
+    terms = ref.segment_sum_csr(ro, vals.double().abs())
+    rows = (ro[1:] - ro[:-1]).double()[:, None]
+    _assert_within(got, want, 2 * U * rows * terms + U * want.abs(), "K6")
+    assert not got[0].any()
+    empty = segment_sum_csr(torch.zeros(7, dtype=torch.int32, device=dev),
+                            vals[:0])
+    torch.cuda.synchronize()
+    assert empty.shape == (6, d) and not empty.any()
+
+
+def _parts(rs, n, rows, d, dtype, dev):
+    return [torch.from_numpy(rs.normal(size=(rows, d)).astype(
+        np.float32)).to(dev, dtype) for _ in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_shift_is_a_bit_exact_copy_around_the_ring(dev, dtype):
+    """K7 against its plain version, both directions, P = 4 (so +1 and -1
+    differ); 17 x 3 bf16 rows (102 bytes) take the byte tail."""
+    rs = np.random.default_rng(4)
+    for rows, d in ((64, 64), (17, 3)):
+        parts = _parts(rs, 4, rows, d, dtype, dev)
+        for step in (1, -1):
+            n = build.launch_counts["ring_shift"]
+            got = ring_shift(parts, step)
+            torch.cuda.synchronize()
+            assert build.launch_counts["ring_shift"] == n + 4
+            for g, w in zip(got, ref.ring_shift(parts, step)):
+                assert torch.equal(g, w)
+            assert torch.equal(got[1], parts[0]) if step == 1 else \
+                torch.equal(got[0], parts[1])
+
+
+def test_ring_wrappers_refuse_aliased_buffers(dev):
+    parts = [torch.ones(8, 4, device=dev) for _ in range(3)]
+    with pytest.raises(ValueError, match="aliases"):
+        ring_shift(parts, 1, out=[parts[2], parts[0], parts[1]])
+    ro = [torch.tensor([0, 1], dtype=torch.int32, device=dev)] * 3
+    vals = [torch.ones(1, 4, device=dev) for _ in range(3)]
+    with pytest.raises(ValueError, match="aliases"):
+        reduce_send(ro, vals, parts, out=[parts[1], parts[2], parts[0]])
+
+
+@pytest.mark.parametrize("d,dtype", [(64, torch.float32), (32, torch.bfloat16)])
+def test_reduce_send_matches_plain(dev, d, dtype):
+    """K8: every partition's sums against float64 under Higham's bound,
+    the sent chunks bit-exact; one bucket has no edge."""
+    rs = np.random.default_rng(d + 1)
+    ros = [_bucket_csr(rs, 128, 500).to(dev) for _ in range(3)]
+    ros.append(torch.zeros(129, dtype=torch.int32, device=dev))
+    vals = [torch.from_numpy(rs.normal(size=(int(r[-1]), d)).astype(
+        np.float32)).to(dev, dtype) for r in ros]
+    chunks = _parts(rs, 4, 128, d, dtype, dev)
+    n = build.launch_counts["reduce_send"]
+    sums, nxt = reduce_send(ros, vals, chunks)
+    torch.cuda.synchronize()
+    assert build.launch_counts["reduce_send"] == n + 4
+    want_sums, want_next = ref.reduce_send(ros, [v.double() for v in vals],
+                                           chunks)
+    for ro, v, got, want in zip(ros, vals, sums, want_sums):
+        terms = ref.segment_sum_csr(ro, v.double().abs())
+        rows = (ro[1:] - ro[:-1]).double()[:, None]
+        _assert_within(got, want, 2 * U * rows * terms + U * want.abs(), "K8")
+    assert not sums[3].any()
+    for g, w in zip(nxt, want_next):
+        assert torch.equal(g, w)
+
+
+def test_ring_kernels_between_two_cards():
+    """K7 and K8 storing into a peer card's buffer: partitions alternate
+    between cuda:0 and cuda:1."""
+    if torch.cuda.device_count() < 2 or not (
+            torch.cuda.can_device_access_peer(0, 1)
+            and torch.cuda.can_device_access_peer(1, 0)):
+        pytest.skip("needs two GPUs with peer access")
+    rs = np.random.default_rng(9)
+    devs = [torch.device(f"cuda:{p % 2}") for p in range(4)]
+    parts = [p[0].to(dv) for p, dv in zip(
+        (_parts(rs, 1, 64, 32, torch.float32, "cpu") for _ in devs), devs)]
+    got = ring_shift(parts, 1)
+    ros = [_bucket_csr(rs, 64, 100).to(dv) for dv in devs]
+    vals = [torch.ones(int(r[-1]), 32, device=r.device) for r in ros]
+    sums, nxt = reduce_send(ros, vals, parts)
+    for dv in devs:
+        torch.cuda.synchronize(dv)
+    for j in range(4):
+        assert got[j].device == devs[j] and nxt[j].device == devs[j]
+        assert torch.equal(got[j].cpu(), parts[j - 1].cpu())
+        assert torch.equal(nxt[j].cpu(), parts[j - 1].cpu())
+        assert torch.equal(sums[j].cpu(), ref.segment_sum_csr(
+            ros[j].cpu(), vals[j].cpu()))
 
 
 def test_forward_kernel_path_matches_plain_path(dev):

@@ -280,9 +280,9 @@ def test_dropout_scales_the_layer_output_before_the_norm(graphs):
                            @ layer["w"] + layer["b"], cfg.leaky_relu_slope)
         keep = torch.rand(ego.shape,
                           generator=torch.Generator().manual_seed(2)) < 0.7
-        want = tkgat._l2norm(torch.where(keep, ego / 0.7, 0.0))
+        want = tkgat.l2norm(torch.where(keep, ego / 0.7, 0.0))
     torch.testing.assert_close(got[:, 64:], want)
-    torch.testing.assert_close(tkgat._l2norm(ego), full)
+    torch.testing.assert_close(tkgat.l2norm(ego), full)
     assert 0.6 < keep.float().mean() < 0.8
     with pytest.raises(ValueError, match="generator"):
         tkgat.propagate(model, tg, att, cfg, train=True)

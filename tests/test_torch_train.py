@@ -163,15 +163,52 @@ def test_default_device_needs_cuda():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--sparse-adam"], ["--n-devices", "2"], ["--use-pretrain", "x.npz"],
-    ["--sampler", "host"], ["--resume"], ["--graph-cache", "cache"],
-    ["--preset", "yelp-partitioned"]])
+    ["--sparse-adam"], ["--halo-exchange", "a2a"],
+    ["--use-pretrain", "x.npz"], ["--sampler", "host"], ["--resume"],
+    ["--graph-cache", "cache"], ["--n-devices", "4", "--dp-replicas", "2"],
+    ["--preset", "yelp-partitioned", "--halo-exchange", "a2a"]])
 def test_unported_flags_are_refused(flags, capsys):
     """Flags whose module is not ported yet fail with the ROADMAP item
     that will bring them; none is accepted and then ignored."""
     with pytest.raises(SystemExit):
         parse_args(flags)
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+def test_multi_host_is_refused(monkeypatch, capsys):
+    """A multi-process launch (kgat_tpu's NUM_PROCESSES) is refused: the
+    port runs its partitions in one process."""
+    monkeypatch.setenv("NUM_PROCESSES", "2")
+    with pytest.raises(SystemExit):
+        parse_args(["--n-devices", "4"])
+    assert "ROADMAP.md" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--n-devices", "4"], (4, "allgather", "ppermute")),
+    (["--n-devices", "4", "--halo-exchange", "ring"], (4, "ring",
+                                                       "ppermute")),
+    (["--n-devices", "3", "--halo-exchange", "ring", "--ring-transport",
+      "dma"], (3, "ring", "dma")),
+    (["--n-devices", "4", "--halo-exchange", "ring", "--ring-transport",
+      "fused", "--dp-replicas", "1", "--no-coalesce"], (4, "ring", "fused")),
+    (["--preset", "yelp-partitioned"], (0, "allgather", "ppermute"))])
+def test_partitioning_flags_are_accepted(flags, want):
+    cfg = parse_args(flags)
+    assert (cfg.n_devices, cfg.halo_exchange, cfg.ring_transport) == want
+    assert cfg.model.ops_backend == "hopper"
+    if "--preset" in flags:
+        assert cfg.dataset == "yelp2018"
+        assert cfg.model.conv_dims == (64, 32, 16)
+
+
+def test_n_devices_zero_means_one_partition_per_gpu(tmp_path):
+    """``--n-devices 0`` is one partition per visible GPU; on the CPU that
+    is one, the single-device path (as JAX's 0 is every device)."""
+    tr = _tiny_trainer(tmp_path, n_devices=0)
+    assert (tr.n_parts, tr.partitioned) == (1, False)
+    with pytest.raises(SystemExit):
+        parse_args(["--n-devices", "-1"])
 
 
 def test_presets_and_defaults():

@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's training steps on a GPU with torch.profiler.
 
-    python tools/profile_train_step.py [--steps 3] [--trace DIR]
+    python tools/profile_train_step.py [--steps 3] [--trace DIR] \
+        [--n-devices P --halo-exchange allgather|ring \
+         --ring-transport ppermute|dma|fused]
 
 Builds the yelp2018-scale synthetic dataset (the repo's `make datasets`
 numbers) and a Trainer at the reference recipe (d = k = 64, layers 64/32/16,
 bi-interaction, CF batch 1024, KG batch 2048) on the kernel path, warms up,
 then traces ``--steps`` CF steps, ``--steps`` KG steps and one attention
-recompute. For each window it prints the wall time per step (host clock
-around work ending in a synchronize), the device time per step summed over
-kernels, the device idle share, and the kernels by device time. With
+recompute. ``--n-devices P`` profiles the edge-partitioned trainer (P
+partitions placed round-robin over the visible GPUs, so P = 4 share one
+card) with the exchange and transport given. For each window it prints
+the wall time per step (host clock around work ending in a synchronize),
+the device time per step summed over kernels, the device idle share, and
+the kernels by device time. With
 ``--trace``, it writes one Chrome trace per window there. Needs CUDA.
 """
 
@@ -75,6 +80,11 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--trace", default=None, help="directory for traces")
+    p.add_argument("--n-devices", type=int, default=1)
+    p.add_argument("--halo-exchange", default="allgather",
+                   choices=["allgather", "ring"])
+    p.add_argument("--ring-transport", default="ppermute",
+                   choices=["ppermute", "dma", "fused"])
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train_step: needs a CUDA GPU", file=sys.stderr)
@@ -84,8 +94,12 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip()
     print(smi)
     ds = synthetic_dataset(seed=0, name="yelp2018", **YELP2018)
-    trainer = train.Trainer(TrainConfig(dataset="yelp2018", log_dir=None,
-                                        seed=0), dataset=ds)
+    trainer = train.Trainer(TrainConfig(
+        dataset="yelp2018", log_dir=None, seed=0, n_devices=a.n_devices,
+        halo_exchange=a.halo_exchange, ring_transport=a.ring_transport),
+        dataset=ds)
+    print(f"partitions {trainer.n_parts}, exchange {a.halo_exchange}, "
+          f"transport {a.ring_transport}")
     att = trainer.attention()
     cf = lambda: trainer.cf_step(att, *trainer.sample_cf())  # noqa: E731
     kg = lambda: trainer.kg_step(*trainer.sample_kg())  # noqa: E731
