@@ -11,7 +11,9 @@ Phases, each announced by a line ``[n/8] ...``:
   2. build    — compiles the kernels from kgat_tpu_torch/ops/hopper/csrc.
   3. forward kernels (K1 SpMM, K2 SDDMM, K3 softmax) against their plain
                PyTorch versions on the card: hand-made rows (empty, one
-               edge, a hub) and the yelp2018-scale graph, with times.
+               edge, a hub, rows at the row split's chunk boundaries) and
+               the yelp2018-scale graph, with times; each CSR's row split
+               and its build time.
   4. serving  — a random full-width model (d = k = 64, layers 64/32/16,
                bi-interaction) written as a checkpoint, served through
                ``kgat_tpu_torch.recommend.main`` for 1,024 users at k = 20.
@@ -42,7 +44,10 @@ Then a JSON line of per-kernel results (each kernel's launches on its
 path, error, time beside its plain version, the library call that
 computes the same function where there is one, and the bound: the least
 time the card could take for the same bytes or operations) and, last,
-the device JSON line.
+the device JSON line. Kernels whose call may take less time on the card
+than on the host (K6-K8 and K7's copies) are timed by their device
+duration, in a CUDA graph replay; the others with CUDA events around
+back-to-back calls.
 A failure prints ``chip_smoke: FAILED in phase n: ...`` and re-raises: the
 exit code is non-zero and the last line is not printed.
 
@@ -78,6 +83,7 @@ from kgat_tpu_torch.models import kgat
 from kgat_tpu_torch.models.kgat import KGATConfig
 from kgat_tpu_torch.ops import ref
 from kgat_tpu_torch.ops.hopper import build
+from kgat_tpu_torch.ops.row_split import CHUNK, build_row_split
 from kgat_tpu_torch.ops.hopper.remote_ring import reduce_send, ring_shift
 from kgat_tpu_torch.ops.hopper.sddmm import (sddmm_transr, sddmm_transr_bwd,
                                              sddmm_transr_bwd_plain,
@@ -132,6 +138,7 @@ class Sizes:
     steps: int = 5        # extra CF and KG steps in phase 6
     cf_batch: int = 1024  # the reference recipe's batch sizes
     kg_batch: int = 2048
+    chunk: int = CHUNK    # the row split of the hand-made rows
 
 
 # The largest in-degree of the yelp-scale graph is 70,884.
@@ -175,6 +182,9 @@ class Times:
 
     def __init__(self):
         self.rows = {}
+        # CUDA launches per wrapper call where it is not one: K4 runs three
+        # kernels; K1, K6 and K8 two where their CSR has a split row.
+        self.per_call = {"sddmm_transr_bwd": 3}
 
     def add(self, name, ms, plain_ms, library_ms=None, nbytes=0, flops=0,
             n=1):
@@ -234,6 +244,33 @@ class CudaTimer:
         end.record()
         self.sync()
         return start.elapsed_time(end) / reps
+
+    def replay_ms(self, fn, reps: int) -> float:
+        """Mean device milliseconds per call of ``fn``, by its device
+        duration alone: ``reps`` calls captured in one CUDA graph, the
+        graph replayed three times between CUDA events after a warm
+        replay. For calls whose host work (checks, routing, the ctypes
+        call) could outlast the kernel, which events around calls made
+        from Python would time instead."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        self.sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            graph.replay()
+        end.record()
+        self.sync()
+        return start.elapsed_time(end) / (3 * reps)
 
     def host_ms(self, fn, reps: int) -> float:
         """Median wall milliseconds of ``fn`` ending in a synchronize."""
@@ -347,19 +384,31 @@ def check_kernels(g, label, check, gen, dev, timer, times=None):
     att = segment_softmax_csr_plain(g.row_offsets, logits)
     e3 = check("segment_softmax_csr", label,
                segment_softmax_csr(g.row_offsets, logits), att, atol=1e-6)
+    # K3's library call: torch.sparse.softmax over a COO tensor of the
+    # logits at (dst, position in the row), coalesced once here (its
+    # indices are unique), so that it computes K3's function.
+    dst = ref.offsets_to_dst(g.row_offsets)
+    pos = torch.arange(g.n_edges, device=dev) - g.row_offsets.long()[dst]
+    coo = torch.sparse_coo_tensor(
+        torch.stack([dst, pos]), logits,
+        (g.n_nodes, max(int(csr_lengths(g.row_offsets).max()), 1))
+    ).coalesce()
+    check("K3's library call", label,
+          torch.sparse.softmax(coo, 1).values(), att, atol=1e-6)
     errs = []
     for dd, dt in ((64, torch.float32), (32, torch.float32),
                    (64, torch.bfloat16)):
         x = (torch.randn(g.n_nodes, dd, generator=gen) * 0.1).to(dev, dt)
         a1 = (g.row_offsets, g.src, att, x)
-        out = spmm_csr(*a1)
+        out = spmm_csr(*a1, g.split)
         errs.append(check("spmm_csr", f"{label} d={dd} {dt}", out,
                           spmm_csr_plain(*a1)))
+        check_identical("spmm_csr", out, spmm_csr(*a1, g.split))
         empty = (g.row_offsets[1:] == g.row_offsets[:-1])
         if empty.any() and out[empty].abs().max() != 0:
             raise AssertionError("spmm_csr: an empty row is not 0")
         if times is not None:
-            ms = timer.device_ms(lambda: spmm_csr(*a1), 20)
+            ms = timer.device_ms(lambda: spmm_csr(*a1, g.split), 20)
             plain_ms = timer.device_ms(lambda: spmm_csr_plain(*a1), 5)
             print(f"[3/8] spmm_csr per call at d={dd} {dt}: kernel "
                   f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
@@ -384,6 +433,7 @@ def check_kernels(g, label, check, gen, dev, timer, times=None):
                                                               logits), 20),
                   timer.device_ms(lambda: segment_softmax_csr_plain(
                       g.row_offsets, logits), 5),
+                  timer.device_ms(lambda: torch.sparse.softmax(coo, 1), 5),
                   nbytes=2 * g.n_edges * 4 + (g.n_nodes + 1) * 4,
                   flops=5 * g.n_edges)
     return e2, e3, errs, att
@@ -401,8 +451,8 @@ def check_backward_kernels(g, att, label, check, gen, dev, timer,
     for dd in (64, 32):
         cot = torch.randn(g.n_nodes, dd, generator=gen).to(dev)
         a1 = (g.rev_row_offsets, g.rev_dst, rev_w, cot)
-        got = spmm_csr_rev(*a1)
-        again = spmm_csr_rev(*a1)
+        got = spmm_csr_rev(*a1, g.rev_split)
+        again = spmm_csr_rev(*a1, g.rev_split)
         want = spmm_csr_plain(g.rev_row_offsets, g.rev_dst, rev_w.double(),
                               cot.double())
         terms = spmm_csr_plain(g.rev_row_offsets, g.rev_dst,
@@ -416,7 +466,8 @@ def check_backward_kernels(g, att, label, check, gen, dev, timer,
             csr = torch.sparse_csr_tensor(g.rev_row_offsets, g.rev_dst,
                                           rev_w, (g.n_nodes, g.n_nodes))
             times.add("spmm_csr_rev",
-                      timer.device_ms(lambda: spmm_csr_rev(*a1), 20),
+                      timer.device_ms(lambda: spmm_csr_rev(*a1, g.rev_split),
+                                      20),
                       timer.device_ms(lambda: spmm_csr_plain(*a1), 5),
                       timer.device_ms(lambda: torch.sparse.mm(csr, cot), 5),
                       spmm_bytes(g.n_nodes, g.n_edges, g.n_nodes, dd),
@@ -493,18 +544,30 @@ def check_identical(name, a, b):
         raise AssertionError(f"{name}: a second call is not bit-identical")
 
 
-def handmade_graph(gen, hub: int):
+def boundary_rows(chunk: int):
+    """Row lengths at the row split's chunk boundaries: one unit of C - 1
+    and of C edges, two units of C + 1, four of 3C + 5."""
+    return [chunk - 1, chunk, chunk + 1, 3 * chunk + 5]
+
+
+def handmade_graph(gen, hub: int, chunk: int):
     """100 nodes: node 0 has no in-edge, node 1 one, node 2 is a hub of
-    ``hub`` in-edges, the rest 0-40; relation 4 has a single edge."""
+    ``hub`` in-edges, nodes 3-6 sit at the boundaries of the row split of
+    ``chunk`` edges (which both CSRs' splits use), the rest 0-40;
+    relation 4 has a single edge."""
     rs = np.random.default_rng(int(torch.randint(1 << 30, (1,),
                                                  generator=gen)))
     n = 100
-    deg = np.concatenate([[0, 1, hub], rs.integers(0, 41, n - 3)])
+    deg = np.concatenate([[0, 1, hub], boundary_rows(chunk),
+                          rs.integers(0, 41, n - 7)])
     dst = np.repeat(np.arange(n), deg)
     src = rs.integers(0, n, len(dst))
     ety = rs.integers(0, 4, len(dst))
     ety[len(dst) // 2] = 4
-    return build_graph(src, dst, ety, n_nodes=n, n_relations=5)
+    g = build_graph(src, dst, ety, n_nodes=n, n_relations=5)
+    return dataclasses.replace(
+        g, split=build_row_split(g.row_offsets, chunk),
+        rev_split=build_row_split(g.rev_row_offsets, chunk))
 
 
 def expect_launches(dev, launches, want, what):
@@ -601,15 +664,32 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
           f"max in-degree {int(deg.max())}, {int((deg == 0).sum())} empty "
           f"rows, {g_host.tiles.shape[0]} tiles (generated, written, read "
           f"and built in {gen_s:.1f} s on the host)", flush=True)
-    hand = handmade_graph(gen, sizes.hub).to(dev)
+    hand = handmade_graph(gen, sizes.hub, sizes.chunk).to(dev)
     e2, e3, e1, hand_att = check_kernels(hand, "hand-made", check, gen, dev,
                                          timer)
-    print(f"[3/8] hand-made rows (empty, one edge, hub of {sizes.hub}): "
+    print(f"[3/8] hand-made rows (empty, one edge, hub of {sizes.hub}, "
+          f"{boundary_rows(sizes.chunk)} at the chunk boundaries): "
           f"max abs err sddmm {e2:.2e}, softmax {e3:.2e}, spmm "
           f"{', '.join(f'{e:.2e}' for e in e1)} (d64, d32, d64 bf16)",
           flush=True)
     g = g_host.to(dev)
+    # The work units of K1's two CSRs, built once per CSR at start-up
+    # (build_graph builds them on the host; timed here again, and on the
+    # card).
+    lines = []
+    for what, ro, sp in (("forward", g_host.row_offsets, g.split),
+                         ("reverse", g_host.rev_row_offsets, g.rev_split)):
+        host = timer.host_ms(lambda: build_row_split(ro), 3)
+        card = timer.host_ms(lambda: build_row_split(ro.to(dev)), 3)
+        lines.append(f"{what} CSR {sp.n_units} units, {sp.n_split} rows "
+                     f"split into {sp.n_slots} partials, built in "
+                     f"{host:.1f} ms on the host ({card:.1f} ms on the "
+                     f"card), {sp.cuda_launches} CUDA launches per K1 call")
+    print(f"[3/8] row split (chunk {CHUNK} edges), once per CSR at "
+          f"start-up: " + "; ".join(lines), flush=True)
     times = Times()
+    times.per_call.update(spmm_csr=g.split.cuda_launches,
+                          spmm_csr_rev=g.rev_split.cuda_launches)
     e2, e3, e1, att = check_kernels(g, "yelp2018", check, gen, dev, timer,
                                     times)
     print(f"[3/8] yelp2018 shapes: max abs err sddmm {e2:.2e}, softmax "
@@ -851,7 +931,8 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                      "share_of_bound": check.share.get(name),
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": r["library_ms"]})
+                     "library_ms": r["library_ms"],
+                     "cuda_launches_per_call": times.per_call.get(name, 1)})
     print(json.dumps({"kernels": rows}), flush=True)
     return 0
 
@@ -1104,10 +1185,10 @@ def expect_exact(dev, launches, want, what):
                              f"{want}")
 
 
-def check_k6(label, ro, vals, check):
+def check_k6(label, ro, vals, split, check):
     """K6 against float64 under sum_bound, and a second call identical."""
-    got = segment_sum_csr(ro, vals)
-    again = segment_sum_csr(ro, vals)
+    got = segment_sum_csr(ro, vals, split)
+    again = segment_sum_csr(ro, vals, split)
     want = ref.segment_sum_csr(ro, vals.double())
     terms = ref.segment_sum_csr(ro, vals.double().abs())
     share = check.bounded("segment_sum_csr", label, got, want, sum_bound(
@@ -1116,18 +1197,21 @@ def check_k6(label, ro, vals, check):
     return share
 
 
-def check_ring_kernels(buckets, info, hub, check, times, gen, dev, timer):
+def check_ring_kernels(buckets, info, sizes, check, times, gen, dev, timer):
     """K6, K7 and K8 against their plain versions on the real buckets and
-    on hand-made ones; times at d = 64 f32 on the largest bucket. Returns
-    the summary."""
-    P, R = info.n_parts, info.rows_per_part
+    on hand-made ones; times at d = 64 f32 (K6 and K8 also at d = 32) on
+    the largest bucket. Returns the summary."""
+    P, R, hub = info.n_parts, info.rows_per_part, sizes.hub
     rs = np.random.default_rng(int(torch.randint(1 << 30, (1,),
                                                  generator=gen)))
     deg = np.concatenate([[0, 1, max(hub // P, 1)],
-                          rs.integers(0, 21, R - 3)])
+                          boundary_rows(sizes.chunk),
+                          rs.integers(0, 21, R - 7)])
     hand = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)]).astype(
         np.int32)).to(dev)
     empty = torch.zeros(R + 1, dtype=torch.int32, device=dev)
+    hand_split = build_row_split(hand, sizes.chunk)
+    empty_split = build_row_split(empty)
     flat = [(f"bucket ({p},{s})", b) for p, row in enumerate(buckets)
             for s, b in enumerate(row)]
     big_label, big = max(flat, key=lambda lb: lb[1].n_edges)
@@ -1144,13 +1228,16 @@ def check_ring_kernels(buckets, info, hub, check, times, gen, dev, timer):
 
     configs = ((64, torch.float32), (32, torch.float32),
                (16, torch.float32), (64, torch.bfloat16),
-               (16, torch.bfloat16))
+               (16, torch.bfloat16), (33, torch.float32))
     worst6 = (0.0, 0.0, 0.0)
     for d, dt in configs:
-        cases = [("hand-made", hand, None), ("empty bucket", empty, None)]
-        cases += [(lb, b.row_offsets, b) for lb, b in flat]
-        for label, ro, b in cases:
-            e = check_k6(f"{label} d={d} {dt}", ro, stream(ro, d, dt, b),
+        cases = [("hand-made", hand, hand_split, None),
+                 ("empty bucket", empty, empty_split, None)]
+        cases += [(lb, b.row_offsets, b.split, b) for lb, b in flat]
+        cases += [(f"{lb} reverse", b.rev_row_offsets, b.rev_split, None)
+                  for lb, b in flat[:P]]
+        for label, ro, sp, b in cases:
+            e = check_k6(f"{label} d={d} {dt}", ro, stream(ro, d, dt, b), sp,
                          check)
             worst6 = max(worst6, e, key=lambda t: t[2])
 
@@ -1174,18 +1261,23 @@ def check_ring_kernels(buckets, info, hub, check, times, gen, dev, timer):
     # K8: every sending step's buckets (and a ring of hand-made ones).
     worst8 = (0.0, 0.0, 0.0)
     rings = [(f"step {s}", [row[s].row_offsets for row in buckets],
+              [row[s].split for row in buckets],
               [row[s] for row in buckets]) for s in range(P - 1)]
     rings.append(("hand-made ring", [empty, hand] + [buckets[p][0].row_offsets
                                                      for p in range(2, P)],
+                  [empty_split, hand_split] + [buckets[p][0].split
+                                               for p in range(2, P)],
                   [None, None] + [buckets[p][0] for p in range(2, P)]))
     for d, dt in ((64, torch.float32), (32, torch.bfloat16),
-                  (16, torch.float32)):
-        for label, ros, bks in rings:
+                  (16, torch.float32), (33, torch.float32)):
+        for label, ros, sps, bks in rings:
             vals = [stream(ro, d, dt, b) for ro, b in zip(ros, bks)]
             chunks = [torch.randn(R, d, generator=gen).to(dev, dt)
                       for _ in range(P)]
-            sums, nxt = reduce_send(ros, vals, chunks)
-            for p, (ro, v, got) in enumerate(zip(ros, vals, sums)):
+            sums, nxt = reduce_send(ros, vals, chunks, splits=sps)
+            again, _ = reduce_send(ros, vals, chunks, splits=sps)
+            for p, (ro, v, got, a) in enumerate(zip(ros, vals, sums, again)):
+                check_identical("reduce_send", got, a)
                 want = ref.segment_sum_csr(ro, v.double())
                 terms = ref.segment_sum_csr(ro, v.double().abs())
                 e = check.bounded("reduce_send", f"{label} p={p} d={d} {dt}",
@@ -1197,49 +1289,66 @@ def check_ring_kernels(buckets, info, hub, check, times, gen, dev, timer):
                     raise AssertionError(f"reduce_send {label} d={d} {dt}: "
                                          f"partition {j}'s chunk differs")
 
-    # Times at the trainer's widest layer, d = 64 f32, on the largest
-    # bucket: one launch each (a ring of one partition for K7 and K8).
-    d, e_b = 64, big.n_edges
-    vals = stream(big.row_offsets, d, torch.float32, big)
-    chunk = torch.randn(R, d, generator=gen).to(dev)
-    buf = torch.empty_like(chunk)
-    offsets = big.row_offsets.long()
-    k6_bytes = e_b * d * 4 + (R + 1) * 4 + R * d * 4
-    k7_bytes = 2 * R * d * 4
+    # Times on the largest bucket, one launch each (a ring of one
+    # partition for K7 and K8), by device duration (CUDA-graph replay)
+    # for the kernels and K7's copies; K6 and K8 at the trainer's widest
+    # layer, d = 64 f32 (the JSON line), and at d = 32.
+    e_b, per = big.n_edges, {}
+    times.per_call.update(segment_sum_csr=big.split.cuda_launches,
+                          reduce_send=big.split.cuda_launches)
+    for d in (64, 32):
+        vals = stream(big.row_offsets, d, torch.float32, big)
+        chunk = torch.randn(R, d, generator=gen).to(dev)
+        buf = torch.empty_like(chunk)
+        offsets = big.row_offsets.long()
+        k6_bytes = e_b * d * 4 + (R + 1) * 4 + R * d * 4
+        k7_bytes = 2 * R * d * 4
+        k6 = timer.replay_ms(lambda: segment_sum_csr(
+            big.row_offsets, vals, big.split), 20)
+        k8 = timer.replay_ms(lambda: reduce_send(
+            [big.row_offsets], [vals], [chunk], out=[buf],
+            splits=[big.split]), 20)
+        per[d] = (k6, k8)
+        if d != 64:
+            continue
 
-    def library_k8():
-        torch.segment_reduce(vals, "sum", offsets=offsets, unsafe=True)
-        buf.copy_(chunk)
+        def library_k8():
+            torch.segment_reduce(vals, "sum", offsets=offsets, unsafe=True)
+            buf.copy_(chunk)
 
-    times.add("segment_sum_csr",
-              timer.device_ms(lambda: segment_sum_csr(big.row_offsets, vals),
-                              20),
-              timer.device_ms(lambda: ref.segment_sum_csr(big.row_offsets,
-                                                          vals), 5),
-              timer.device_ms(lambda: torch.segment_reduce(
-                  vals, "sum", offsets=offsets, unsafe=True), 5),
-              k6_bytes, e_b * d)
-    times.add("ring_shift",
-              timer.device_ms(lambda: ring_shift([chunk], 1, out=[buf]), 20),
-              timer.device_ms(lambda: ref.ring_shift([chunk], 1), 5),
-              timer.device_ms(lambda: buf.copy_(chunk), 20), k7_bytes, 0)
-    times.add("reduce_send",
-              timer.device_ms(lambda: reduce_send([big.row_offsets], [vals],
-                                                  [chunk], out=[buf]), 20),
-              timer.device_ms(lambda: ref.reduce_send([big.row_offsets],
-                                                      [vals], [chunk]), 5),
-              timer.device_ms(library_k8, 5), k6_bytes + k7_bytes, e_b * d)
-    return (f"K6 on {len(flat)} real buckets, a hand-made one (rows empty, "
-            f"one edge, {max(hub // P, 1)} edges) and an empty one at d = "
-            f"64/32/16 f32 and 64/16 bf16: worst {worst6[2]:.3f} of its "
-            f"float64 bound (abs err {worst6[0]:.2e}); K7 bit-exact both "
+        times.add("segment_sum_csr", k6,
+                  timer.device_ms(lambda: ref.segment_sum_csr(
+                      big.row_offsets, vals), 5),
+                  timer.device_ms(lambda: torch.segment_reduce(
+                      vals, "sum", offsets=offsets, unsafe=True), 5),
+                  k6_bytes, e_b * d)
+        times.add("ring_shift",
+                  timer.replay_ms(lambda: ring_shift([chunk], 1, out=[buf]),
+                                  20),
+                  timer.replay_ms(lambda: ref.ring_shift([chunk], 1), 20),
+                  timer.replay_ms(lambda: buf.copy_(chunk), 20), k7_bytes, 0)
+        times.add("reduce_send", k8,
+                  timer.device_ms(lambda: ref.reduce_send(
+                      [big.row_offsets], [vals], [chunk]), 5),
+                  timer.device_ms(library_k8, 5), k6_bytes + k7_bytes,
+                  e_b * d)
+    return (f"K6 on {len(flat)} real buckets (and {P} of them reversed), a "
+            f"hand-made one (rows empty, one edge, {max(hub // P, 1)} edges, "
+            f"{boundary_rows(sizes.chunk)} at the chunk boundaries) and an "
+            f"empty one at "
+            f"d = 64/32/16/33 f32 and 64/16 bf16: worst {worst6[2]:.3f} of "
+            f"its float64 bound (abs err {worst6[0]:.2e}); K7 bit-exact both "
             f"ways at the same widths, aliased buffers refused; K8 on the "
-            f"{P - 1} sending steps and a hand-made ring: sums worst "
-            f"{worst8[2]:.3f} of the bound, sends bit-exact; second calls "
-            f"bit-identical. Times on the largest bucket, {big_label} "
-            f"({e_b} edges), d = 64 f32, per launch: "
+            f"{P - 1} sending steps and a hand-made ring at d = 64/16/33 f32 "
+            f"and 32 bf16: sums worst {worst8[2]:.3f} of the bound, sends "
+            f"bit-exact; second calls bit-identical. Times on the largest "
+            f"bucket, {big_label} ({e_b} edges, {big.split.n_units} units, "
+            f"{big.split.n_split} rows split, {big.split.cuda_launches} CUDA "
+            f"launches per K6 or K8 call), by device duration, per launch: "
             + "; ".join(times.line(n) for n in ("segment_sum_csr",
-                                                "ring_shift", "reduce_send")))
+                                                "ring_shift", "reduce_send"))
+            + f"; at d = 32 f32: K6 {per[32][0]:.4f} ms, K8 {per[32][1]:.4f}"
+            f" ms (d = 64: {per[64][0]:.4f}, {per[64][1]:.4f})")
 
 
 def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
@@ -1252,14 +1361,22 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                                    meta.n_nodes, meta.n_relations, P)
     buckets = build_ring_buckets(src, dst, info)
     host_s = time.perf_counter() - t0
+    csrs = [ro for row in buckets for b in row
+            for ro in (b.row_offsets, b.rev_row_offsets)]
+    split_ms = timer.host_ms(lambda: [build_row_split(ro) for ro in csrs],
+                             3) / len(csrs)
     shards = [s.to(dev) for s in shards]
     buckets = [[b.to(dev) for b in row] for row in buckets]
     b_edges = [[b.n_edges for b in row] for row in buckets]
-    print(f"[8/8] partitioned on the host in {host_s:.1f} s: R = "
-          f"{info.rows_per_part}, n_pad = {info.n_nodes_pad}, shard edges "
-          f"{[s.n_edges for s in shards]}, ring bucket edges per (p, s) "
-          f"{b_edges}", flush=True)
-    summary = check_ring_kernels(buckets, info, sizes.hub, check, times, gen,
+    b_launches = [[(b.split.cuda_launches, b.rev_split.cuda_launches)
+                   for b in row] for row in buckets]
+    print(f"[8/8] partitioned on the host in {host_s:.1f} s (row splits "
+          f"of the {len(csrs)} bucket CSRs included, {split_ms:.2f} ms per "
+          f"CSR): R = {info.rows_per_part}, n_pad = {info.n_nodes_pad}, "
+          f"shard edges {[s.n_edges for s in shards]}, ring bucket edges "
+          f"per (p, s) {b_edges}, CUDA launches per K6/K8 call (forward, "
+          f"reverse) {b_launches}", flush=True)
+    summary = check_ring_kernels(buckets, info, sizes, check, times, gen,
                                  dev, timer)
     print(f"[8/8] ring kernels ({smi_line}): {summary}", flush=True)
 

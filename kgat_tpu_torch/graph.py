@@ -23,6 +23,8 @@ the real edges only, in the shape a Hopper kernel walks:
   rev_row_offsets[u]:rev_row_offsets[u+1]]``, so the backward is the same
   row-wise SpMM, reading ``g`` at each edge's dst (the counterpart of
   ``kgat_tpu.graph``'s ``rev_layout``).
+* **Row splits**: the work units the row-reduction kernels walk, built
+  once for each CSR (``split``, ``rev_split``; ``ops/row_split.py``).
 
 Edge orientation and relation numbering are those of ``kgat_tpu``: a
 triple (h, r, t) is the message edge t -> h; its inverse has relation
@@ -37,6 +39,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from kgat_tpu_torch.ops.row_split import RowSplit, build_row_split
 
 # Edges per attention tile. One thread block of the SDDMM kernel handles
 # one tile, so this trades W_r staging per edge against the tail effect.
@@ -62,6 +66,8 @@ class Graph:
     rev_perm: torch.Tensor     # (E,) int32 canonical edge ids sorted by src
     rev_row_offsets: torch.Tensor  # (n_nodes + 1,) int32 CSR offsets over src
     rev_dst: torch.Tensor      # (E,) int32 dst[rev_perm]
+    split: RowSplit            # work units of the forward CSR
+    rev_split: RowSplit        # work units of the reverse CSR
     n_nodes: int
     n_relations: int
 
@@ -70,11 +76,12 @@ class Graph:
         return int(self.src.shape[0])
 
     def to(self, device) -> "Graph":
-        """A copy with every tensor on ``device``."""
+        """A copy with every tensor (and the row splits) on ``device``."""
         return dataclasses.replace(
             self, **{f.name: getattr(self, f.name).to(device)
                      for f in dataclasses.fields(self)
-                     if isinstance(getattr(self, f.name), torch.Tensor)})
+                     if isinstance(getattr(self, f.name),
+                                   (torch.Tensor, RowSplit))})
 
 
 def _relation_tiles(rel_offsets: np.ndarray, rel_tile: int) -> np.ndarray:
@@ -126,13 +133,15 @@ def build_graph(src: np.ndarray, dst: np.ndarray, etype: np.ndarray,
     rev_row_offsets = np.searchsorted(src[rev_perm], np.arange(n_nodes + 1),
                                       side="left")
     as32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))  # noqa: E731
+    row_offsets, rev_row_offsets = as32(row_offsets), as32(rev_row_offsets)
     return Graph(
         src=as32(src), dst=as32(dst), etype=as32(etype),
-        row_offsets=as32(row_offsets), rel_perm=as32(rel_perm),
+        row_offsets=row_offsets, rel_perm=as32(rel_perm),
         tiles=torch.from_numpy(_relation_tiles(rel_offsets, rel_tile)),
         rel_offsets=tuple(int(x) for x in rel_offsets),
-        rev_perm=as32(rev_perm), rev_row_offsets=as32(rev_row_offsets),
-        rev_dst=as32(dst[rev_perm]),
+        rev_perm=as32(rev_perm), rev_row_offsets=rev_row_offsets,
+        rev_dst=as32(dst[rev_perm]), split=build_row_split(row_offsets),
+        rev_split=build_row_split(rev_row_offsets),
         n_nodes=int(n_nodes), n_relations=int(n_relations))
 
 

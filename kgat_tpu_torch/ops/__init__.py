@@ -11,14 +11,15 @@ w_rel, rel_embed)``:
     the kernel or raises; only tensors on the CPU take the plain version.
 """
 
-from kgat_tpu_torch.ops import ref as _ref
-
 BACKENDS = ("ref", "hopper")
 
 
 def get_backend(name: str = "ref"):
+    # Imported here, not above: ``graph`` imports ``ops.row_split``, and
+    # ``ref`` imports ``graph``.
     if name == "ref":
-        return _ref
+        from kgat_tpu_torch.ops import ref
+        return ref
     if name == "hopper":
         from kgat_tpu_torch.ops import hopper_backend
         return hopper_backend

@@ -6,6 +6,13 @@
   K3 softmax.segment_softmax_csr    <- kgat_tpu/ops/pallas/softmax.py::_max/_expsum/_norm_kernel
   K4 sddmm.sddmm_transr_bwd         <- kgat_tpu/ops/pallas/sddmm.py::_bwd_kernel
   K5 softmax.segment_softmax_csr_bwd <- kgat_tpu/ops/pallas/softmax.py::_wsum/_dlogit_kernel
+  K6 segment_sum.segment_sum_csr    <- kgat_tpu/ops/pallas/segment_sum.py::accum_step
+  K7 remote_ring.ring_shift         <- kgat_tpu/ops/pallas/remote_ring.py::_shift_kernel
+  K8 remote_ring.reduce_send        <- kgat_tpu/ops/pallas/remote_ring.py::_reduce_send_kernel
+
+K1, K6 and K8 share one row reduction (``csrc/row_reduce.cuh``), which
+walks the work units of a CSR's row split (``ops/row_split.py``): the
+caller passes the split that was built with the CSR.
 
 Each wrapper has a plain PyTorch version beside it (``*_plain``), which it
 uses only for tensors on the CPU. ``build.launch_counts`` counts kernel

@@ -36,18 +36,20 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 launch_counts: collections.Counter = collections.Counter()
 
 _P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+_SPLIT = (_P, _I, _P, _P, _I)
 # C entry point -> argtypes (pointers and the stream as c_void_p, sizes as
 # c_int, byte counts as c_size_t). Each returns a cudaError_t as int.
 _SIGNATURES = {
-    # row_offsets, src, w, x, out, n_rows, d, x_is_bf16, stream
-    "kgat_spmm_csr": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # row_offsets, vals, out, n_rows, d, vals_is_bf16, stream
-    "kgat_segment_sum_csr": (_P, _P, _P, _I, _I, _I, _P),
+    # The row reductions (K1, K6, K8) begin with a CSR's RowSplit: units,
+    # n_units, split_rows, slot_offsets, n_split.
+    # ..., src, w, x, out, partials, d, x_is_bf16, stream
+    "kgat_spmm_csr": _SPLIT + (_P, _P, _P, _P, _P, _I, _I, _P),
+    # ..., vals, out, partials, d, vals_is_bf16, stream
+    "kgat_segment_sum_csr": _SPLIT + (_P, _P, _P, _I, _I, _P),
     # src, dst, nbytes, stream
     "kgat_ring_shift": (_P, _P, _S, _P),
-    # row_offsets, vals, sums, n_rows, d, vals_is_bf16, chunk, next, nbytes,
-    # stream
-    "kgat_reduce_send": (_P, _P, _P, _I, _I, _I, _P, _P, _S, _P),
+    # ..., vals, sums, partials, d, vals_is_bf16, chunk, next, nbytes, stream
+    "kgat_reduce_send": _SPLIT + (_P, _P, _P, _I, _I, _P, _P, _S, _P),
     # device, peer
     "kgat_enable_peer_access": (_I, _I),
     # rel_perm, tiles, src, dst, emb, w_rel, rel_embed, out, n_tiles, d, k, stream

@@ -21,11 +21,13 @@
 // (R * d * 4 bytes in f32) at 3.35 TB/s on one card, or at the 450 GB/s of
 // one NVLink direction across cards. K8 moves K6's bytes (the bucket's
 // value stream in, (R, d) f32 sums out) plus K7's. Design for that: 16-byte
-// vector loads and stores, grid-stride, for the copy; K6's warp-per-row
-// reduction (row_reduce.cuh) for the sums. K8 splits its grid: the first
-// blocks copy, the rest reduce, so the send runs beside the reduction, as
-// the TPU kernel overlaps its DMA with its MXU reduce (remote_ring.py:
-// 106-113).
+// vector loads and stores, grid-stride, for the copy; K6's reduction over
+// the bucket's work units (row_reduce.cuh) for the sums. K8 splits its
+// grid: the first blocks copy, the rest walk the units, so the send runs
+// beside the reduction, as the TPU kernel overlaps its DMA with its MXU
+// reduce (remote_ring.py:106-113). Where the bucket has a row longer than
+// CHUNK, a second launch sums that row's partials; the send stays in the
+// first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,7 +40,8 @@
 namespace {
 
 constexpr int kCopyThreads = 256;
-constexpr int kWarpsPerBlock = 8;
+static_assert(kCopyThreads == kgat::kWarpsPerBlock * 32,
+              "K8's copy and reduce blocks have one size");
 constexpr int kMaxShiftBlocks = 528;  // 4 per SM of an H100
 constexpr int kMaxSendBlocks = 132;   // 1 per SM: the reduction keeps the rest
 
@@ -67,22 +70,22 @@ ring_shift_kernel(const char* __restrict__ src, char* __restrict__ dst,
   copy_range(src, dst, nbytes, blockIdx.x, gridDim.x, vec16);
 }
 
-template <typename T, int CPL>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-reduce_send_kernel(const int* __restrict__ row_offsets,
+template <typename T, class L>
+__global__ void __launch_bounds__(kCopyThreads)
+reduce_send_kernel(const int4* __restrict__ units, int n_units,
                    const T* __restrict__ vals, float* __restrict__ sums,
-                   int n_rows, int d, const char* __restrict__ chunk,
-                   char* __restrict__ next, size_t nbytes, bool vec16,
-                   int n_copy_blocks) {
+                   float* __restrict__ partials, int d,
+                   const char* __restrict__ chunk, char* __restrict__ next,
+                   size_t nbytes, bool vec16, int n_copy_blocks) {
   if (static_cast<int>(blockIdx.x) < n_copy_blocks) {
     copy_range(chunk, next, nbytes, blockIdx.x, n_copy_blocks, vec16);
     return;
   }
-  const int row =
-      (blockIdx.x - n_copy_blocks) * kWarpsPerBlock + threadIdx.x / 32;
-  if (row >= n_rows) return;  // whole warps exit together
-  kgat::reduce_row<T, CPL, false, false>(row_offsets, nullptr, nullptr, vals,
-                                         sums, row, threadIdx.x % 32, d);
+  const int u = (blockIdx.x - n_copy_blocks) * kgat::kWarpsPerBlock +
+                threadIdx.x / 32;
+  if (u >= n_units) return;  // whole warps exit together
+  kgat::reduce_unit<T, L, false>(units[u], nullptr, nullptr, vals, sums,
+                                 partials, d, threadIdx.x % 32);
 }
 
 bool aligned16(const void* a, const void* b) {
@@ -97,39 +100,23 @@ int copy_blocks(size_t nbytes, int cap) {
 }
 
 template <typename T>
-cudaError_t launch_reduce_send(const int* row_offsets, const T* vals,
-                               float* sums, int n_rows, int d,
+cudaError_t launch_reduce_send(const kgat::Split& s, const T* vals,
+                               float* sums, float* partials, int d,
                                const char* chunk, char* next, size_t nbytes,
                                cudaStream_t stream) {
   const int n_copy = copy_blocks(nbytes, kMaxSendBlocks);
-  const dim3 grid(n_copy + (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const dim3 block(kWarpsPerBlock * 32);
+  const dim3 grid(n_copy + kgat::unit_blocks(s));
   const bool vec16 = aligned16(chunk, next);
-  switch (kgat::cols_per_lane(d)) {
-    case 1:
-      reduce_send_kernel<T, 1><<<grid, block, 0, stream>>>(
-          row_offsets, vals, sums, n_rows, d, chunk, next, nbytes, vec16,
-          n_copy);
-      break;
-    case 2:
-      reduce_send_kernel<T, 2><<<grid, block, 0, stream>>>(
-          row_offsets, vals, sums, n_rows, d, chunk, next, nbytes, vec16,
-          n_copy);
-      break;
-    case 4:
-      reduce_send_kernel<T, 4><<<grid, block, 0, stream>>>(
-          row_offsets, vals, sums, n_rows, d, chunk, next, nbytes, vec16,
-          n_copy);
-      break;
-    case 8:
-      reduce_send_kernel<T, 8><<<grid, block, 0, stream>>>(
-          row_offsets, vals, sums, n_rows, d, chunk, next, nbytes, vec16,
-          n_copy);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  const bool vec = kgat::aligned16(vals) && kgat::aligned16(sums) &&
+                   kgat::aligned16(partials);
+  const cudaError_t e = kgat::with_layout<T>(d, vec, [&](auto layout) {
+    reduce_send_kernel<T, decltype(layout)><<<grid, kCopyThreads, 0, stream>>>(
+        s.units, s.n_units, vals, sums, partials, d, chunk, next, nbytes,
+        vec16, n_copy);
+    return cudaGetLastError();
+  });
+  if (e != cudaSuccess) return e;
+  return kgat::launch_fixup(s, partials, sums, d, stream);
 }
 
 }  // namespace
@@ -145,22 +132,29 @@ extern "C" int kgat_ring_shift(const void* src, void* dst, size_t nbytes,
   return cudaGetLastError();
 }
 
-extern "C" int kgat_reduce_send(const void* row_offsets, const void* vals,
-                                void* sums, int n_rows, int d,
-                                int vals_is_bf16, const void* chunk,
+extern "C" int kgat_reduce_send(const void* units, int n_units,
+                                const void* split_rows,
+                                const void* slot_offsets, int n_split,
+                                const void* vals, void* sums, void* partials,
+                                int d, int vals_is_bf16, const void* chunk,
                                 void* next, size_t nbytes, void* stream) {
-  if (n_rows <= 0 || d <= 0 || nbytes == 0) return cudaErrorInvalidValue;
+  if (n_units <= 0 || d <= 0 || d > 256 || nbytes == 0 ||
+      !kgat::aligned16(units)) {
+    return cudaErrorInvalidValue;
+  }
+  const auto s = kgat::make_split(units, n_units, split_rows, slot_offsets,
+                                  n_split);
   const auto st = static_cast<cudaStream_t>(stream);
-  const auto ro = static_cast<const int*>(row_offsets);
   const auto o = static_cast<float*>(sums);
+  const auto p = static_cast<float*>(partials);
   const auto c = static_cast<const char*>(chunk);
   const auto n = static_cast<char*>(next);
   if (vals_is_bf16) {
-    return launch_reduce_send(ro, static_cast<const __nv_bfloat16*>(vals), o,
-                              n_rows, d, c, n, nbytes, st);
+    return launch_reduce_send(s, static_cast<const __nv_bfloat16*>(vals), o,
+                              p, d, c, n, nbytes, st);
   }
-  return launch_reduce_send(ro, static_cast<const float*>(vals), o, n_rows, d,
-                            c, n, nbytes, st);
+  return launch_reduce_send(s, static_cast<const float*>(vals), o, p, d, c,
+                            n, nbytes, st);
 }
 
 // Lets kernels on `device` store into memory of `peer` (NVLink or PCIe).

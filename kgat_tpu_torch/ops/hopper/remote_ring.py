@@ -32,10 +32,11 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from kgat_tpu_torch.graph import EdgeWeights
-from kgat_tpu_torch.ops import ref
+from kgat_tpu_torch.ops import ref, row_split
 from kgat_tpu_torch.ops.hopper import build
 from kgat_tpu_torch.ops.hopper.segment_sum import (MAX_DIM, bucket_cotangent,
-                                                   bucket_vals, edge_dot)
+                                                   bucket_vals, edge_dot,
+                                                   partials, split_args)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -117,27 +118,33 @@ def ring_shift(parts: Sequence[torch.Tensor], step: int,
 def reduce_send(row_offsets: Sequence[torch.Tensor],
                 vals: Sequence[torch.Tensor],
                 chunks: Sequence[torch.Tensor],
-                out: Optional[Sequence[torch.Tensor]] = None
+                out: Optional[Sequence[torch.Tensor]] = None, *,
+                splits: Optional[Sequence[row_split.RowSplit]] = None
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-    """K8: one ring step of every partition, one launch each.
+    """K8: one ring step of every partition, one wrapper launch each.
 
     For partition p: ``sums[p]`` = K6's segment sums of its bucket's
     value stream ``vals[p]`` ((E_p, d) float32 or bfloat16, E_p may be 0)
-    over the CSR ``row_offsets[p]`` -> (n_rows, d) float32 on p's device;
-    and ``chunks[p]`` stored into ``out[(p + 1) % P]``, the right
-    neighbour's receive buffer (fresh by default). The grid is split: the
-    first blocks copy, the others reduce. Returns (sums, next) with
-    next[j] = chunks[j - 1]. Raises on aliased buffers. CPU tensors take
-    ``ref.reduce_send``."""
+    over the CSR ``row_offsets[p]``, whose RowSplit is ``splits[p]``
+    (``Bucket.split``) -> (n_rows, d) float32 on p's device; and
+    ``chunks[p]`` stored into ``out[(p + 1) % P]``, the right neighbour's
+    receive buffer (fresh by default). The grid is split: the first
+    blocks copy, the others walk the bucket's units; a second CUDA launch
+    sums the partials of rows longer than the chunk. Returns (sums, next)
+    with next[j] = chunks[j - 1]. Raises on aliased buffers, and on the
+    card without ``splits``. CPU tensors take ``ref.reduce_send``."""
     name = "reduce_send"
     n = len(chunks)
     if not len(row_offsets) == len(vals) == n:
         raise ValueError(f"{name}: {len(row_offsets)} CSRs, {len(vals)} "
                          f"value streams, {n} chunks")
+    if splits is not None and len(splits) != n:
+        raise ValueError(f"{name}: {len(splits)} RowSplits for {n} chunks")
     out = _receive_buffers(chunks, 1, out)
     build.check_disjoint(name, out, [*chunks, *vals])
     if not _route(name, [(out[(p + 1) % n].device,
-                          (row_offsets[p], vals[p], chunks[p]))
+                          (row_offsets[p], vals[p], chunks[p],
+                           *(() if splits is None else splits[p].tensors)))
                          for p in range(n)]):
         sums, nxt = ref.reduce_send(row_offsets, vals, chunks)
         for o, s in zip(out, nxt):
@@ -155,11 +162,15 @@ def reduce_send(row_offsets: Sequence[torch.Tensor],
         if not 0 < d <= MAX_DIM or n_rows <= 0 or _nbytes(src) == 0:
             raise ValueError(f"{name}: partition {p}: {n_rows} rows, "
                              f"feature dim {d}, {_nbytes(src)} chunk bytes")
+        split = row_split.require(name, None if splits is None
+                                  else splits[p], n_rows, v.shape[0])
         s = torch.empty((n_rows, d), dtype=torch.float32, device=v.device)
+        scratch = partials(split, d, v.device)
         _stream_waits(src.device, dst.device)
         with torch.cuda.device(src.device):
             code = lib.kgat_reduce_send(
-                ro.data_ptr(), v.data_ptr(), s.data_ptr(), n_rows, d,
+                *split_args(split), v.data_ptr(), s.data_ptr(),
+                scratch.data_ptr(), d,
                 int(v.dtype == torch.bfloat16), src.data_ptr(),
                 dst.data_ptr(), _nbytes(src),
                 ctypes.c_void_p(build.stream_ptr(src.device)))
@@ -212,7 +223,8 @@ class _BucketSpmmSend(torch.autograd.Function):
         vals = [bucket_vals(b, w, c)
                 for b, w, c in zip(buckets, w_fwds, chunks)]
         sums, nxt = reduce_send([b.row_offsets for b in buckets], vals,
-                                [c.contiguous() for c in chunks])
+                                [c.contiguous() for c in chunks],
+                                splits=[b.split for b in buckets])
         return (*sums, *nxt)
 
     @staticmethod

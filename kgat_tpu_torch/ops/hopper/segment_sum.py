@@ -12,17 +12,22 @@ exchange launches it on each shard's CSRs (``parallel/halo.py``).
 K6 (:func:`segment_sum_csr`) replaces ``segment_sum.py::accum_step``: the
 partitioned ring exchange reduces each bucket's pre-gathered value stream
 with it, forward and backward.
+
+A CUDA launch walks the CSR's work units (``ops/row_split.py``), which
+the caller passes with the CSR (``Graph.split``, ``Bucket.split`` and
+their ``rev_split``): one CUDA launch per call, two where a row is longer
+than the schedule's chunk.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
 from kgat_tpu_torch.graph import EdgeWeights, Graph
-from kgat_tpu_torch.ops import ref
+from kgat_tpu_torch.ops import ref, row_split
 from kgat_tpu_torch.ops.hopper import build
 
 MAX_DIM = 256
@@ -36,9 +41,30 @@ def spmm_csr_plain(row_offsets: torch.Tensor, src: torch.Tensor,
                         row_offsets.numel() - 1)
 
 
+def _split_tensors(split: Optional[row_split.RowSplit]) -> tuple:
+    return () if split is None else split.tensors
+
+
+def split_args(split: row_split.RowSplit) -> tuple:
+    """The RowSplit arguments that open each row reduction's C entry point:
+    units, n_units, split_rows, slot_offsets, n_split."""
+    return (split.units.data_ptr(), split.n_units,
+            split.split_rows.data_ptr(), split.slot_offsets.data_ptr(),
+            split.n_split)
+
+
+def partials(split: row_split.RowSplit, d: int,
+             device: torch.device) -> torch.Tensor:
+    """The scratch rows the split rows' units write: (n_slots, d) f32."""
+    return torch.empty((split.n_slots, d), dtype=torch.float32,
+                       device=device)
+
+
 def _launch(name: str, row_offsets: torch.Tensor, src: torch.Tensor,
-            w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    if not build.use_kernel(name, row_offsets, src, w, x):
+            w: torch.Tensor, x: torch.Tensor,
+            split: Optional[row_split.RowSplit]) -> torch.Tensor:
+    if not build.use_kernel(name, row_offsets, src, w, x,
+                            *_split_tensors(split)):
         return spmm_csr_plain(row_offsets, src, w, x)
     build.check_tensor("row_offsets", row_offsets, (torch.int32,), 1)
     build.check_tensor("src", src, (torch.int32,), 1)
@@ -49,14 +75,16 @@ def _launch(name: str, row_offsets: torch.Tensor, src: torch.Tensor,
         raise ValueError(f"w {tuple(w.shape)} != src {tuple(src.shape)}")
     if not 0 < d <= MAX_DIM:
         raise ValueError(f"feature dim {d} not in (0, {MAX_DIM}]")
+    split = row_split.require(name, split, n_rows, src.numel())
     out = torch.empty((n_rows, d), dtype=torch.float32, device=x.device)
     if n_rows == 0:
         return out
+    scratch = partials(split, d, x.device)
     lib = build.library()
     with torch.cuda.device(x.device):
         code = lib.kgat_spmm_csr(
-            row_offsets.data_ptr(), src.data_ptr(), w.data_ptr(),
-            x.data_ptr(), out.data_ptr(), n_rows, d,
+            *split_args(split), src.data_ptr(), w.data_ptr(), x.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), d,
             int(x.dtype == torch.bfloat16),
             ctypes.c_void_p(build.stream_ptr(x.device)))
     build.check_launch(lib, code, name)
@@ -65,30 +93,36 @@ def _launch(name: str, row_offsets: torch.Tensor, src: torch.Tensor,
 
 
 def spmm_csr(row_offsets: torch.Tensor, src: torch.Tensor, w: torch.Tensor,
-             x: torch.Tensor) -> torch.Tensor:
+             x: torch.Tensor,
+             split: Optional[row_split.RowSplit] = None) -> torch.Tensor:
     """out[v] = sum over e in [row_offsets[v], row_offsets[v+1]) of
     w[e] * x[src[e]] -> (n_rows, d) float32. Forward only: :func:`spmm`
     is the same product with a backward.
 
     row_offsets: (n_rows + 1,) int32 CSR offsets over destinations, from 0
     to E; src: (E,) int32 rows of ``x``; w: (E,) float32; x: (n, d)
-    float32 or bfloat16 (the bf16 value stream), accumulated in float32.
-    CPU tensors take :func:`spmm_csr_plain`; CUDA tensors launch the kernel.
+    float32 or bfloat16 (the bf16 value stream), accumulated in float32;
+    split: the CSR's :class:`~kgat_tpu_torch.ops.row_split.RowSplit`
+    (``Graph.split``). CPU tensors take :func:`spmm_csr_plain`; CUDA
+    tensors launch the kernel, and raise without ``split``.
     """
-    return _launch("spmm_csr", row_offsets, src, w, x)
+    return _launch("spmm_csr", row_offsets, src, w, x, split)
 
 
 def spmm_csr_rev(rev_row_offsets: torch.Tensor, rev_dst: torch.Tensor,
-                 w_rev: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+                 w_rev: torch.Tensor, g: torch.Tensor,
+                 split: Optional[row_split.RowSplit] = None) -> torch.Tensor:
     """The SpMM's gradient w.r.t. its features: K1 launched on the reverse
     CSR, d_x[u] = sum over edges e with src u of w[e] * g[dst[e]], with
-    ``Graph.rev_row_offsets``, ``Graph.rev_dst`` and ``w_rev = w[rev_perm]``.
-    Counted apart from the forward launches (``spmm_csr_rev``)."""
-    return _launch("spmm_csr_rev", rev_row_offsets, rev_dst, w_rev, g)
+    ``Graph.rev_row_offsets``, ``Graph.rev_dst``, ``w_rev = w[rev_perm]``
+    and ``Graph.rev_split``. Counted apart from the forward launches
+    (``spmm_csr_rev``)."""
+    return _launch("spmm_csr_rev", rev_row_offsets, rev_dst, w_rev, g, split)
 
 
-def segment_sum_csr(row_offsets: torch.Tensor,
-                    vals: torch.Tensor) -> torch.Tensor:
+def segment_sum_csr(row_offsets: torch.Tensor, vals: torch.Tensor,
+                    split: Optional[row_split.RowSplit] = None
+                    ) -> torch.Tensor:
     """K6: out[r] = sum over e in [row_offsets[r], row_offsets[r+1]) of
     vals[e] -> (n_rows, d) float32, every row written (an empty row as 0).
 
@@ -96,25 +130,30 @@ def segment_sum_csr(row_offsets: torch.Tensor,
     ``_kernel`` of ``segment_sum_aligned``), the reduce of every ring
     bucket. row_offsets: (n_rows + 1,) int32 CSR offsets from 0 to E;
     vals: (E, d) float32 or bfloat16 pre-gathered values in CSR order,
-    accumulated in float32; E may be 0. It shares its row reduction with
-    K1 and K8 (``csrc/row_reduce.cuh``). CPU tensors take
-    ``ref.segment_sum_csr``; CUDA tensors launch the kernel."""
+    accumulated in float32; E may be 0; split: the CSR's RowSplit
+    (``Bucket.split``, ``Bucket.rev_split``). It shares its row reduction
+    with K1 and K8 (``csrc/row_reduce.cuh``). CPU tensors take
+    ``ref.segment_sum_csr``; CUDA tensors launch the kernel, and raise
+    without ``split``."""
     name = "segment_sum_csr"
-    if not build.use_kernel(name, row_offsets, vals):
+    if not build.use_kernel(name, row_offsets, vals, *_split_tensors(split)):
         return ref.segment_sum_csr(row_offsets, vals)
     build.check_tensor("row_offsets", row_offsets, (torch.int32,), 1)
     build.check_tensor("vals", vals, (torch.float32, torch.bfloat16), 2)
     n_rows, d = row_offsets.numel() - 1, vals.shape[1]
     if not 0 < d <= MAX_DIM:
         raise ValueError(f"feature dim {d} not in (0, {MAX_DIM}]")
+    split = row_split.require(name, split, n_rows, vals.shape[0])
     out = torch.empty((n_rows, d), dtype=torch.float32, device=vals.device)
     if n_rows == 0:
         return out
+    scratch = partials(split, d, vals.device)
     lib = build.library()
     with torch.cuda.device(vals.device):
         code = lib.kgat_segment_sum_csr(
-            row_offsets.data_ptr(), vals.data_ptr(), out.data_ptr(), n_rows,
-            d, int(vals.dtype == torch.bfloat16),
+            *split_args(split), vals.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), d,
+            int(vals.dtype == torch.bfloat16),
             ctypes.c_void_p(build.stream_ptr(vals.device)))
     build.check_launch(lib, code, name)
     build.launch_counts[name] += 1
@@ -137,7 +176,7 @@ class _Spmm(torch.autograd.Function):
     def forward(ctx, w, x, w_rev, graph):
         ctx.graph = graph
         ctx.save_for_backward(w, x, w_rev)
-        return spmm_csr(graph.row_offsets, graph.src, w, x)
+        return spmm_csr(graph.row_offsets, graph.src, w, x, graph.split)
 
     @staticmethod
     def backward(ctx, g):
@@ -149,7 +188,7 @@ class _Spmm(torch.autograd.Function):
             if w_rev is None:
                 w_rev = w[graph.rev_perm.long()].contiguous()
             d_x = spmm_csr_rev(graph.rev_row_offsets, graph.rev_dst, w_rev,
-                               g.to(x.dtype)).to(x.dtype)
+                               g.to(x.dtype), graph.rev_split).to(x.dtype)
         if ctx.needs_input_grad[0]:
             d_w = edge_dot(graph.src, graph.dst, x, g).to(w.dtype)
         return d_w, d_x, None, None
@@ -169,7 +208,8 @@ def bucket_cotangent(bucket, w_rev: torch.Tensor, g: torch.Tensor,
     single-device dual of ``pallas_backend._spmm_bwd``)."""
     vals = (g.to(dtype).index_select(0, bucket.rev_dst.long())
             * w_rev.to(dtype)[:, None]).contiguous()
-    return segment_sum_csr(bucket.rev_row_offsets, vals).to(dtype)
+    return segment_sum_csr(bucket.rev_row_offsets, vals,
+                           bucket.rev_split).to(dtype)
 
 
 class _BucketSpmm(torch.autograd.Function):
@@ -183,7 +223,7 @@ class _BucketSpmm(torch.autograd.Function):
         ctx.bucket = bucket
         ctx.save_for_backward(chunk, w_rev)
         return segment_sum_csr(bucket.row_offsets,
-                               bucket_vals(bucket, w, chunk))
+                               bucket_vals(bucket, w, chunk), bucket.split)
 
     @staticmethod
     def backward(ctx, g):

@@ -58,6 +58,36 @@ def segment_sum_csr(row_offsets: torch.Tensor,
                            row_offsets.numel() - 1)
 
 
+def split_segment_sum(split, vals: torch.Tensor) -> torch.Tensor:
+    """A plain emulation of the row reduction K1, K6 and K8 run on the
+    card, for the tests (no path of the package calls it): each work unit
+    of ``split`` (``ops.row_split.RowSplit``) sums its edges' rows of the
+    (E, d) value stream ``vals``; a one-unit row takes its unit's sum, a
+    split row the sum of its units' partials in unit order. Float32, or
+    float64 when ``vals`` is."""
+    dt = torch.promote_types(vals.dtype, torch.float32)
+    row, lo, hi, slot = split.units.long().to(vals.device).unbind(1)
+    lens = hi - lo
+    unit = torch.repeat_interleave(torch.arange(split.n_units,
+                                                device=vals.device), lens)
+    start = torch.cumsum(lens, 0) - lens
+    edge = lo[unit] + torch.arange(unit.numel(), device=vals.device) \
+        - start[unit]
+    sums = segment_sum_coo(unit, vals.to(dt)[edge], split.n_units)
+    out = sums.new_zeros((split.n_rows,) + tuple(vals.shape[1:]))
+    whole = slot < 0
+    out[row[whole]] = sums[whole]
+    parts = sums.new_zeros((split.n_slots,) + tuple(vals.shape[1:]))
+    parts[slot[~whole]] = sums[~whole]
+    offsets = split.slot_offsets.tolist()
+    for s, r in enumerate(split.split_rows.tolist()):
+        acc = parts[offsets[s]]
+        for k in range(offsets[s] + 1, offsets[s + 1]):
+            acc = acc + parts[k]
+        out[r] = acc
+    return out
+
+
 def ring_shift(parts: Sequence[torch.Tensor],
                step: int) -> List[torch.Tensor]:
     """Partition j receives a copy of partition (j - step) mod P's tensor,

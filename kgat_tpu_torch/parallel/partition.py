@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from kgat_tpu_torch.graph import REL_TILE, Graph, build_graph
+from kgat_tpu_torch.ops.row_split import RowSplit, build_row_split
 
 ROW_ALIGN = 128   # rows per partition are a multiple of this (JAX's block)
 
@@ -45,11 +46,12 @@ def partition_info(n_nodes: int, n_parts: int) -> PartitionInfo:
 
 
 def _tensors_to(obj, device):
-    """A copy of dataclass ``obj`` with every tensor field on ``device``."""
+    """A copy of dataclass ``obj`` with every tensor field (and graph and
+    row split) on ``device``."""
     return dataclasses.replace(obj, **{
         f.name: getattr(obj, f.name).to(device)
         for f in dataclasses.fields(obj)
-        if isinstance(getattr(obj, f.name), (torch.Tensor, Graph))})
+        if isinstance(getattr(obj, f.name), (torch.Tensor, Graph, RowSplit))})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,8 +115,9 @@ def partition_graph(src: np.ndarray, dst: np.ndarray, etype: np.ndarray,
         g = build_graph(src[ids], dst[ids] - p * R, etype[ids],
                         n_nodes=n_pad, n_relations=n_relations,
                         rel_tile=rel_tile)
-        g = dataclasses.replace(g, row_offsets=g.row_offsets[:R + 1],
-                                n_nodes=R)
+        row_offsets = g.row_offsets[:R + 1]
+        g = dataclasses.replace(g, row_offsets=row_offsets,
+                                split=build_row_split(row_offsets), n_nodes=R)
         shards.append(Shard(
             graph=g, dst_global=torch.from_numpy(
                 (dst[ids]).astype(np.int32)),
@@ -133,7 +136,9 @@ class Bucket:
     * reverse: ``rev_row_offsets`` over the chunk's rows (R + 1),
       ``rev_dst`` the local dst of each edge in that order;
     * ``gather`` / ``rev_gather``: each forward / reverse position's slot
-      in the shard's canonical edge order, for staging weights.
+      in the shard's canonical edge order, for staging weights;
+    * ``split`` / ``rev_split``: the work units of the forward / reverse
+      CSR (``ops/row_split.py``), for K6 and K8.
     """
 
     row_offsets: torch.Tensor      # (R + 1,) int32
@@ -143,6 +148,8 @@ class Bucket:
     rev_dst: torch.Tensor          # (E_b,) int32
     gather: torch.Tensor           # (E_b,) int64 shard edge slots
     rev_gather: torch.Tensor       # (E_b,) int64
+    split: RowSplit
+    rev_split: RowSplit
 
     @property
     def n_edges(self) -> int:
@@ -172,12 +179,13 @@ def build_ring_buckets(src: np.ndarray, dst: np.ndarray,
             slots = np.nonzero(s_src // R == q)[0]   # ascending: dst-sorted
             b_src, b_dst = s_src[slots] - q * R, s_dst[slots]
             rev = np.argsort(b_src, kind="stable")
+            ro = as32(np.searchsorted(b_dst, rows))
+            rev_ro = as32(np.searchsorted(b_src[rev], rows))
             steps.append(Bucket(
-                row_offsets=as32(np.searchsorted(b_dst, rows)),
-                src=as32(b_src), dst=as32(b_dst),
-                rev_row_offsets=as32(np.searchsorted(b_src[rev], rows)),
-                rev_dst=as32(b_dst[rev]),
+                row_offsets=ro, src=as32(b_src), dst=as32(b_dst),
+                rev_row_offsets=rev_ro, rev_dst=as32(b_dst[rev]),
                 gather=torch.from_numpy(slots),
-                rev_gather=torch.from_numpy(slots[rev])))
+                rev_gather=torch.from_numpy(slots[rev]),
+                split=build_row_split(ro), rev_split=build_row_split(rev_ro)))
         out.append(steps)
     return out

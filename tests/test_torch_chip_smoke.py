@@ -35,6 +35,10 @@ class StubTimer:
         fn()
         return 0.0
 
+    def replay_ms(self, fn, reps):
+        fn()
+        return 0.0
+
     def host_ms(self, fn, reps):
         fn()
         return 0.0
@@ -44,7 +48,7 @@ class StubTimer:
 sizes = chip_smoke.Sizes(
     dataset=dict(n_users=150, n_items=100, n_entities=250, n_relations_kg=4,
                  n_interactions=1500, n_triples=1000),
-    hub=300, users=16, steps=3, cf_batch=64, kg_batch=128)
+    hub=300, users=16, steps=3, cf_batch=64, kg_batch=128, chunk=16)
 torch.manual_seed(0)
 with tempfile.TemporaryDirectory() as tmp:
     rc = chip_smoke.run(tmp, torch.device("cpu"),
@@ -76,8 +80,9 @@ def test_phases_3_to_7_run_on_the_cpu_without_jax():
         assert k["route"] == "cuda"
         assert k["bound_by"] in ("bytes", "operations") and k["bound_ms"] > 0
         assert (k["library_ms"] is None) == (k["name"] in (
-            "sddmm_transr", "segment_softmax_csr", "sddmm_transr_bwd",
+            "sddmm_transr", "sddmm_transr_bwd",
             "segment_softmax_csr_bwd")), k
+        assert k["cuda_launches_per_call"] in (1, 2, 3), k
         assert os.path.exists(os.path.join(REPO, k["source"]))
         path, line = k["replaces"].split(":")
         assert os.path.exists(os.path.join(REPO, path)) and int(line) > 0

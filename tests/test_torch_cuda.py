@@ -18,12 +18,14 @@ from kgat_tpu_torch.graph import EdgeWeights, build_graph
 from kgat_tpu_torch.models import kgat
 from kgat_tpu_torch.ops import hopper_backend, ref
 from kgat_tpu_torch.ops.hopper import build
+from kgat_tpu_torch.ops.row_split import CHUNK, build_row_split
 from kgat_tpu_torch.ops.hopper.sddmm import (sddmm_transr, sddmm_transr_bwd,
                                              sddmm_transr_bwd_plain,
                                              sddmm_transr_plain)
 from kgat_tpu_torch.ops.hopper.remote_ring import reduce_send, ring_shift
 from kgat_tpu_torch.ops.hopper.segment_sum import (segment_sum_csr, spmm_csr,
-                                                   spmm_csr_plain)
+                                                   spmm_csr_plain,
+                                                   spmm_csr_rev)
 from kgat_tpu_torch.ops.hopper.softmax import (segment_softmax_csr,
                                                segment_softmax_csr_bwd,
                                                segment_softmax_csr_bwd_plain,
@@ -40,6 +42,9 @@ pytestmark = pytest.mark.cuda
 # errors of random sign (the cotangents here are random per edge).
 U = 2.0 ** -24
 C_STAT = 8.0
+# Rows at the row split's chunk boundaries: one unit of C - 1 and of C
+# edges, two units of C + 1, four of 3C + 5.
+BOUNDARY_ROWS = [CHUNK - 1, CHUNK, CHUNK + 1, 3 * CHUNK + 5]
 
 
 def _assert_within(got, want64, bound64, what):
@@ -49,6 +54,11 @@ def _assert_within(got, want64, bound64, what):
         else 0
     assert worst <= 1.0, f"{what}: error {float(err.max()):.3e} is " \
                          f"{worst:.2f}x its bound"
+
+
+def _higham(want64, terms64, rows):
+    """n * 2^-23 * sum|terms| + U |reference| per row of n terms."""
+    return 2 * U * rows[:, None] * terms64 + U * want64.abs()
 
 
 def _stat_bound(want64, length):
@@ -67,11 +77,13 @@ def dev():
 
 @pytest.fixture(scope="module")
 def hand_graph(dev):
-    """Node 0 has no in-edge, node 1 one, node 2 is a hub of 5,000; node 3
-    is the source of a quarter of the edges (a hub of the reverse CSR); a
-    relation of a single edge, and relation 4 with none."""
+    """Node 0 has no in-edge, node 1 one, node 2 is a hub of 5,000, nodes
+    3-6 sit at the row split's chunk boundaries; node 3 is the source of a
+    quarter of the edges (a hub of the reverse CSR); a relation of a single
+    edge, and relation 4 with none."""
     rs = np.random.default_rng(0)
-    deg = np.concatenate([[0, 1, 5000], rs.integers(0, 30, 60)])
+    deg = np.concatenate([[0, 1, 5000], BOUNDARY_ROWS,
+                          rs.integers(0, 30, 60)])
     dst = np.repeat(np.arange(len(deg)), deg)
     src = rs.integers(0, len(deg), len(dst))
     src[rs.random(len(dst)) < 0.25] = 3
@@ -112,19 +124,52 @@ def test_softmax_matches_plain(dev, hand_graph):
     assert got[int(g.row_offsets[1])] == 1.0  # the one-edge row
 
 
-@pytest.mark.parametrize("d,dtype", [(64, torch.float32), (32, torch.float32),
-                                     (48, torch.float32), (64, torch.bfloat16),
-                                     (200, torch.float32)])
+SPMM_CASES = [(64, torch.float32), (32, torch.float32), (48, torch.float32),
+              (64, torch.bfloat16), (200, torch.float32), (33, torch.float32),
+              (33, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("d,dtype", SPMM_CASES)
 def test_spmm_matches_plain(dev, hand_graph, d, dtype):
+    """K1 on the dst CSR against float64 under Higham's bound per row
+    (the hub, the chunk-boundary rows); 16-byte and single-value loads
+    (d = 33); a second call bit-identical; the empty row 0."""
     g, gen = hand_graph, torch.Generator().manual_seed(d)
     w = torch.rand(g.n_edges, generator=gen).to(dev)
     x = _rand(gen, g.n_nodes, d, dev=dev).to(dtype)
-    got = spmm_csr(g.row_offsets, g.src, w, x)
+    args = (g.row_offsets, g.src, w, x, g.split)
+    got = spmm_csr(*args)
+    again = spmm_csr(*args)
     torch.cuda.synchronize()
-    assert got.dtype == torch.float32
+    assert got.dtype == torch.float32 and torch.equal(got, again)
     assert not got[0].any()  # the empty row is written as 0
-    torch.testing.assert_close(got, spmm_csr_plain(g.row_offsets, g.src, w, x),
-                               rtol=1e-4, atol=1e-4)
+    want = spmm_csr_plain(g.row_offsets, g.src, w.double(), x.double())
+    terms = spmm_csr_plain(g.row_offsets, g.src, w.double(),
+                           x.double().abs())
+    rows = (g.row_offsets[1:] - g.row_offsets[:-1]).double()
+    _assert_within(got, want, _higham(want, terms, rows), "K1")
+
+
+@pytest.mark.parametrize("d,dtype", SPMM_CASES[::2] + [(64, torch.bfloat16)])
+def test_spmm_rev_matches_float64_plain(dev, hand_graph, d, dtype):
+    """K1 on the reverse CSR (the src hub, node 3, is one row of a
+    quarter of the edges) against float64, Higham's bound; bit-identical
+    twice."""
+    g, gen = hand_graph, torch.Generator().manual_seed(d + 1)
+    w_rev = torch.rand(g.n_edges, generator=gen).to(dev)
+    cot = _rand(gen, g.n_nodes, d, dev=dev).to(dtype)
+    args = (g.rev_row_offsets, g.rev_dst, w_rev, cot, g.rev_split)
+    got = spmm_csr_rev(*args)
+    again = spmm_csr_rev(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = spmm_csr_plain(g.rev_row_offsets, g.rev_dst, w_rev.double(),
+                          cot.double())
+    terms = spmm_csr_plain(g.rev_row_offsets, g.rev_dst, w_rev.double(),
+                           cot.double().abs())
+    rows = (g.rev_row_offsets[1:] - g.rev_row_offsets[:-1]).double()
+    assert g.rev_split.n_split > 0
+    _assert_within(got, want, _higham(want, terms, rows), "K1 rev")
 
 
 @pytest.mark.parametrize("d", [64, 32])
@@ -142,8 +187,7 @@ def test_spmm_backward_is_k1_on_the_reverse_csr(dev, hand_graph, d):
     terms = spmm_csr_plain(g.rev_row_offsets, g.rev_dst, rev_w,
                            cot.double().abs())
     rows = (g.rev_row_offsets[1:] - g.rev_row_offsets[:-1]).double()
-    _assert_within(x.grad, want, 2 * U * rows[:, None] * terms
-                   + U * want.abs(), "d_x")
+    _assert_within(x.grad, want, _higham(want, terms, rows), "d_x")
     assert not x.grad[(rows == 0).nonzero()].any()
     # The weights' gradient is the per-edge dot, as autograd of the plain
     # path gives it.
@@ -231,11 +275,19 @@ def test_wrappers_refuse_grad_and_bad_inputs(dev, hand_graph):
     x = torch.ones(g.n_nodes, 8, device=dev, requires_grad=True)
     w = torch.ones(g.n_edges, device=dev)
     with pytest.raises(RuntimeError, match="no backward"):
-        spmm_csr(g.row_offsets, g.src, w, x)
+        spmm_csr(g.row_offsets, g.src, w, x, g.split)
     with torch.no_grad():
-        spmm_csr(g.row_offsets, g.src, w, x)
+        spmm_csr(g.row_offsets, g.src, w, x, g.split)
     with pytest.raises(TypeError, match="dtype"):
-        spmm_csr(g.row_offsets, g.src.long(), w, x.detach())
+        spmm_csr(g.row_offsets, g.src.long(), w, x.detach(), g.split)
+    # A launch never builds a schedule: none, or another CSR's, raises.
+    with pytest.raises(ValueError, match="RowSplit"):
+        spmm_csr(g.row_offsets, g.src, w, x.detach())
+    with pytest.raises(ValueError, match="RowSplit"):
+        spmm_csr(g.row_offsets, g.src, w, x.detach(),
+                 build_row_split(g.row_offsets[:-1]))
+    with pytest.raises(ValueError, match="RowSplit"):
+        segment_sum_csr(g.row_offsets, x.detach()[g.src.long()])
     with pytest.raises(ValueError, match="contiguous"):
         segment_softmax_csr(g.row_offsets,
                             torch.zeros(2 * g.n_edges, device=dev)[::2])
@@ -243,36 +295,41 @@ def test_wrappers_refuse_grad_and_bad_inputs(dev, hand_graph):
 
 def _bucket_csr(rs, n_rows, hub):
     """CSR offsets of ``n_rows`` rows: row 0 empty, row 1 one edge, row 2
-    a hub of ``hub`` edges, the rest 0-20."""
-    deg = np.concatenate([[0, 1, hub], rs.integers(0, 21, n_rows - 3)])
+    a hub of ``hub`` edges, rows 3-6 at the chunk boundaries, the rest
+    0-20."""
+    deg = np.concatenate([[0, 1, hub], BOUNDARY_ROWS,
+                          rs.integers(0, 21, n_rows - 7)])
     return torch.from_numpy(np.concatenate([[0], np.cumsum(deg)]).astype(
         np.int32))
 
 
 @pytest.mark.parametrize("d,dtype", [(64, torch.float32), (32, torch.float32),
                                      (16, torch.float32), (64, torch.bfloat16),
-                                     (200, torch.float32)])
+                                     (200, torch.float32), (33, torch.float32),
+                                     (33, torch.bfloat16)])
 def test_segment_sum_csr_matches_float64_plain(dev, d, dtype):
     """K6 against its plain version in float64, under Higham's bound on
-    each row (n * 2^-23 * sum|terms|); a second call bit-identical; an
-    empty row and an empty bucket written as 0."""
+    each row (n * 2^-23 * sum|terms|), the hub and the chunk-boundary
+    rows among them; a second call bit-identical; an empty row and an
+    empty bucket written as 0; one wrapper launch per call."""
     rs = np.random.default_rng(d)
     ro = _bucket_csr(rs, 300, 3000).to(dev)
+    split = build_row_split(ro)
     vals = torch.from_numpy(rs.normal(size=(int(ro[-1]), d)).astype(
         np.float32)).to(dev, dtype)
     n = build.launch_counts["segment_sum_csr"]
-    got = segment_sum_csr(ro, vals)
-    again = segment_sum_csr(ro, vals)
+    got = segment_sum_csr(ro, vals, split)
+    again = segment_sum_csr(ro, vals, split)
     torch.cuda.synchronize()
     assert build.launch_counts["segment_sum_csr"] == n + 2
     assert torch.equal(got, again) and got.dtype == torch.float32
     want = ref.segment_sum_csr(ro, vals.double())
     terms = ref.segment_sum_csr(ro, vals.double().abs())
-    rows = (ro[1:] - ro[:-1]).double()[:, None]
-    _assert_within(got, want, 2 * U * rows * terms + U * want.abs(), "K6")
+    rows = (ro[1:] - ro[:-1]).double()
+    _assert_within(got, want, _higham(want, terms, rows), "K6")
     assert not got[0].any()
-    empty = segment_sum_csr(torch.zeros(7, dtype=torch.int32, device=dev),
-                            vals[:0])
+    ro0 = torch.zeros(7, dtype=torch.int32, device=dev)
+    empty = segment_sum_csr(ro0, vals[:0], build_row_split(ro0))
     torch.cuda.synchronize()
     assert empty.shape == (6, d) and not empty.any()
 
@@ -306,30 +363,39 @@ def test_ring_wrappers_refuse_aliased_buffers(dev):
         ring_shift(parts, 1, out=[parts[2], parts[0], parts[1]])
     ro = [torch.tensor([0, 1], dtype=torch.int32, device=dev)] * 3
     vals = [torch.ones(1, 4, device=dev) for _ in range(3)]
+    splits = [build_row_split(r) for r in ro]
     with pytest.raises(ValueError, match="aliases"):
-        reduce_send(ro, vals, parts, out=[parts[1], parts[2], parts[0]])
+        reduce_send(ro, vals, parts, out=[parts[1], parts[2], parts[0]],
+                    splits=splits)
+    with pytest.raises(ValueError, match="RowSplit"):
+        reduce_send(ro, vals, parts)
 
 
-@pytest.mark.parametrize("d,dtype", [(64, torch.float32), (32, torch.bfloat16)])
+@pytest.mark.parametrize("d,dtype", [(64, torch.float32), (32, torch.bfloat16),
+                                     (33, torch.float32)])
 def test_reduce_send_matches_plain(dev, d, dtype):
-    """K8: every partition's sums against float64 under Higham's bound,
-    the sent chunks bit-exact; one bucket has no edge."""
+    """K8: every partition's sums against float64 under Higham's bound
+    (the chunk-boundary rows among them), the sent chunks bit-exact, a
+    second call's sums bit-identical; one bucket has no edge."""
     rs = np.random.default_rng(d + 1)
-    ros = [_bucket_csr(rs, 128, 500).to(dev) for _ in range(3)]
+    ros = [_bucket_csr(rs, 128, 500 * (p + 1)).to(dev) for p in range(3)]
     ros.append(torch.zeros(129, dtype=torch.int32, device=dev))
+    splits = [build_row_split(r) for r in ros]
     vals = [torch.from_numpy(rs.normal(size=(int(r[-1]), d)).astype(
         np.float32)).to(dev, dtype) for r in ros]
     chunks = _parts(rs, 4, 128, d, dtype, dev)
     n = build.launch_counts["reduce_send"]
-    sums, nxt = reduce_send(ros, vals, chunks)
+    sums, nxt = reduce_send(ros, vals, chunks, splits=splits)
+    again, _ = reduce_send(ros, vals, chunks, splits=splits)
     torch.cuda.synchronize()
-    assert build.launch_counts["reduce_send"] == n + 4
+    assert build.launch_counts["reduce_send"] == n + 8
     want_sums, want_next = ref.reduce_send(ros, [v.double() for v in vals],
                                            chunks)
-    for ro, v, got, want in zip(ros, vals, sums, want_sums):
+    for ro, v, got, want, a in zip(ros, vals, sums, want_sums, again):
         terms = ref.segment_sum_csr(ro, v.double().abs())
-        rows = (ro[1:] - ro[:-1]).double()[:, None]
-        _assert_within(got, want, 2 * U * rows * terms + U * want.abs(), "K8")
+        rows = (ro[1:] - ro[:-1]).double()
+        _assert_within(got, want, _higham(want, terms, rows), "K8")
+        assert torch.equal(got, a)
     assert not sums[3].any()
     for g, w in zip(nxt, want_next):
         assert torch.equal(g, w)
@@ -349,7 +415,8 @@ def test_ring_kernels_between_two_cards():
     got = ring_shift(parts, 1)
     ros = [_bucket_csr(rs, 64, 100).to(dv) for dv in devs]
     vals = [torch.ones(int(r[-1]), 32, device=r.device) for r in ros]
-    sums, nxt = reduce_send(ros, vals, parts)
+    sums, nxt = reduce_send(ros, vals, parts,
+                            splits=[build_row_split(r) for r in ros])
     for dv in devs:
         torch.cuda.synchronize(dv)
     for j in range(4):

@@ -12,9 +12,10 @@ then traces ``--steps`` CF steps, ``--steps`` KG steps and one attention
 recompute. ``--n-devices P`` profiles the edge-partitioned trainer (P
 partitions placed round-robin over the visible GPUs, so P = 4 share one
 card) with the exchange and transport given. For each window it prints
-the wall time per step (host clock around work ending in a synchronize),
-the device time per step summed over kernels, the device idle share, and
-the kernels by device time. With
+the wall time per step (host clock around work ending in a synchronize,
+without the profiler, and traced), the device time per step summed over
+kernels, the device idle share against the untraced wall, the launches,
+and the kernels by device time. With
 ``--trace``, it writes one Chrome trace per window there. Needs CUDA.
 """
 
@@ -54,21 +55,31 @@ def _device_kernels(prof):
             and e.key not in host and not e.key.startswith("Activity Buffer")]
 
 
+def _wall_ms(fn, steps) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
 def profile(name, fn, steps, trace_dir):
+    """The window once without the profiler (its wall time, the step's),
+    then traced: the profiler's own host work per launch slows a
+    host-bound step, so the idle share is taken against the first."""
+    wall_ms = _wall_ms(fn, steps)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        traced_ms = _wall_ms(fn, steps)
     kernels = [(e.key, _device_us(e) / 1e3 / steps, e.count // steps)
                for e in _device_kernels(prof)]
     busy = sum(ms for _, ms, _ in kernels)
-    print(f"== {name}: wall {wall_ms:.3f} ms per step, device busy "
-          f"{busy:.3f} ms per step, idle {100 * (1 - busy / wall_ms):.1f}%")
+    print(f"== {name}: wall {wall_ms:.3f} ms per step ({traced_ms:.3f} "
+          f"traced), device busy {busy:.3f} ms per step, idle "
+          f"{100 * (1 - busy / wall_ms):.1f}%, "
+          f"{sum(n for _, _, n in kernels)} launches")
     for key, ms, n in sorted(kernels, key=lambda r: -r[1])[:15]:
         print(f"   {ms:9.3f} ms  x{n:<4d} {key[:100]}")
     if trace_dir:
