@@ -12,8 +12,9 @@ Phases, each announced by a line ``[n/8] ...``:
   3. forward kernels (K1 SpMM, K2 SDDMM, K3 softmax) against their plain
                PyTorch versions on the card: hand-made rows (empty, one
                edge, a hub, rows at the row split's chunk boundaries) and
-               the yelp2018-scale graph, with times; each CSR's row split
-               and its build time.
+               the yelp2018-scale graph, with times; K2 also against a
+               float64 plain version, within twice the plain float32
+               path's error; each CSR's row split and its build time.
   4. serving  — a random full-width model (d = k = 64, layers 64/32/16,
                bi-interaction) written as a checkpoint, served through
                ``kgat_tpu_torch.recommend.main`` for 1,024 users at k = 20.
@@ -34,7 +35,8 @@ Phases, each announced by a line ``[n/8] ...``:
                ring kernels (K6 segment sum, K7 ring shift, K8 fused
                reduce + send) against their plain versions on the real
                ring buckets and on hand-made ones (K6 and K8's sums under
-               a float64 bound, K7 and K8's send bit-exact), with times;
+               a float64 bound, K7 and K8's send bit-exact), with times
+               (K7 and copy_ also on chunks fresh from memory);
                attention and all_embed of every exchange against the
                single-device paths; the first CF step of every exchange
                (loss and gradients) and a KG step; the launch counts each
@@ -55,13 +57,15 @@ exit code is non-zero and the last line is not printed.
 the build also run on the CPU at a tiny size with the plain versions
 (tests/test_torch_chip_smoke.py); ``main()`` refuses to run without CUDA.
 The rates behind the bounds are the H100 SXM's published peaks: 3.35 TB/s
-of HBM3 and 67 TFLOP/s of float32 outside the tensor cores.
+of HBM3, 67 TFLOP/s of float32 outside the tensor cores and 495 TFLOP/s of
+dense TF32 on them (K2's three TF32 passes).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -165,10 +169,13 @@ KERNELS = {
                     "kgat_tpu/ops/pallas/remote_ring.py:102"),
 }
 
-# The H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bandwidth and
-# float32 outside the tensor cores (every kernel here computes in f32).
+# The H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bandwidth,
+# float32 outside the tensor cores (every kernel but K2's products) and
+# dense TF32 on them (K2's three passes).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+FRESH_CHUNKS = 8            # K7's fresh-chunk timing: 8 x 8.8 MB, past L2
 P_PARTS = 4                 # phase 8's partitions, all on the one card
 
 
@@ -178,7 +185,8 @@ class Times:
     others: one launch): device ms of the kernel, its plain version and
     the one PyTorch call that computes the same function (None where
     there is none), and the bytes and operations that work needs, each
-    input read once and each output written once."""
+    input read once and each output written once: float32 operations, and
+    TF32 ones on the tensor cores, which run beside them."""
 
     def __init__(self):
         self.rows = {}
@@ -187,21 +195,23 @@ class Times:
         self.per_call = {"sddmm_transr_bwd": 3}
 
     def add(self, name, ms, plain_ms, library_ms=None, nbytes=0, flops=0,
-            n=1):
+            n=1, tf32_flops=0):
         r = self.rows.setdefault(name, dict(ms=0.0, plain_ms=0.0,
                                             library_ms=None, bytes=0,
-                                            flops=0))
+                                            flops=0, tf32_flops=0))
         r["ms"] += n * ms
         r["plain_ms"] += n * plain_ms
         if library_ms is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + n * library_ms
         r["bytes"] += n * nbytes
         r["flops"] += n * flops
+        r["tf32_flops"] += n * tf32_flops
 
     def bound(self, name):
         """(least ms on the card, "bytes" or "operations")."""
         r = self.rows[name]
-        t_b, t_o = r["bytes"] / HBM_BYTES_PER_S, r["flops"] / F32_FLOPS
+        t_b = r["bytes"] / HBM_BYTES_PER_S
+        t_o = max(r["flops"] / F32_FLOPS, r["tf32_flops"] / TF32_FLOPS)
         return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
     def line(self, name):
@@ -374,13 +384,29 @@ def random_inputs(n_nodes, n_rel, d, k, gen, dev):
 def check_kernels(g, label, check, gen, dev, timer, times=None):
     """K2 -> K3 -> K1 on graph ``g`` against the plain versions. With
     ``times`` (a dict), also records per-forward kernel and plain ms.
-    Returns the errors and the attention weights."""
+    Returns the errors (K2's as (against the plain version, against
+    float64, the plain version's against float64)) and the attention
+    weights."""
     d = k = 64
     emb, w_rel, rel_embed = random_inputs(g.n_nodes, g.n_relations, d, k,
                                           gen, dev)
     a2 = (g.rel_perm, g.tiles, g.src, g.dst, emb, w_rel, rel_embed)
     logits = sddmm_transr_plain(*a2)
-    e2 = check("sddmm_transr", label, sddmm_transr(*a2), logits)
+    got2 = sddmm_transr(*a2)
+    e2 = check("sddmm_transr", label, got2, logits)
+    # K2 multiplies on the tensor cores in three TF32 passes: against
+    # float64 it must be as close as float32 is (within twice the plain
+    # float32 path's worst error); a single TF32 pass would be ~1000x
+    # further off, which the 1e-4 tolerance above cannot tell.
+    want64 = sddmm_transr_plain(*a2[:4], emb.double(), w_rel.double(),
+                                rel_embed.double())
+    e64 = float((got2.double() - want64).abs().max())
+    p64 = float((logits.double() - want64).abs().max())
+    del got2, want64
+    if e64 > 2 * p64:
+        raise AssertionError(f"sddmm_transr {label}: max abs err {e64:.3e} "
+                             f"against float64, over twice the plain "
+                             f"float32 path's {p64:.3e}")
     att = segment_softmax_csr_plain(g.row_offsets, logits)
     e3 = check("segment_softmax_csr", label,
                segment_softmax_csr(g.row_offsets, logits), att, atol=1e-6)
@@ -427,7 +453,8 @@ def check_kernels(g, label, check, gen, dev, timer, times=None):
                   timer.device_ms(lambda: sddmm_transr_plain(*a2), 5),
                   nbytes=(g.n_nodes * d + n_rel * (d * k + k)
                           + 4 * g.n_edges) * 4 + g.tiles.numel() * 4,
-                  flops=g.n_edges * (4 * d * k + 3 * k))
+                  flops=g.n_edges * 3 * k,
+                  tf32_flops=3 * g.n_edges * 4 * d * k)
         times.add("segment_softmax_csr",
                   timer.device_ms(lambda: segment_softmax_csr(g.row_offsets,
                                                               logits), 20),
@@ -436,7 +463,7 @@ def check_kernels(g, label, check, gen, dev, timer, times=None):
                   timer.device_ms(lambda: torch.sparse.softmax(coo, 1), 5),
                   nbytes=2 * g.n_edges * 4 + (g.n_nodes + 1) * 4,
                   flops=5 * g.n_edges)
-    return e2, e3, errs, att
+    return (e2, e64, p64), e3, errs, att
 
 
 def check_backward_kernels(g, att, label, check, gen, dev, timer,
@@ -527,6 +554,12 @@ def check_backward_kernels(g, att, label, check, gen, dev, timer,
                   nbytes=3 * g.n_edges * 4 + (g.n_nodes + 1) * 4,
                   flops=4 * g.n_edges)
     return shares
+
+
+def k2_errs(errs) -> str:
+    e2, e64, p64 = errs
+    return (f"{e2:.2e} (against float64 {e64:.2e}, the plain float32 "
+            f"path's {p64:.2e})")
 
 
 def k4_length(g, k: int) -> int:
@@ -669,7 +702,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                                          timer)
     print(f"[3/8] hand-made rows (empty, one edge, hub of {sizes.hub}, "
           f"{boundary_rows(sizes.chunk)} at the chunk boundaries): "
-          f"max abs err sddmm {e2:.2e}, softmax {e3:.2e}, spmm "
+          f"max abs err sddmm {k2_errs(e2)}, softmax {e3:.2e}, spmm "
           f"{', '.join(f'{e:.2e}' for e in e1)} (d64, d32, d64 bf16)",
           flush=True)
     g = g_host.to(dev)
@@ -692,12 +725,15 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                           spmm_csr_rev=g.rev_split.cuda_launches)
     e2, e3, e1, att = check_kernels(g, "yelp2018", check, gen, dev, timer,
                                     times)
-    print(f"[3/8] yelp2018 shapes: max abs err sddmm {e2:.2e}, softmax "
+    print(f"[3/8] yelp2018 shapes: max abs err sddmm {k2_errs(e2)}, softmax "
           f"{e3:.2e}, spmm {', '.join(f'{e:.2e}' for e in e1)} "
           f"(d64, d32, d64 bf16)", flush=True)
     for name in ("spmm_csr", "sddmm_transr", "segment_softmax_csr"):
         print(f"[3/8] time per {'forward' if name == 'spmm_csr' else 'call'}"
               f" ({smi_line}): {times.line(name)}", flush=True)
+    fma_ms = g.n_edges * 4 * 64 * 64 / F32_FLOPS * 1e3
+    print(f"[3/8] sddmm_transr's bound on the float32 FMA units, for the "
+          f"same products without tensor cores: {fma_ms:.4f} ms", flush=True)
 
     # --- 4. serving at full width ------------------------------------------
     progress.phase(4, "serving CLI")
@@ -1327,6 +1363,22 @@ def check_ring_kernels(buckets, info, sizes, check, times, gen, dev, timer):
                                   20),
                   timer.replay_ms(lambda: ref.ring_shift([chunk], 1), 20),
                   timer.replay_ms(lambda: buf.copy_(chunk), 20), k7_bytes, 0)
+        # Fresh: the calls cycle over FRESH_CHUNKS chunks (70 MB at yelp2018
+        # scale, past the 50 MB L2), as a ring CF step finds them.
+        srcs = [torch.randn(R, d, generator=gen).to(dev)
+                for _ in range(FRESH_CHUNKS)]
+        dsts = [torch.empty_like(c) for c in srcs]
+        turn = itertools.count()
+
+        def k7_fresh():
+            i = next(turn) % FRESH_CHUNKS
+            ring_shift([srcs[i]], 1, out=[dsts[i]])
+
+        def copy_fresh():
+            i = next(turn) % FRESH_CHUNKS
+            dsts[i].copy_(srcs[i])
+        fresh = (timer.replay_ms(k7_fresh, 20), timer.replay_ms(copy_fresh, 20))
+        del srcs, dsts
         times.add("reduce_send", k8,
                   timer.device_ms(lambda: ref.reduce_send(
                       [big.row_offsets], [vals], [chunk]), 5),
@@ -1347,6 +1399,8 @@ def check_ring_kernels(buckets, info, sizes, check, times, gen, dev, timer):
             f"launches per K6 or K8 call), by device duration, per launch: "
             + "; ".join(times.line(n) for n in ("segment_sum_csr",
                                                 "ring_shift", "reduce_send"))
+            + f"; K7 on {FRESH_CHUNKS} chunks in turn (fresh from memory) "
+            f"{fresh[0]:.5f} ms, copy_ {fresh[1]:.5f} ms"
             + f"; at d = 32 f32: K6 {per[32][0]:.4f} ms, K8 {per[32][1]:.4f}"
             f" ms (d = 64: {per[64][0]:.4f}, {per[64][1]:.4f})")
 

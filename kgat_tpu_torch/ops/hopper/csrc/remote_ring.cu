@@ -20,8 +20,11 @@
 // What bounds them on the H100: bytes. K7 reads and writes the chunk once
 // (R * d * 4 bytes in f32) at 3.35 TB/s on one card, or at the 450 GB/s of
 // one NVLink direction across cards. K8 moves K6's bytes (the bucket's
-// value stream in, (R, d) f32 sums out) plus K7's. Design for that: 16-byte
-// vector loads and stores, grid-stride, for the copy; K6's reduction over
+// value stream in, (R, d) f32 sums out) plus K7's. Design for that: for the
+// copy, each thread issues two independent 16-byte loads before its two
+// stores, and K7's grid is one full wave of the card (8 blocks of 256 a
+// SM), which a grid-stride loop walks over the chunk (K8 copies with
+// fewer blocks); K6's reduction over
 // the bucket's work units (row_reduce.cuh) for the sums. K8 splits its
 // grid: the first blocks copy, the rest walk the units, so the send runs
 // beside the reduction, as the TPU kernel overlaps its DMA with its MXU
@@ -42,25 +45,49 @@ namespace {
 constexpr int kCopyThreads = 256;
 static_assert(kCopyThreads == kgat::kWarpsPerBlock * 32,
               "K8's copy and reduce blocks have one size");
-constexpr int kMaxShiftBlocks = 528;  // 4 per SM of an H100
+constexpr int kCopyUnroll = 2;        // 16-byte loads in flight a thread
+constexpr int kShiftBlocksPerSm = 8;  // K7: 2,048 threads a SM, one wave
 constexpr int kMaxSendBlocks = 132;   // 1 per SM: the reduction keeps the rest
 
-// Blocks [0, n_blocks) of the grid copy nbytes from src to dst, 16 bytes a
-// thread where both pointers allow it, then the tail byte by byte.
+// Blocks [0, n_blocks) of the grid copy nbytes from src to dst, 16 bytes
+// at a time where both pointers allow it, then the tail byte by byte. A
+// block's step covers kCopyUnroll * blockDim.x 16-byte words: a thread
+// loads words t, t + blockDim.x, ... (coalesced) before it stores any.
 __device__ __forceinline__ void copy_range(const char* __restrict__ src,
                                            char* __restrict__ dst,
                                            size_t nbytes, int block,
                                            int n_blocks, bool vec16) {
-  const size_t tid = static_cast<size_t>(block) * blockDim.x + threadIdx.x;
-  const size_t stride = static_cast<size_t>(n_blocks) * blockDim.x;
   size_t done = 0;
   if (vec16) {
     const size_t n16 = nbytes / 16;
     const int4* s = reinterpret_cast<const int4*>(src);
     int4* d = reinterpret_cast<int4*>(dst);
-    for (size_t i = tid; i < n16; i += stride) d[i] = s[i];
+    const size_t step = static_cast<size_t>(kCopyUnroll) * blockDim.x;
+    for (size_t i = block * step + threadIdx.x; i < n16;
+         i += n_blocks * step) {
+      int4 v[kCopyUnroll];
+      // Guards only in the last step: nvcc may compile guarded loads into
+      // branches, one load in flight at a time.
+      if (i + (kCopyUnroll - 1) * blockDim.x < n16) {
+#pragma unroll
+        for (int j = 0; j < kCopyUnroll; ++j) v[j] = s[i + j * blockDim.x];
+#pragma unroll
+        for (int j = 0; j < kCopyUnroll; ++j) d[i + j * blockDim.x] = v[j];
+      } else {
+#pragma unroll
+        for (int j = 0; j < kCopyUnroll; ++j) {
+          if (i + j * blockDim.x < n16) v[j] = s[i + j * blockDim.x];
+        }
+#pragma unroll
+        for (int j = 0; j < kCopyUnroll; ++j) {
+          if (i + j * blockDim.x < n16) d[i + j * blockDim.x] = v[j];
+        }
+      }
+    }
     done = n16 * 16;
   }
+  const size_t tid = static_cast<size_t>(block) * blockDim.x + threadIdx.x;
+  const size_t stride = static_cast<size_t>(n_blocks) * blockDim.x;
   for (size_t i = done + tid; i < nbytes; i += stride) dst[i] = src[i];
 }
 
@@ -93,8 +120,10 @@ bool aligned16(const void* a, const void* b) {
          (reinterpret_cast<uintptr_t>(b) % 16 == 0);
 }
 
+// Blocks to copy nbytes in one pass of kCopyUnroll 16-byte words a
+// thread, at most cap (the grid-stride loop then takes several).
 int copy_blocks(size_t nbytes, int cap) {
-  const size_t per_block = static_cast<size_t>(kCopyThreads) * 16;
+  const size_t per_block = static_cast<size_t>(kCopyThreads) * kCopyUnroll * 16;
   const size_t n = (nbytes + per_block - 1) / per_block;
   return static_cast<int>(n < 1 ? 1 : (n > static_cast<size_t>(cap) ? cap : n));
 }
@@ -126,9 +155,15 @@ extern "C" int kgat_ring_shift(const void* src, void* dst, size_t nbytes,
   if (nbytes == 0) return cudaErrorInvalidValue;
   const auto s = static_cast<const char*>(src);
   const auto d = static_cast<char*>(dst);
-  ring_shift_kernel<<<copy_blocks(nbytes, kMaxShiftBlocks), kCopyThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(s, d, nbytes,
-                                                           aligned16(s, d));
+  int device = 0, n_sm = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (e != cudaSuccess) return e;
+  ring_shift_kernel<<<copy_blocks(nbytes, kShiftBlocksPerSm * n_sm),
+                      kCopyThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      s, d, nbytes, aligned16(s, d));
   return cudaGetLastError();
 }
 

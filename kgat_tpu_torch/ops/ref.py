@@ -135,18 +135,46 @@ def segment_softmax_coo_bwd(dst: torch.Tensor, w: torch.Tensor,
     return w * (g - row_sum[dst.long()])
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 stored mantissa bits) as
+    ``cvt.rna.tf32.f32`` rounds it: to nearest on the 13 low mantissa bits,
+    ties away from zero; the result is a float32 with those bits zero."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor,
+                passes: int = 3) -> torch.Tensor:
+    """``a @ b`` in float32 as K2 computes it on the tensor cores: each
+    operand split into TF32 parts, hi = tf32(x) and lo = tf32(x - hi), and
+    the products summed in float32 (a product of two TF32 values is exact
+    in float32). ``passes=3`` is the kernel's a_lo b_hi + a_hi b_lo +
+    a_hi b_hi; ``passes=1`` is a single TF32 product, a_hi b_hi. (The
+    kernel hands the edge rows' low part to the tensor cores as a - a_hi,
+    which they cut to TF32 rather than round: within 2^-21 |a| either
+    way.)"""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    if passes != 3:
+        raise ValueError(f"passes={passes}: 1 or 3")
+    a_lo, b_lo = tf32_round(a.float() - a_hi), tf32_round(b.float() - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
 def transr_logits(rel_perm: torch.Tensor,
                   rel_ranges: Iterable[Tuple[int, int, int]],
                   src: torch.Tensor, dst: torch.Tensor, emb: torch.Tensor,
-                  w_rel: torch.Tensor, rel_embed: torch.Tensor
-                  ) -> torch.Tensor:
+                  w_rel: torch.Tensor, rel_embed: torch.Tensor,
+                  matmul=torch.matmul) -> torch.Tensor:
     """TransR attention logits in canonical edge order:
     pi(h, r, t) = (W_r e_t) . tanh(W_r e_h + e_r), head = dst, tail = src.
 
     Loops over relations as ``kgat_tpu.models.kgat.attention_logits``
     does: each ``(r, lo, hi)`` range of ``rel_perm`` holds relation r's
     edges, which share one W_r. (A per-edge ``w_rel[etype]`` gather would
-    be an (E, d, k) tensor: 73 GB at yelp2018 scale.)
+    be an (E, d, k) tensor: 73 GB at yelp2018 scale.) ``matmul`` forms the
+    two projections (:func:`tf32_matmul` emulates the kernel's).
     """
     out = torch.empty(rel_perm.shape[0],
                       dtype=torch.promote_types(emb.dtype, torch.float32),
@@ -156,8 +184,8 @@ def transr_logits(rel_perm: torch.Tensor,
             continue
         idx = rel_perm[lo:hi].long()
         w_r = w_rel[r]
-        ph = emb[dst[idx].long()] @ w_r
-        pt = emb[src[idx].long()] @ w_r
+        ph = matmul(emb[dst[idx].long()], w_r)
+        pt = matmul(emb[src[idx].long()], w_r)
         out[idx] = (pt * torch.tanh(ph + rel_embed[r])).sum(-1)
     return out
 

@@ -97,19 +97,44 @@ def _rand(gen, *shape, dev, scale=0.2):
     return (torch.randn(shape, generator=gen) * scale).to(dev)
 
 
-@pytest.mark.parametrize("k", [64, 32, 100])
-def test_sddmm_matches_plain(dev, hand_graph, k):
-    g, gen = hand_graph, torch.Generator().manual_seed(k)
-    args = (g.rel_perm, g.tiles, g.src, g.dst, _rand(gen, g.n_nodes, 64,
-                                                     dev=dev),
-            _rand(gen, g.n_relations, 64, k, dev=dev),
-            _rand(gen, g.n_relations, k, dev=dev))
-    n = build.launch_counts["sddmm_transr"]
-    got = sddmm_transr(*args)
-    torch.cuda.synchronize()
-    assert build.launch_counts["sddmm_transr"] == n + 1
-    torch.testing.assert_close(got, sddmm_transr_plain(*args), rtol=1e-4,
-                               atol=1e-5)
+@pytest.fixture(scope="module")
+def tile_graph(dev):
+    """Relations of 1, 15, 16, 17, 64 and 300 edges over 64-edge tiles:
+    tiles of 1, 15, 16, 17 and 64 edges (K2's 16-edge groups whole,
+    partial and single), and 300 = 4 x 64 + 44."""
+    rs = np.random.default_rng(5)
+    counts = [1, 15, 16, 17, 64, 300]
+    ety = np.repeat(np.arange(len(counts)), counts)
+    rs.shuffle(ety)
+    dst = np.sort(rs.integers(0, 120, len(ety)))
+    src = rs.integers(0, 120, len(ety))
+    g = build_graph(src, dst, ety, n_nodes=120, n_relations=len(counts),
+                    rel_tile=64)
+    assert {1, 15, 16, 17, 64} <= set(g.tiles[:, 2].tolist())
+    return g.to(dev)
+
+
+@pytest.mark.parametrize("d,k", [(64, 64), (64, 32), (64, 100), (33, 20)])
+def test_sddmm_matches_plain(dev, hand_graph, tile_graph, d, k):
+    """K2 against its plain version at rtol 1e-4, and against float64 at
+    rtol and atol 1e-5, which three TF32 passes meet (their error here is
+    near 1e-6) and one would not (near 1e-3): on the hand-made graph and on tiles of
+    1, 15, 16, 17 and 64 edges, at padded widths (d = 33, k = 100, 20) and
+    in two column passes (k = 100)."""
+    for g in (hand_graph, tile_graph):
+        gen = torch.Generator().manual_seed(d + k)
+        args = (g.rel_perm, g.tiles, g.src, g.dst,
+                _rand(gen, g.n_nodes, d, dev=dev),
+                _rand(gen, g.n_relations, d, k, dev=dev),
+                _rand(gen, g.n_relations, k, dev=dev))
+        n = build.launch_counts["sddmm_transr"]
+        got = sddmm_transr(*args)
+        torch.cuda.synchronize()
+        assert build.launch_counts["sddmm_transr"] == n + 1
+        torch.testing.assert_close(got, sddmm_transr_plain(*args), rtol=1e-4,
+                                   atol=1e-5)
+        want64 = sddmm_transr_plain(*args[:4], *(t.double() for t in args[4:]))
+        torch.testing.assert_close(got.double(), want64, rtol=1e-5, atol=1e-5)
 
 
 def test_softmax_matches_plain(dev, hand_graph):

@@ -8,9 +8,14 @@ that checkout's own ``kgat_tpu_torch/ops/hopper/build.py``, runs
 ``cuobjdump -sass`` on it, and for every kernel whose demangled name
 matches REGEX writes its SASS to ``OUT/<kernel>.sass`` and prints one
 line: instructions, global loads by opcode and width (``LDG.E`` is 4
-bytes, ``LDG.E.64`` 8, ``LDG.E.128`` 16), shuffles, branches and the
-backward branches that close loops. Needs the CUDA toolkit (nvcc,
-cuobjdump, cu++filt).
+bytes, ``LDG.E.64`` 8, ``LDG.E.128`` 16), shared-memory loads by width
+(``LDS``, ``LDS.64``, ``LDS.128``), float32 FMAs and adds, tensor-core
+products (``HMMA`` from mma.sync, ``HGMMA`` from wgmma), asynchronous
+global-to-shared copies (``LDGSTS``, from cp.async), shuffles, branches
+and the backward branches that close loops. Needs the CUDA toolkit (nvcc,
+cuobjdump, cu++filt). A second line gives the same counts for the
+kernel's main loop: the body of a backward branch in which FFMA, FADD,
+HMMA and HGMMA make the largest share of the instructions.
 """
 
 from __future__ import annotations
@@ -66,25 +71,49 @@ def demangle(names):
     return out.splitlines()
 
 
+def _counts(ops: collections.Counter) -> str:
+    def count(*prefixes):
+        return sum(v for k, v in ops.items() if k.startswith(prefixes))
+
+    loads = {k: v for k, v in sorted(ops.items()) if k.startswith("LDG")
+             and not k.startswith("LDGSTS")}
+    shared = {k: v for k, v in sorted(ops.items()) if k.startswith("LDS")}
+    return (f"{sum(ops.values())} instructions, loads {loads}, shared loads "
+            f"{shared}, {count('LDGSTS')} LDGSTS, {count('HMMA')} HMMA, "
+            f"{count('HGMMA')} HGMMA, {count('FFMA', 'FADD')} FFMA/FADD, "
+            f"{count('SHFL')} shuffles, {count('BRA')} branches")
+
+
 def summary(lines) -> str:
-    ops = collections.Counter()
-    back = 0
+    """The kernel's counts, and those of its main loop: the body of a
+    backward branch in which FFMA, FADD, HMMA and HGMMA make the largest
+    share of the instructions."""
+    instrs = []
+    loops = []   # (first address, branch address)
     for line in lines:
         m = INSTR.search(line)
         if not m:
             continue
         addr, op = int(m.group(1), 16), m.group(2)
-        ops[op] += 1
+        instrs.append((addr, op))
         if op.startswith("BRA"):
             t = re.search(r"0x([0-9a-f]+)", line.split(op, 1)[1])
             if t and int(t.group(1), 16) <= addr:
-                back += 1
-    loads = {k: v for k, v in sorted(ops.items()) if k.startswith("LDG")}
-    shfl = sum(v for k, v in ops.items() if k.startswith("SHFL"))
-    bra = sum(v for k, v in ops.items() if k.startswith("BRA"))
-    fma = sum(v for k, v in ops.items() if k.startswith(("FFMA", "FADD")))
-    return (f"{sum(ops.values())} instructions, loads {loads}, {shfl} "
-            f"shuffles, {fma} FFMA/FADD, {bra} branches ({back} backward)")
+                loops.append((int(t.group(1), 16), addr))
+    out = (f"{_counts(collections.Counter(op for _, op in instrs))} "
+           f"({len(loops)} backward)")
+    best = None
+    for lo, hi in loops:
+        body = collections.Counter(op for a, op in instrs if lo <= a <= hi)
+        work = sum(v for k, v in body.items()
+                   if k.startswith(("FFMA", "FADD", "HMMA", "HGMMA")))
+        share = work / sum(body.values())
+        if work and (best is None or share > best[0]):
+            best = (share, lo, hi, body)
+    if best:
+        out += (f"\n    main loop {best[1]:#06x}-{best[2]:#06x}: "
+                f"{_counts(best[3])}")
+    return out
 
 
 def main(argv=None) -> int:
