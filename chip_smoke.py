@@ -20,9 +20,12 @@ Phases, each announced by a line ``[n/8] ...``:
                ``kgat_tpu_torch.recommend.main`` for 1,024 users at k = 20.
   5. backward kernels (K1 on the reverse CSR, K4 SDDMM backward, K5
                softmax backward) against float64 plain versions, each held
-               to a bound that grows with its reduction; a second call must
-               be bit-identical; times; then the attention gradient driven
-               through the model (K2 -> K3 -> K5 -> K4).
+               to a bound that grows with its reduction, and K4 within
+               twice the plain float32 path's error against float64 (it
+               multiplies in three TF32 passes); a second call must be
+               bit-identical; K5 beside its library call; times; then the
+               attention gradient driven through the model (K2 -> K3 ->
+               K5 -> K4).
   6. training steps at yelp2018 scale and full width: the first CF and KG
                steps' losses and gradients on the kernel path against the
                plain path in float64 (same params, batch and dropout mask);
@@ -58,12 +61,13 @@ the build also run on the CPU at a tiny size with the plain versions
 (tests/test_torch_chip_smoke.py); ``main()`` refuses to run without CUDA.
 The rates behind the bounds are the H100 SXM's published peaks: 3.35 TB/s
 of HBM3, 67 TFLOP/s of float32 outside the tensor cores and 495 TFLOP/s of
-dense TF32 on them (K2's three TF32 passes).
+dense TF32 on them (K2's and K4's three TF32 passes).
 """
 
 from __future__ import annotations
 
 import copy
+import ctypes
 import dataclasses
 import itertools
 import json
@@ -89,6 +93,7 @@ from kgat_tpu_torch.ops import ref
 from kgat_tpu_torch.ops.hopper import build
 from kgat_tpu_torch.ops.row_split import CHUNK, build_row_split
 from kgat_tpu_torch.ops.hopper.remote_ring import reduce_send, ring_shift
+from kgat_tpu_torch.ops.hopper import sddmm
 from kgat_tpu_torch.ops.hopper.sddmm import (sddmm_transr, sddmm_transr_bwd,
                                              sddmm_transr_bwd_plain,
                                              sddmm_transr_plain)
@@ -170,13 +175,60 @@ KERNELS = {
 }
 
 # The H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bandwidth,
-# float32 outside the tensor cores (every kernel but K2's products) and
-# dense TF32 on them (K2's three passes).
+# float32 outside the tensor cores (every kernel but K2's and K4's
+# products) and dense TF32 on them (their three passes).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 FRESH_CHUNKS = 8            # K7's fresh-chunk timing: 8 x 8.8 MB, past L2
 P_PARTS = 4                 # phase 8's partitions, all on the one card
+
+
+def own_kernels() -> set:
+    """The names of the ``__global__`` functions of the port's CUDA
+    sources."""
+    names = set()
+    for f in sorted(os.listdir(build.CSRC_DIR)):
+        with open(os.path.join(build.CSRC_DIR, f)) as src:
+            names.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                r"(\w+)\s*\(", src.read()))
+    return names
+
+
+def graph_kernel_names(graph: int) -> list:
+    """The mangled names of the kernel nodes of a captured CUDA graph
+    (a ``cudaGraph_t``), read through libcuda."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(fn, *args):
+        code = fn(*args)
+        if code != 0:
+            raise RuntimeError(f"{fn.__name__} returned CUresult {code}")
+
+    handle = ctypes.c_void_p(graph)
+    n = ctypes.c_size_t(0)
+    call(cu.cuGraphGetNodes, handle, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call(cu.cuGraphGetNodes, handle, nodes, ctypes.byref(n))
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        call(cu.cuGraphNodeGetType, ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:               # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func at word 0, kern at word 7.
+        params = (ctypes.c_void_p * 16)()
+        call(cu.cuGraphKernelNodeGetParams_v2, ctypes.c_void_p(node), params)
+        name = ctypes.c_char_p()
+        if params[0]:
+            call(cu.cuFuncGetName, ctypes.byref(name),
+                 ctypes.c_void_p(params[0]))
+        else:
+            call(cu.cuKernelGetName, ctypes.byref(name),
+                 ctypes.c_void_p(params[7]))
+        names.append(name.value.decode())
+    return names
 
 
 class Times:
@@ -190,9 +242,9 @@ class Times:
 
     def __init__(self):
         self.rows = {}
-        # CUDA launches per wrapper call where it is not one: K4 runs three
-        # kernels; K1, K6 and K8 two where their CSR has a split row.
-        self.per_call = {"sddmm_transr_bwd": 3}
+        # CUDA launches of one wrapper call, counted on the card (None
+        # where nothing launches, on the CPU).
+        self.per_call = {}
 
     def add(self, name, ms, plain_ms, library_ms=None, nbytes=0, flops=0,
             n=1, tf32_flops=0):
@@ -206,6 +258,17 @@ class Times:
         r["bytes"] += n * nbytes
         r["flops"] += n * flops
         r["tf32_flops"] += n * tf32_flops
+
+    def count_launches(self, name, measured, expected):
+        """Records the CUDA launches that one call of ``name``'s wrapper
+        made (``measured``; None where none could be counted), and fails
+        where they are not ``expected``: the count its row splits give (K1,
+        K3, K6 and K8 two where their CSR has a split row, K4 the tile
+        kernel, the reduce and two such row reductions), else one."""
+        if measured is not None and measured != expected:
+            raise AssertionError(f"{name}: {measured} CUDA launches in one "
+                                 f"call, {expected} expected")
+        self.per_call[name] = measured
 
     def bound(self, name):
         """(least ms on the card, "bytes" or "operations")."""
@@ -281,6 +344,24 @@ class CudaTimer:
         end.record()
         self.sync()
         return start.elapsed_time(end) / (3 * reps)
+
+    def kernel_launches(self, fn) -> int:
+        """CUDA launches of the port's own kernels in one call of ``fn``:
+        the kernel nodes of a CUDA graph captured from one call (after a
+        warm call) whose mangled names hold the name of a ``__global__``
+        function of the port's sources (PyTorch's fills and copies in the
+        call not counted)."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            fn()
+        own = [f"{len(n)}{n}" for n in own_kernels()]  # as mangled
+        return sum(any(o in name for o in own)
+                   for name in graph_kernel_names(graph.raw_cuda_graph()))
 
     def host_ms(self, fn, reps: int) -> float:
         """Median wall milliseconds of ``fn`` ending in a synchronize."""
@@ -381,6 +462,20 @@ def random_inputs(n_nodes, n_rel, d, k, gen, dev):
             u(n_rel, k, fan=n_rel + k))
 
 
+def row_coo(g, vals):
+    """A coalesced sparse COO tensor of per-edge ``vals`` at (dst,
+    position in the row): torch.sparse.softmax over its dim 1, and its
+    backward, compute K3's and K5's functions (its indices are unique
+    and already sorted, so coalescing changes nothing)."""
+    dst = ref.offsets_to_dst(g.row_offsets)
+    pos = torch.arange(g.n_edges, device=vals.device) \
+        - g.row_offsets.long()[dst]
+    return torch.sparse_coo_tensor(
+        torch.stack([dst, pos]), vals,
+        (g.n_nodes, max(int(csr_lengths(g.row_offsets).max()), 1))
+    ).coalesce()
+
+
 def check_kernels(g, label, check, gen, dev, timer, times=None):
     """K2 -> K3 -> K1 on graph ``g`` against the plain versions. With
     ``times`` (a dict), also records per-forward kernel and plain ms.
@@ -408,17 +503,13 @@ def check_kernels(g, label, check, gen, dev, timer, times=None):
                              f"against float64, over twice the plain "
                              f"float32 path's {p64:.3e}")
     att = segment_softmax_csr_plain(g.row_offsets, logits)
-    e3 = check("segment_softmax_csr", label,
-               segment_softmax_csr(g.row_offsets, logits), att, atol=1e-6)
-    # K3's library call: torch.sparse.softmax over a COO tensor of the
-    # logits at (dst, position in the row), coalesced once here (its
-    # indices are unique), so that it computes K3's function.
-    dst = ref.offsets_to_dst(g.row_offsets)
-    pos = torch.arange(g.n_edges, device=dev) - g.row_offsets.long()[dst]
-    coo = torch.sparse_coo_tensor(
-        torch.stack([dst, pos]), logits,
-        (g.n_nodes, max(int(csr_lengths(g.row_offsets).max()), 1))
-    ).coalesce()
+    w3 = segment_softmax_csr(g.row_offsets, logits, g.split)
+    e3 = check("segment_softmax_csr", label, w3, att, atol=1e-6)
+    check_identical("segment_softmax_csr", w3,
+                    segment_softmax_csr(g.row_offsets, logits, g.split))
+    del w3
+    # K3's library call: torch.sparse.softmax over the logits' COO tensor.
+    coo = row_coo(g, logits)
     check("K3's library call", label,
           torch.sparse.softmax(coo, 1).values(), att, atol=1e-6)
     errs = []
@@ -446,6 +537,10 @@ def check_kernels(g, label, check, gen, dev, timer, times=None):
                 times.add("spmm_csr", ms, plain_ms, lib_ms,
                           spmm_bytes(g.n_nodes, g.n_edges, g.n_nodes, dd),
                           2 * g.n_edges * dd, n=2 if dd == 64 else 1)
+                if dd == 64:
+                    times.count_launches("spmm_csr", timer.kernel_launches(
+                        lambda: spmm_csr(*a1, g.split)),
+                        g.split.cuda_launches)
     if times is not None:
         n_rel = g.n_relations
         times.add("sddmm_transr",
@@ -456,13 +551,18 @@ def check_kernels(g, label, check, gen, dev, timer, times=None):
                   flops=g.n_edges * 3 * k,
                   tf32_flops=3 * g.n_edges * 4 * d * k)
         times.add("segment_softmax_csr",
-                  timer.device_ms(lambda: segment_softmax_csr(g.row_offsets,
-                                                              logits), 20),
+                  timer.device_ms(lambda: segment_softmax_csr(
+                      g.row_offsets, logits, g.split), 20),
                   timer.device_ms(lambda: segment_softmax_csr_plain(
                       g.row_offsets, logits), 5),
                   timer.device_ms(lambda: torch.sparse.softmax(coo, 1), 5),
                   nbytes=2 * g.n_edges * 4 + (g.n_nodes + 1) * 4,
                   flops=5 * g.n_edges)
+        times.count_launches("sddmm_transr", timer.kernel_launches(
+            lambda: sddmm_transr(*a2)), int(g.tiles.shape[0] > 0))
+        times.count_launches("segment_softmax_csr", timer.kernel_launches(
+            lambda: segment_softmax_csr(g.row_offsets, logits, g.split)),
+            g.split.cuda_launches)
     return (e2, e64, p64), e3, errs, att
 
 
@@ -499,6 +599,10 @@ def check_backward_kernels(g, att, label, check, gen, dev, timer,
                       timer.device_ms(lambda: torch.sparse.mm(csr, cot), 5),
                       spmm_bytes(g.n_nodes, g.n_edges, g.n_nodes, dd),
                       2 * g.n_edges * dd, n=2 if dd == 64 else 1)
+            if dd == 64:
+                times.count_launches("spmm_csr_rev", timer.kernel_launches(
+                    lambda: spmm_csr_rev(*a1, g.rev_split)),
+                    g.rev_split.cuda_launches)
 
     d = k = 64
     emb, w_rel, rel_embed = random_inputs(g.n_nodes, g.n_relations, d, k,
@@ -509,23 +613,43 @@ def check_backward_kernels(g, att, label, check, gen, dev, timer,
     again = sddmm_transr_bwd(*a4)
     want = sddmm_transr_bwd_plain(g, cot.double(), emb.double(),
                                   w_rel.double(), rel_embed.double())
+    plain = sddmm_transr_bwd_plain(*a4)
     length = k4_length(g, k)
-    for name, a, b, c in zip(("d_emb", "d_w_rel", "d_rel_embed"), got, want,
-                             again):
+    k4_errs = []
+    for name, a, b, c, p in zip(("d_emb", "d_w_rel", "d_rel_embed"), got,
+                                want, again, plain):
         shares[f"K4 {name}"] = check.bounded(
             "sddmm_transr_bwd", f"{label} {name}", a, b,
             stat_bound(b, length))
         check_identical(f"sddmm_transr_bwd {name}", a, c)
-    del got, again, want
+        # K4 multiplies on the tensor cores in three TF32 passes: against
+        # float64 each output must be as close as the plain float32 path's
+        # (within twice its worst error); one TF32 pass would be ~1000x
+        # further off.
+        e64 = float((a.double() - b).abs().max())
+        p64 = float((p.double() - b).abs().max())
+        k4_errs.append(f"{name} {e64:.2e} (plain {p64:.2e})")
+        if e64 > 2 * p64:
+            raise AssertionError(f"sddmm_transr_bwd {label} {name}: max abs "
+                                 f"err {e64:.3e} against float64, over "
+                                 f"twice the plain float32 path's "
+                                 f"{p64:.3e}")
+    del got, again, want, plain
     if times is not None:
         n_rel = g.n_relations
+        # Operations: the six d x k products an edge in three TF32 passes
+        # on the tensor cores, and the epilogue's float32 work (tanh and
+        # five multiplies a column).
         times.add("sddmm_transr_bwd",
                   timer.device_ms(lambda: sddmm_transr_bwd(*a4), 5),
                   timer.device_ms(lambda: sddmm_transr_bwd_plain(*a4), 2),
                   nbytes=(2 * g.n_nodes * d + 2 * n_rel * (d * k + k)
                           + 5 * g.n_edges + 2 * (g.n_nodes + 1)) * 4
                   + g.tiles.numel() * 4,
-                  flops=12 * d * k * g.n_edges)
+                  flops=6 * k * g.n_edges,
+                  tf32_flops=3 * 12 * d * k * g.n_edges)
+        times.count_launches("sddmm_transr_bwd", timer.kernel_launches(
+            lambda: sddmm_transr_bwd(*a4)), sddmm.cuda_launches(g))
 
     cot = torch.randn(g.n_edges, generator=gen).to(dev)
     got = segment_softmax_csr_bwd(g.row_offsets, att, cot)
@@ -545,15 +669,29 @@ def check_backward_kernels(g, att, label, check, gen, dev, timer,
     shares["K5"] = check.bounded("segment_softmax_csr_bwd", label, got, want,
                                  bound)
     check_identical("segment_softmax_csr_bwd", got, again)
+    # K5's library call: torch.sparse.softmax's backward on the COO
+    # tensors of the weights and the cotangent (one call; the input
+    # argument gives it only the indices and shape), against K5's plain
+    # version.
+    w_coo, g_coo = row_coo(g, att), row_coo(g, cot)
+
+    def library_k5():
+        return torch._sparse_softmax_backward_data(g_coo, w_coo, 1, w_coo)
+    check("K5's library call", label, library_k5().values(),
+          segment_softmax_csr_bwd_plain(g.row_offsets, att, cot),
+          rtol=1e-5, atol=1e-6)
     if times is not None:
         times.add("segment_softmax_csr_bwd",
                   timer.device_ms(lambda: segment_softmax_csr_bwd(
                       g.row_offsets, att, cot), 20),
                   timer.device_ms(lambda: segment_softmax_csr_bwd_plain(
                       g.row_offsets, att, cot), 5),
+                  timer.device_ms(library_k5, 5),
                   nbytes=3 * g.n_edges * 4 + (g.n_nodes + 1) * 4,
                   flops=4 * g.n_edges)
-    return shares
+        times.count_launches("segment_softmax_csr_bwd", timer.kernel_launches(
+            lambda: segment_softmax_csr_bwd(g.row_offsets, att, cot)), 1)
+    return shares, ", ".join(k4_errs)
 
 
 def k2_errs(errs) -> str:
@@ -717,12 +855,11 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
         lines.append(f"{what} CSR {sp.n_units} units, {sp.n_split} rows "
                      f"split into {sp.n_slots} partials, built in "
                      f"{host:.1f} ms on the host ({card:.1f} ms on the "
-                     f"card), {sp.cuda_launches} CUDA launches per K1 call")
+                     f"card), {sp.cuda_launches} CUDA launches per K1 call by "
+                     f"the split")
     print(f"[3/8] row split (chunk {CHUNK} edges), once per CSR at "
           f"start-up: " + "; ".join(lines), flush=True)
     times = Times()
-    times.per_call.update(spmm_csr=g.split.cuda_launches,
-                          spmm_csr_rev=g.rev_split.cuda_launches)
     e2, e3, e1, att = check_kernels(g, "yelp2018", check, gen, dev, timer,
                                     times)
     print(f"[3/8] yelp2018 shapes: max abs err sddmm {k2_errs(e2)}, softmax "
@@ -834,18 +971,27 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     progress.phase(5, "backward kernels against float64 plain versions")
     for label, graph, w, t in (("hand-made", hand, hand_att, None),
                                ("yelp2018", g, att, times)):
-        shares = check_backward_kernels(graph, w, label, check, gen, dev,
-                                        timer, t)
+        shares, k4_errs = check_backward_kernels(graph, w, label, check,
+                                                 gen, dev, timer, t)
         print(f"[5/8] {label}: max abs err, and the bound where the error "
               f"is largest against it: "
               + ", ".join(f"{k} {e:.2e} (bound {b:.2e}, {s:.3f} of it)"
                           for k, (e, b, s) in shares.items())
-              + "; second calls bit-identical", flush=True)
+              + f"; K4 against float64 {k4_errs}; second calls "
+              f"bit-identical", flush=True)
     for name in ("spmm_csr_rev", "sddmm_transr_bwd",
                  "segment_softmax_csr_bwd"):
         per = "per CF-step backward (d = 64, 64, 32)" if name == \
             "spmm_csr_rev" else "per call"
         print(f"[5/8] {per} ({smi_line}): {times.line(name)}", flush=True)
+    row_gb = 4 * g.n_edges * 64 * 4 / 1e9
+    print(f"[5/8] sddmm_transr_bwd: {times.per_call['sddmm_transr_bwd']} "
+          f"CUDA launches per call (counted); bound on the float32 FMA units, for the "
+          f"same products without tensor cores, "
+          f"{12 * 64 * 64 * g.n_edges / F32_FLOPS * 1e3:.4f} ms; its d_eh "
+          f"and d_et rows, written and read back ({row_gb:.2f} GB), take "
+          f"{row_gb * 1e9 / HBM_BYTES_PER_S * 1e3:.4f} ms of HBM time, the "
+          f"design's own cost beside the bound", flush=True)
     del att, hand_att
 
     # The attention gradient through the model: logits -> softmax -> a
@@ -968,7 +1114,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": r["library_ms"],
-                     "cuda_launches_per_call": times.per_call.get(name, 1)})
+                     "cuda_launches_per_call": times.per_call[name]})
     print(json.dumps({"kernels": rows}), flush=True)
     return 0
 
@@ -1330,8 +1476,6 @@ def check_ring_kernels(buckets, info, sizes, check, times, gen, dev, timer):
     # for the kernels and K7's copies; K6 and K8 at the trainer's widest
     # layer, d = 64 f32 (the JSON line), and at d = 32.
     e_b, per = big.n_edges, {}
-    times.per_call.update(segment_sum_csr=big.split.cuda_launches,
-                          reduce_send=big.split.cuda_launches)
     for d in (64, 32):
         vals = stream(big.row_offsets, d, torch.float32, big)
         chunk = torch.randn(R, d, generator=gen).to(dev)
@@ -1339,6 +1483,16 @@ def check_ring_kernels(buckets, info, sizes, check, times, gen, dev, timer):
         offsets = big.row_offsets.long()
         k6_bytes = e_b * d * 4 + (R + 1) * 4 + R * d * 4
         k7_bytes = 2 * R * d * 4
+        if d == 64:
+            times.count_launches("segment_sum_csr", timer.kernel_launches(
+                lambda: segment_sum_csr(big.row_offsets, vals, big.split)),
+                big.split.cuda_launches)
+            times.count_launches("reduce_send", timer.kernel_launches(
+                lambda: reduce_send([big.row_offsets], [vals], [chunk],
+                                    out=[buf], splits=[big.split])),
+                big.split.cuda_launches)
+            times.count_launches("ring_shift", timer.kernel_launches(
+                lambda: ring_shift([chunk], 1, out=[buf])), 1)
         k6 = timer.replay_ms(lambda: segment_sum_csr(
             big.row_offsets, vals, big.split), 20)
         k8 = timer.replay_ms(lambda: reduce_send(
@@ -1395,8 +1549,9 @@ def check_ring_kernels(buckets, info, sizes, check, times, gen, dev, timer):
             f"and 32 bf16: sums worst {worst8[2]:.3f} of the bound, sends "
             f"bit-exact; second calls bit-identical. Times on the largest "
             f"bucket, {big_label} ({e_b} edges, {big.split.n_units} units, "
-            f"{big.split.n_split} rows split, {big.split.cuda_launches} CUDA "
-            f"launches per K6 or K8 call), by device duration, per launch: "
+            f"{big.split.n_split} rows split, "
+            f"{times.per_call['segment_sum_csr']} CUDA launches per K6 or K8 "
+            f"call, counted), by device duration, per launch: "
             + "; ".join(times.line(n) for n in ("segment_sum_csr",
                                                 "ring_shift", "reduce_send"))
             + f"; K7 on {FRESH_CHUNKS} chunks in turn (fresh from memory) "
@@ -1428,8 +1583,8 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
           f"of the {len(csrs)} bucket CSRs included, {split_ms:.2f} ms per "
           f"CSR): R = {info.rows_per_part}, n_pad = {info.n_nodes_pad}, "
           f"shard edges {[s.n_edges for s in shards]}, ring bucket edges "
-          f"per (p, s) {b_edges}, CUDA launches per K6/K8 call (forward, "
-          f"reverse) {b_launches}", flush=True)
+          f"per (p, s) {b_edges}, CUDA launches per K6/K8 call by the "
+          f"splits (forward, reverse) {b_launches}", flush=True)
     summary = check_ring_kernels(buckets, info, sizes, check, times, gen,
                                  dev, timer)
     print(f"[8/8] ring kernels ({smi_line}): {summary}", flush=True)

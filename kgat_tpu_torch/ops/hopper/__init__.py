@@ -10,9 +10,11 @@
   K7 remote_ring.ring_shift         <- kgat_tpu/ops/pallas/remote_ring.py::_shift_kernel
   K8 remote_ring.reduce_send        <- kgat_tpu/ops/pallas/remote_ring.py::_reduce_send_kernel
 
-K1, K6 and K8 share one row reduction (``csrc/row_reduce.cuh``), which
-walks the work units of a CSR's row split (``ops/row_split.py``): the
-caller passes the split that was built with the CSR.
+K1, K6, K8 and K4's fold share one row reduction (``csrc/row_reduce.cuh``),
+which walks the work units of a CSR's row split (``ops/row_split.py``);
+K3 walks the same units. The caller passes the split that was built with
+the CSR. K2 and K4 share their TF32 products on the tensor cores
+(``csrc/tf32_mma.cuh``).
 
 Each wrapper has a plain PyTorch version beside it (``*_plain``), which it
 uses only for tensors on the CPU. ``build.launch_counts`` counts kernel

@@ -40,8 +40,8 @@ _SPLIT = (_P, _I, _P, _P, _I)
 # C entry point -> argtypes (pointers and the stream as c_void_p, sizes as
 # c_int, byte counts as c_size_t). Each returns a cudaError_t as int.
 _SIGNATURES = {
-    # The row reductions (K1, K6, K8) begin with a CSR's RowSplit: units,
-    # n_units, split_rows, slot_offsets, n_split.
+    # The row reductions (K1, K6, K8) and K3 begin with a CSR's RowSplit:
+    # units, n_units, split_rows, slot_offsets, n_split.
     # ..., src, w, x, out, partials, d, x_is_bf16, stream
     "kgat_spmm_csr": _SPLIT + (_P, _P, _P, _P, _P, _I, _I, _P),
     # ..., vals, out, partials, d, vals_is_bf16, stream
@@ -54,14 +54,15 @@ _SIGNATURES = {
     "kgat_enable_peer_access": (_I, _I),
     # rel_perm, tiles, src, dst, emb, w_rel, rel_embed, out, n_tiles, d, k, stream
     "kgat_sddmm_transr": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # row_offsets, logits, out, n_rows, stream
-    "kgat_segment_softmax_csr": (_P, _P, _P, _I, _P),
+    # ..., n_slots, chunk, row_offsets, logits, out, partials, stream
+    "kgat_segment_softmax_csr": _SPLIT + (_I, _I, _P, _P, _P, _P, _P),
     # row_offsets, w, g, out, n_rows, stream
     "kgat_segment_softmax_csr_bwd": (_P, _P, _P, _P, _I, _P),
-    # rel_perm, tiles, tile_offsets, src, dst, row_offsets, rev_row_offsets,
-    # rev_perm, emb, w_rel, rel_embed, g, deh, det, part_w, part_er, d_emb,
-    # d_w, d_er, n_tiles, n_rel, n_nodes, d, k, stream
-    "kgat_sddmm_transr_bwd": (_P,) * 19 + (_I,) * 5 + (_P,),
+    # rel_perm, tiles, tile_offsets, src, dst, the forward and the reverse
+    # CSR's RowSplit, rev_perm, emb, w_rel, rel_embed, g, deh, det, part_w,
+    # part_er, partials, d_emb, d_w, d_er, n_tiles, n_rel, d, k, stream
+    "kgat_sddmm_transr_bwd": ((_P,) * 5 + _SPLIT * 2 + (_P,) * 13
+                              + (_I,) * 4 + (_P,)),
 }
 
 

@@ -1,5 +1,6 @@
-// The CSR row reduction shared by K1 (spmm_csr), K6 (segment_sum_csr) and
-// K8 (reduce_send), so that the three reduce in one way and cannot diverge
+// The CSR row reduction shared by K1 (spmm_csr), K6 (segment_sum_csr), K8
+// (reduce_send) and K4's fold (sddmm_transr_bwd), so that they reduce in
+// one way and cannot diverge
 // (the counterpart of kgat_tpu/ops/pallas/segment_sum.py::accum_step, which
 // the TPU's K6 and K8 share for the same reason).
 //
@@ -29,8 +30,12 @@
 // Every order is fixed and nothing is summed with atomics: two calls give
 // the same bits.
 //
-//   GATHER: the value of edge e is row src[e] of x scaled by w[e] (K1);
+//   GATHER: the value of edge e is row src[e] of x scaled by w[e] (K1),
+//           or unscaled where not WEIGHTED (K4's fold, src = rev_perm);
 //           otherwise row e of a pre-gathered (E, d) value stream (K6, K8).
+//   ACC:    a row's sum is added into out[row] rather than stored (K4's
+//           fold adds its tail sums to its head sums). The addition is
+//           one more rounding in a fixed order: still deterministic.
 
 #pragma once
 
@@ -133,7 +138,8 @@ struct Pack<__nv_bfloat16, 8> {
 // the values of edges [lo, hi) into out[row] when slot < 0, else into
 // partials[slot]. Group g of the warp takes edges lo + g, lo + g + 32/G,
 // ... in order; then the xor tree adds the groups' sums.
-template <typename T, class L, bool GATHER>
+template <typename T, class L, bool GATHER, bool WEIGHTED = GATHER,
+          bool ACC = false>
 __device__ __forceinline__ void reduce_unit(const int4 u,
                                             const int* __restrict__ src,
                                             const float* __restrict__ w,
@@ -169,7 +175,7 @@ __device__ __forceinline__ void reduce_unit(const int4 u,
     for (int k = 0; k < kUnroll; ++k) {
       const int ek = e + k * kGroups;
       base[k] = static_cast<size_t>(GATHER ? src[ek] : ek) * d;
-      wt[k] = GATHER ? w[ek] : 1.f;
+      wt[k] = WEIGHTED ? w[ek] : 1.f;
     }
     typename P::Raw v[kUnroll][L::VPL];
 #pragma unroll
@@ -189,7 +195,7 @@ __device__ __forceinline__ void reduce_unit(const int4 u,
   }
   for (; e < hi; e += kGroups) {
     const size_t base = static_cast<size_t>(GATHER ? src[e] : e) * d;
-    const float wt = GATHER ? w[e] : 1.f;
+    const float wt = WEIGHTED ? w[e] : 1.f;
 #pragma unroll
     for (int q = 0; q < L::VPL; ++q) {
       if (on[q]) P::fma(acc[q], P::load(x + base + col[q]), wt);
@@ -211,6 +217,9 @@ __device__ __forceinline__ void reduce_unit(const int4 u,
                          : partials + static_cast<size_t>(u.w) * d;
 #pragma unroll
     for (int q = 0; q < L::VPL; ++q) {
+      if constexpr (ACC) {
+        if (on[q] && u.w < 0) P::fma(acc[q], P::load(row + col[q]), 1.f);
+      }
       if (on[q]) P::store(row + col[q], acc[q]);
     }
   }
@@ -219,7 +228,7 @@ __device__ __forceinline__ void reduce_unit(const int4 u,
 // The second pass: split row s's partial rows, slots [slot_offsets[s],
 // slot_offsets[s + 1]), summed in slot (= unit) order into out[row]. It is
 // the same reduction, over the f32 partials as a value stream.
-template <class L>
+template <class L, bool ACC>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 fixup_kernel(const int* __restrict__ split_rows,
              const int* __restrict__ slot_offsets,
@@ -229,8 +238,8 @@ fixup_kernel(const int* __restrict__ split_rows,
   if (s >= n_split) return;  // whole warps exit together
   const int4 u = make_int4(split_rows[s], slot_offsets[s],
                            slot_offsets[s + 1], -1);
-  reduce_unit<float, L, false>(u, nullptr, nullptr, partials, out, nullptr,
-                               d, threadIdx.x % 32);
+  reduce_unit<float, L, false, false, ACC>(u, nullptr, nullptr, partials,
+                                           out, nullptr, d, threadIdx.x % 32);
 }
 
 bool aligned16(const void* p) {
@@ -265,15 +274,17 @@ int unit_blocks(const Split& s) {
   return (s.n_units + kWarpsPerBlock - 1) / kWarpsPerBlock;
 }
 
-// The second launch, where a row was split (none otherwise).
+// The second launch, where a row was split (none otherwise); ACC adds
+// each split row's sum into out.
+template <bool ACC = false>
 cudaError_t launch_fixup(const Split& s, const float* partials, float* out,
                          int d, cudaStream_t stream) {
   if (s.n_split == 0) return cudaSuccess;
   const dim3 grid((s.n_split + kWarpsPerBlock - 1) / kWarpsPerBlock);
   return with_layout<float>(
       d, aligned16(partials) && aligned16(out), [&](auto layout) {
-        fixup_kernel<decltype(layout)><<<grid, kWarpsPerBlock * 32, 0,
-                                         stream>>>(
+        fixup_kernel<decltype(layout), ACC><<<grid, kWarpsPerBlock * 32, 0,
+                                              stream>>>(
             s.split_rows, s.slot_offsets, partials, out, s.n_split, d);
         return cudaGetLastError();
       });

@@ -15,12 +15,13 @@ from typing import Tuple
 import torch
 
 from kgat_tpu_torch.graph import Graph
-from kgat_tpu_torch.ops import ref
+from kgat_tpu_torch.ops import ref, row_split
 from kgat_tpu_torch.ops.hopper import build
+from kgat_tpu_torch.ops.hopper.segment_sum import split_args
 
 MAX_EMBED_DIM = 256
 MAX_RELATION_DIM = 128
-MAX_BWD_WEIGHTS = 8192   # d * k: K4 keeps a block's share of d_W in registers
+MAX_BWD_WEIGHTS = 8192   # d * k: K4's block stages W_r and d_W in shared memory
 
 
 def _relation_ranges(tiles: torch.Tensor):
@@ -119,15 +120,21 @@ def sddmm_transr_bwd(graph: Graph, g: torch.Tensor,
     (entity_embed, w_rel, rel_embed), given the logits' cotangent ``g``
     (E,) float32 in canonical order.
 
-    Deterministic: the entity gradient sums each node's head edges over
-    its CSR row and its tail edges over its reverse CSR row, d_W and d_e_r
-    sum per-tile partials in tile order; no atomics. A relation without
-    edges gets zeros. CPU tensors take :func:`sddmm_transr_bwd_plain`;
-    CUDA tensors launch the kernels (three, counted as one launch).
+    The six products of each edge run on the tensor cores in three TF32
+    passes, as accurate as float32 (``ref.tf32_matmul`` emulates them).
+    Deterministic, no atomics: d_W and d_e_r sum per-tile partials in tile
+    order; the entity gradient sums each node's head edges over the CSR's
+    work units (``graph.split``) and its tail edges over the reverse CSR's
+    (``graph.rev_split``, gathered through ``rev_perm``), as
+    ``ref.split_segment_sum`` emulates. A relation without edges gets
+    zeros. CPU tensors take :func:`sddmm_transr_bwd_plain`; CUDA tensors
+    launch the kernels (:func:`cuda_launches` per call, counted as one),
+    and raise when the graph carries no row splits.
     """
+    splits = tuple(t for sp in (graph.split, graph.rev_split)
+                   if sp is not None for t in sp.tensors)
     args = (g, graph.rel_perm, graph.tiles, graph.src, graph.dst,
-            graph.row_offsets, graph.rev_row_offsets, graph.rev_perm,
-            entity_embed, w_rel, rel_embed)
+            graph.rev_perm, entity_embed, w_rel, rel_embed, *splits)
     if not build.use_kernel("sddmm_transr_bwd", *args):
         return sddmm_transr_bwd_plain(graph, g, entity_embed, w_rel,
                                       rel_embed)
@@ -143,6 +150,10 @@ def sddmm_transr_bwd(graph: Graph, g: torch.Tensor,
     if n_nodes != graph.n_nodes:
         raise ValueError(f"entity_embed has {n_nodes} rows, the graph "
                          f"{graph.n_nodes} nodes")
+    fwd = row_split.require("sddmm_transr_bwd", graph.split, n_nodes,
+                            graph.n_edges)
+    rev = row_split.require("sddmm_transr_bwd", graph.rev_split, n_nodes,
+                            graph.n_edges)
     dev = entity_embed.device
     rel_ids = torch.arange(n_rel + 1, dtype=torch.int32, device=dev)
     tile_offsets = torch.searchsorted(graph.tiles[:, 0].contiguous(),
@@ -151,22 +162,32 @@ def sddmm_transr_bwd(graph: Graph, g: torch.Tensor,
                                        device=dev)
     deh, det = empty(graph.n_edges, d), empty(graph.n_edges, d)
     part_w, part_er = empty(n_tiles, d, k), empty(n_tiles, k)
+    partials = empty(max(fwd.n_slots, rev.n_slots), d)
     d_emb, d_w, d_er = empty(n_nodes, d), empty(n_rel, d, k), empty(n_rel, k)
     lib = build.library()
     with torch.cuda.device(dev):
         code = lib.kgat_sddmm_transr_bwd(
             graph.rel_perm.data_ptr(), graph.tiles.data_ptr(),
             tile_offsets.data_ptr(), graph.src.data_ptr(),
-            graph.dst.data_ptr(), graph.row_offsets.data_ptr(),
-            graph.rev_row_offsets.data_ptr(), graph.rev_perm.data_ptr(),
-            entity_embed.data_ptr(), w_rel.data_ptr(), rel_embed.data_ptr(),
-            g.data_ptr(), deh.data_ptr(), det.data_ptr(), part_w.data_ptr(),
-            part_er.data_ptr(), d_emb.data_ptr(), d_w.data_ptr(),
-            d_er.data_ptr(), n_tiles, n_rel, n_nodes, d, k,
+            graph.dst.data_ptr(), *split_args(fwd), *split_args(rev),
+            graph.rev_perm.data_ptr(), entity_embed.data_ptr(),
+            w_rel.data_ptr(), rel_embed.data_ptr(), g.data_ptr(),
+            deh.data_ptr(), det.data_ptr(), part_w.data_ptr(),
+            part_er.data_ptr(), partials.data_ptr(), d_emb.data_ptr(),
+            d_w.data_ptr(), d_er.data_ptr(), n_tiles, n_rel, d, k,
             ctypes.c_void_p(build.stream_ptr(dev)))
     build.check_launch(lib, code, "sddmm_transr_bwd")
     build.launch_counts["sddmm_transr_bwd"] += 1
     return d_emb, d_w, d_er
+
+
+def cuda_launches(graph: Graph) -> int:
+    """CUDA launches of one :func:`sddmm_transr_bwd` call on ``graph``:
+    the tile kernel (where there are edges), the tile-order reduce, and
+    the fold's two row reductions, each one launch or two where its CSR
+    has a split row."""
+    return (int(graph.tiles.shape[0] > 0) + 1 + graph.split.cuda_launches
+            + graph.rev_split.cuda_launches)
 
 
 class _SddmmTransR(torch.autograd.Function):

@@ -135,6 +135,44 @@ def segment_softmax_coo_bwd(dst: torch.Tensor, w: torch.Tensor,
     return w * (g - row_sum[dst.long()])
 
 
+def split_segment_softmax(split, logits: torch.Tensor) -> torch.Tensor:
+    """A plain emulation of K3 on the card, for the tests (no path of the
+    package calls it): each work unit of ``split``
+    (``ops.row_split.RowSplit``) takes the max of its logits (from the
+    dtype's lowest value) and the sum of exp(l - max); a one-unit row's
+    weights are exp(l - max) / sum, a split row's units combine their
+    row's (max, sum) partials in slot order, max M then sum_j s_j
+    exp(m_j - M). Empty rows write nothing (their entries are absent)."""
+    dev = logits.device
+    row, lo, hi, slot = split.units.long().to(dev).unbind(1)
+    lens = hi - lo
+    unit = torch.repeat_interleave(torch.arange(split.n_units, device=dev),
+                                   lens)
+    start = torch.cumsum(lens, 0) - lens
+    edge = lo[unit] + torch.arange(unit.numel(), device=dev) - start[unit]
+    vals = logits[edge]
+    lowest = torch.finfo(logits.dtype).min
+    m = torch.full((split.n_units,), lowest, dtype=logits.dtype, device=dev)
+    m.scatter_reduce_(0, unit, vals, "amax", include_self=True)
+    s = segment_sum_coo(unit, torch.exp(vals - m[unit]), split.n_units)
+    parts = slot >= 0
+    if parts.any():
+        # Slots are numbered in unit order, so m[parts] is slot 0, 1, ...
+        offsets = split.slot_offsets.long().to(dev)
+        owner = torch.repeat_interleave(
+            torch.arange(split.n_split, device=dev), offsets[1:] - offsets[:-1])
+        pm, ps = m[parts], s[parts]
+        rm = torch.full((split.n_split,), lowest, dtype=logits.dtype,
+                        device=dev)
+        rm.scatter_reduce_(0, owner, pm, "amax", include_self=True)
+        rs = segment_sum_coo(owner, ps * torch.exp(pm - rm[owner]),
+                             split.n_split)
+        m[parts], s[parts] = rm[owner], rs[owner]
+    out = torch.empty_like(logits)
+    out[edge] = torch.exp(vals - m[unit]) / s[unit]
+    return out
+
+
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
     """float32 ``x`` rounded to TF32 (10 stored mantissa bits) as
     ``cvt.rna.tf32.f32`` rounds it: to nearest on the 13 low mantissa bits,
@@ -222,6 +260,53 @@ def transr_logits_bwd(g: torch.Tensor, rel_perm: torch.Tensor,
         d_w[r] = eh.T @ d_ph + et.T @ d_pt
         d_er[r] = d_ph.sum(0)
     return d_emb, d_w, d_er
+
+
+def transr_bwd_tiles(g: torch.Tensor, rel_perm: torch.Tensor,
+                     tiles: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                     emb: torch.Tensor, w_rel: torch.Tensor,
+                     rel_embed: torch.Tensor, matmul=torch.matmul
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """A plain emulation of K4's tile kernel and tile-order reduce, for the
+    tests (no path of the package calls it): per relation tile of
+    ``tiles`` (``Graph.tiles``), the six products of
+    :func:`transr_logits_bwd` by ``matmul`` (:func:`tf32_matmul` emulates
+    the kernel's three TF32 passes); d_W
+    summed over 8-edge steps in edge order, each step's product formed
+    apart and added in float32; d_e_r over 16-edge groups in order; a
+    relation's tile partials added 32 at a time, the runs in order.
+    Returns the per-edge rows d_eh and d_et (E, d) in canonical order,
+    d_W and d_e_r; the fold (:func:`split_segment_sum` over the two CSRs'
+    splits) makes d_emb of them."""
+    mm = matmul
+    n_rel, d, k = w_rel.shape
+    deh = emb.new_zeros((rel_perm.shape[0], d))
+    det = emb.new_zeros((rel_perm.shape[0], d))
+    parts = {}
+    for r, start, count in tiles.tolist():
+        idx = rel_perm[start:start + count].long()
+        eh, et = emb[dst[idx].long()], emb[src[idx].long()]
+        w_r = w_rel[r]
+        ph, pt = mm(eh, w_r), mm(et, w_r)
+        s = torch.tanh(ph + rel_embed[r])
+        ge = g[idx].to(emb.dtype)[:, None]
+        d_pt, d_ph = ge * s, ge * pt * (1 - s * s)
+        deh[idx], det[idx] = mm(d_ph, w_r.T), mm(d_pt, w_r.T)
+        dw = emb.new_zeros((d, k))
+        for i in range(0, count, 8):
+            dw = dw + mm(eh[i:i + 8].T, d_ph[i:i + 8])
+            dw = dw + mm(et[i:i + 8].T, d_pt[i:i + 8])
+        der = emb.new_zeros(k)
+        for i in range(0, count, 16):
+            der = der + d_ph[i:i + 16].sum(0)
+        parts.setdefault(r, []).append((dw, der))
+    d_w, d_er = torch.zeros_like(w_rel), torch.zeros_like(rel_embed)
+    for r, ps in parts.items():
+        for i in range(0, len(ps), 32):
+            d_w[r] += sum((p[0] for p in ps[i + 1:i + 32]), ps[i][0])
+            d_er[r] += sum((p[1] for p in ps[i + 1:i + 32]), ps[i][1])
+    return deh, det, d_w, d_er
 
 
 # --- graph-level API (the ``ref`` backend) ---------------------------------

@@ -1,16 +1,19 @@
-"""The unit schedule of the CSR row reduction shared by K1, K6 and K8.
+"""The unit schedule of the CSR row kernels: the row reduction that K1,
+K6, K8 and K4's fold share, and K3's softmax.
 
 One row of a power-law graph can hold thousands of times the mean number
 of edges (the yelp2018-scale hub: 70,884 in-edges and as many out-edges,
-against a mean of 33), so the kernels (``ops/hopper/csrc/row_reduce.cuh``)
-do not take a row as their unit of work. Every CSR row is cut into units
-of at most ``chunk`` consecutive edges, in edge order:
+against a mean of 33), so the kernels (``ops/hopper/csrc/row_reduce.cuh``,
+``csrc/softmax.cu``) do not take a row as their unit of work. Every CSR
+row is cut into units of at most ``chunk`` consecutive edges, in edge
+order:
 
 * a row of at most ``chunk`` edges is one unit, which writes its output
   row (an empty row is one unit that writes 0);
-* a longer row's units each write a float32 partial row into a slot of a
-  scratch buffer, the slots of one row consecutive and in unit order; a
-  second pass sums each such row's slots in that order.
+* a longer row's units each write a float32 partial row (K3: a (max,
+  sum) pair) into a slot of a scratch buffer, the slots of one row
+  consecutive and in unit order; a second pass combines each such row's
+  slots in that order.
 
 Nothing is summed with atomics, so two calls give the same bits. The
 schedule depends on the CSR offsets alone: it is built once per CSR (by

@@ -43,6 +43,10 @@ class StubTimer:
         fn()
         return 0.0
 
+    def kernel_launches(self, fn):
+        fn()
+        return None
+
 
 # 400 nodes: phase 8's four partitions of 128 rows all hold edges.
 sizes = chip_smoke.Sizes(
@@ -80,15 +84,14 @@ def test_phases_3_to_7_run_on_the_cpu_without_jax():
         assert k["route"] == "cuda"
         assert k["bound_by"] in ("bytes", "operations") and k["bound_ms"] > 0
         assert (k["library_ms"] is None) == (k["name"] in (
-            "sddmm_transr", "sddmm_transr_bwd",
-            "segment_softmax_csr_bwd")), k
-        assert k["cuda_launches_per_call"] in (1, 2, 3), k
+            "sddmm_transr", "sddmm_transr_bwd")), k
         assert os.path.exists(os.path.join(REPO, k["source"]))
         path, line = k["replaces"].split(":")
         assert os.path.exists(os.path.join(REPO, path)) and int(line) > 0
-        # No kernel launches on the CPU; the plain versions against their
-        # float64 references.
+        # No kernel launches on the CPU, so none is counted; the plain
+        # versions against their float64 references.
         assert k["launches"] == 0 and k["max_abs_err"] <= 1e-5, k
+        assert k["cuda_launches_per_call"] is None, k
     assert "FAILED" not in proc.stdout
 
 

@@ -137,16 +137,34 @@ def test_sddmm_matches_plain(dev, hand_graph, tile_graph, d, k):
         torch.testing.assert_close(got.double(), want64, rtol=1e-5, atol=1e-5)
 
 
-def test_softmax_matches_plain(dev, hand_graph):
+@pytest.mark.parametrize("chunk", [CHUNK, 16])
+def test_softmax_matches_plain(dev, hand_graph, chunk):
+    """K3 on the row split's units against its plain version: the hub of
+    5,000 and the chunk-boundary rows split into (max, sum) partials, rows
+    of equal logits and of +-1e30; one launch per call, a second call
+    bit-identical; the empty row untouched, the one-edge row 1."""
     g, gen = hand_graph, torch.Generator().manual_seed(1)
+    split = (g.split if chunk == CHUNK
+             else build_row_split(g.row_offsets, chunk))
+    assert split.n_split > 0
     logits = _rand(gen, g.n_edges, dev=dev, scale=3.0)
-    got = segment_softmax_csr(g.row_offsets, logits)
+    ro = g.row_offsets.tolist()
+    logits[ro[3]:ro[4]] = 0.7                 # equal logits, C - 1 edges
+    logits[ro[6]:ro[7]:2] = 1e30              # 3C + 5 edges: split
+    logits[ro[6] + 1:ro[7]:2] = -1e30
+    n = build.launch_counts["segment_softmax_csr"]
+    got = segment_softmax_csr(g.row_offsets, logits, split)
+    again = segment_softmax_csr(g.row_offsets, logits, split)
     torch.cuda.synchronize()
-    assert torch.isfinite(got).all()
+    assert build.launch_counts["segment_softmax_csr"] == n + 2
+    assert torch.isfinite(got).all() and torch.equal(got, again)
     torch.testing.assert_close(
         got, segment_softmax_csr_plain(g.row_offsets, logits), rtol=1e-4,
         atol=1e-6)
-    assert got[int(g.row_offsets[1])] == 1.0  # the one-edge row
+    assert got[ro[1]] == 1.0  # the one-edge row
+    big = got[ro[6]:ro[7]:2]
+    torch.testing.assert_close(big, torch.full_like(big, 1 / big.numel()))
+    assert not got[ro[6] + 1:ro[7]:2].any()
 
 
 SPMM_CASES = [(64, torch.float32), (32, torch.float32), (48, torch.float32),
@@ -223,36 +241,48 @@ def test_spmm_backward_is_k1_on_the_reverse_csr(dev, hand_graph, d):
     torch.testing.assert_close(w2.grad, w3.grad, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("d,k", [(64, 64), (64, 32), (32, 100)])
-def test_sddmm_backward_matches_float64_plain(dev, hand_graph, d, k):
-    g, gen = hand_graph, torch.Generator().manual_seed(d + k)
-    emb = _rand(gen, g.n_nodes, d, dev=dev)
-    w_rel = _rand(gen, g.n_relations, d, k, dev=dev)
-    rel_embed = _rand(gen, g.n_relations, k, dev=dev)
-    cot = _rand(gen, g.n_edges, dev=dev, scale=1.0)
-    n = build.launch_counts["sddmm_transr_bwd"]
-    got = sddmm_transr_bwd(g, cot, emb, w_rel, rel_embed)
-    again = sddmm_transr_bwd(g, cot, emb, w_rel, rel_embed)
-    torch.cuda.synchronize()
-    assert build.launch_counts["sddmm_transr_bwd"] == n + 2
-    want = sddmm_transr_bwd_plain(g, cot.double(), emb.double(),
-                                  w_rel.double(), rel_embed.double())
-    # Longest reduction: a node's head + tail edges times k, or a
-    # relation's edges.
-    deg = (g.row_offsets[1:] - g.row_offsets[:-1]
-           + g.rev_row_offsets[1:] - g.rev_row_offsets[:-1])
-    length = max(int(deg.max()) * k, g.n_edges)
-    for name, a, b, c in zip(("d_emb", "d_w_rel", "d_rel_embed"), got, want,
-                             again):
-        assert torch.equal(a, c), f"{name}: a second call differs"
-        _assert_within(a, b, _stat_bound(b, length), name)
-    assert not got[1][4].any() and not got[2][4].any()  # relation 4: no edge
+@pytest.mark.parametrize("d,k", [(64, 64), (64, 32), (64, 100), (33, 20),
+                                 (32, 100), (256, 32), (65, 126)])
+def test_sddmm_backward_matches_float64_plain(dev, hand_graph, tile_graph,
+                                              d, k):
+    """K4 against float64 on the hand-made graph (a hub of 5,000 head
+    edges and a source of a quarter of the edges, both split rows of the
+    fold) and on tiles of 1, 15, 16, 17 and 64 edges; padded widths
+    (d = 33, 65; k = 20, 100, 126), k in two chunks of phase A (k = 100,
+    126), and shapes whose block stages W_r in the forward order alone,
+    which fits more warps (64 x 100, 256 x 32, 65 x 126); a second call
+    bit-identical."""
+    for g in (hand_graph, tile_graph):
+        gen = torch.Generator().manual_seed(d + k)
+        emb = _rand(gen, g.n_nodes, d, dev=dev)
+        w_rel = _rand(gen, g.n_relations, d, k, dev=dev)
+        rel_embed = _rand(gen, g.n_relations, k, dev=dev)
+        cot = _rand(gen, g.n_edges, dev=dev, scale=1.0)
+        n = build.launch_counts["sddmm_transr_bwd"]
+        got = sddmm_transr_bwd(g, cot, emb, w_rel, rel_embed)
+        again = sddmm_transr_bwd(g, cot, emb, w_rel, rel_embed)
+        torch.cuda.synchronize()
+        assert build.launch_counts["sddmm_transr_bwd"] == n + 2
+        want = sddmm_transr_bwd_plain(g, cot.double(), emb.double(),
+                                      w_rel.double(), rel_embed.double())
+        # Longest reduction: a node's head + tail edges times k, or a
+        # relation's edges.
+        deg = (g.row_offsets[1:] - g.row_offsets[:-1]
+               + g.rev_row_offsets[1:] - g.rev_row_offsets[:-1])
+        length = max(int(deg.max()) * k, g.n_edges)
+        for name, a, b, c in zip(("d_emb", "d_w_rel", "d_rel_embed"), got,
+                                 want, again):
+            assert torch.equal(a, c), f"{name}: a second call differs"
+            _assert_within(a, b, _stat_bound(b, length), name)
+        if g is hand_graph:  # relation 4 has no edge
+            assert not got[1][4].any() and not got[2][4].any()
 
 
 def test_softmax_backward_matches_float64_plain(dev, hand_graph):
     g, gen = hand_graph, torch.Generator().manual_seed(2)
     w = segment_softmax_csr(g.row_offsets,
-                            _rand(gen, g.n_edges, dev=dev, scale=3.0))
+                            _rand(gen, g.n_edges, dev=dev, scale=3.0),
+                            g.split)
     cot = _rand(gen, g.n_edges, dev=dev, scale=1.0)
     got = segment_softmax_csr_bwd(g.row_offsets, w, cot)
     again = segment_softmax_csr_bwd(g.row_offsets, w, cot)
@@ -316,6 +346,13 @@ def test_wrappers_refuse_grad_and_bad_inputs(dev, hand_graph):
     with pytest.raises(ValueError, match="contiguous"):
         segment_softmax_csr(g.row_offsets,
                             torch.zeros(2 * g.n_edges, device=dev)[::2])
+    with pytest.raises(ValueError, match="RowSplit"):
+        segment_softmax_csr(g.row_offsets, w)
+    bare = dataclasses.replace(g, rev_split=None)
+    with pytest.raises(ValueError, match="RowSplit"):
+        sddmm_transr_bwd(bare, w, x.detach(),
+                         torch.zeros(g.n_relations, 8, 8, device=dev),
+                         torch.zeros(g.n_relations, 8, device=dev))
 
 
 def _bucket_csr(rs, n_rows, hub):

@@ -10,6 +10,19 @@ arithmetic in plain PyTorch. Here the emulated logits are held against
 the logits are about 0.01, so the forward tolerance elsewhere (1e-4)
 would not tell the two apart.
 
+K4 (``csrc/sddmm_bwd.cu``) runs K2's backward, six products an edge, in
+the same three passes; ``ops.ref.transr_bwd_tiles`` repeats its
+arithmetic (d_W by 8-edge steps, each formed apart and added in float32)
+and is held against ``kgat_tpu.ops.pallas.sddmm.sddmm_transr_bwd`` the
+same way, at rtol 1e-5. Its per-edge rows d_eh meet atol 1e-7. d_et, d_W
+and d_e_r cannot: float32 products summed in K4's order (``torch.matmul``
+in place of the TF32 passes) already need atol 1.52e-7, 1.92e-7 and
+2.94e-7 to meet the Pallas kernel there (it sums 1,024-edge tiles in
+another order, and its d_pt takes XLA's tanh). Those three are held at
+twice that, rounded up: 3.1e-7, 3.9e-7 and 5.9e-7, as the three passes
+are held to twice float32's error elsewhere; a test pins the float32
+reading. One TF32 pass misses by over 100x.
+
 The tensor cores add an MMA's products into its accumulator with
 truncation (Fasi, Higham, Mikaitis and Pranesh, "Numerical behavior of
 NVIDIA tensor cores", 2021). ``_mma`` models that, and shows why K2 runs
@@ -28,6 +41,7 @@ import pytest
 import torch
 
 from kgat_tpu.ops.pallas.sddmm import sddmm_transr as jax_sddmm_transr
+from kgat_tpu.ops.pallas.sddmm import sddmm_transr_bwd as jax_sddmm_bwd
 from kgat_tpu_torch.ops import ref
 
 RTOL, ATOL = 1e-5, 1e-7
@@ -96,6 +110,81 @@ def test_three_passes_are_as_close_to_float64_as_float32(case):
     err3 = np.abs(_logits(args, 3) - f64.numpy()).max()
     err32 = np.abs(f32.numpy() - f64.numpy()).max()
     assert err3 <= 2 * err32, (err3, err32)
+
+
+K4_NAMES = ("d_eh", "d_et", "d_w_rel", "d_rel_embed")
+K4_ATOL = (1e-7, 3.1e-7, 3.9e-7, 5.9e-7)
+
+
+@pytest.fixture(scope="module")
+def k4_case(case):
+    """K4 on the edges of ``case`` with a cotangent of unit scale, as
+    chip_smoke's: the Pallas kernel's gradients, and the arguments of
+    ``ref.transr_bwd_tiles`` over relation tiles of 256 edges (the port's
+    ``Graph.tiles``)."""
+    args, _ = case
+    rel_perm, _, src, dst, emb, w_rel, rel_embed = args
+    n_edges = rel_perm.shape[0]
+    g = np.random.default_rng(3).normal(size=n_edges).astype(np.float32)
+    tile_rel = np.repeat(np.arange(N_REL, dtype=np.int32), PER_REL // TILE)
+    with jax.default_device(jax.devices("cpu")[0]):
+        want = jax_sddmm_bwd(
+            jnp.asarray(g), jnp.asarray(emb.numpy()[dst.numpy()]),
+            jnp.asarray(emb.numpy()[src.numpy()]), jnp.asarray(w_rel.numpy()),
+            jnp.asarray(rel_embed.numpy()), jnp.asarray(tile_rel), TILE,
+            precision=jax.lax.Precision.HIGHEST, interpret=True)
+    tiles = torch.tensor([(r, s, 256) for r in range(N_REL)
+                          for s in range(r * PER_REL, (r + 1) * PER_REL, 256)],
+                         dtype=torch.int32)
+    return ((torch.from_numpy(g), rel_perm, tiles, src, dst),
+            (emb, w_rel, rel_embed), [np.asarray(w) for w in want])
+
+
+def _k4(k4_case, matmul, dtype=torch.float32):
+    head, weights, _ = k4_case
+    return ref.transr_bwd_tiles(head[0].to(dtype), *head[1:],
+                                *(w.to(dtype) for w in weights),
+                                matmul=matmul)
+
+
+def test_k4_three_tf32_passes_match_the_pallas_kernel(k4_case):
+    got = _k4(k4_case, functools.partial(ref.tf32_matmul, passes=3))
+    for name, a, b, atol in zip(K4_NAMES, got, k4_case[2], K4_ATOL):
+        np.testing.assert_allclose(a.numpy(), b, rtol=RTOL, atol=atol,
+                                   err_msg=name)
+
+
+def test_k4_float32_order_needs_the_wider_atol(k4_case):
+    """Why d_et, d_W and d_e_r are not held at atol 1e-7: float32 products
+    summed in K4's order miss it there, and meet half their atol."""
+    got = _k4(k4_case, torch.matmul)
+    for name, a, b, atol in zip(K4_NAMES, got, k4_case[2], K4_ATOL):
+        need = float((np.abs(a.numpy().astype(np.float64) - b)
+                      - RTOL * np.abs(b)).max())
+        assert need <= atol / 2, (name, need)
+        assert (need > ATOL) == (atol > ATOL), (name, need)
+
+
+def test_k4_one_tf32_pass_does_not(k4_case):
+    got = _k4(k4_case, functools.partial(ref.tf32_matmul, passes=1))
+    for name, a, b, atol in zip(K4_NAMES, got, k4_case[2], K4_ATOL):
+        err = np.abs(a.numpy() - b)
+        assert (err / (atol + RTOL * np.abs(b))).max() > 100, name
+
+
+def test_k4_three_passes_are_as_close_to_float64_as_float32(k4_case):
+    """Each of K4's outputs, from the emulated tensor cores and from
+    float32 products summed in the same order, against float64: the three
+    passes' worst error is within twice the float32 one's, the criterion
+    chip_smoke holds K4 to on the card."""
+    f64 = _k4(k4_case, torch.matmul, torch.float64)
+    err = {}
+    for how, mm in (("tf32x3", functools.partial(ref.tf32_matmul, passes=3)),
+                    ("f32", torch.matmul)):
+        err[how] = [float((a.double() - b).abs().max())
+                    for a, b in zip(_k4(k4_case, mm), f64)]
+    for name, e3, e32 in zip(K4_NAMES, err["tf32x3"], err["f32"]):
+        assert e3 <= 2 * e32, (name, e3, e32)
 
 
 @pytest.mark.parametrize("x,want", [

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time K2 (the TransR attention SDDMM) and K7 (the ring shift) of a
-checkout on the card.
+"""Time K2 (the TransR attention SDDMM), K3 (the segment softmax), K4
+(K2's backward) and K7 (the ring shift) of a checkout on the card.
 
     python tools/bench_sddmm_shift.py [--root DIR] [--label NAME] [--reps 20] \
-        [--kernels k2,k7]
+        [--kernels k2,k3,k4,k7]
 
 Builds the yelp2018-scale synthetic graph (chip_smoke's numbers, seed 0)
 with the checkout at DIR (default: this one), then times on the card, per
@@ -13,13 +13,20 @@ graph replayed three times after a warm replay):
 - K2 at d = k = 64 and at d = 64, k = 32, on Xavier-scaled inputs, with
   its max abs error against a float64 plain version beside the plain
   float32 path's;
+- K3 on the logits of K2 at d = k = 64, with its max abs error against
+  the plain version (the row split passed where the wrapper takes one);
+- K4 at d = k = 64 on a random cotangent, per call, with each output's
+  max abs error against a float64 plain version beside the plain float32
+  path's, and its CUDA launches apart: device ms per call of each kernel
+  by name, from ``torch.profiler`` over three calls;
 - K7 and ``copy_`` hot: one chunk of R x 64 float32 (R = 34,304, the rows
   of one of P = 4 partitions; 8.78 MB) copied every call, so it stays in
   L2;
 - K7 and ``copy_`` fresh: the calls take 8 such chunks in turn (70 MB,
   more than L2), as a ring CF step finds them.
 
-``--kernels k7`` times K7 alone (no graph is built). Prints the card's
+``--kernels`` picks among k2, k3, k4 and k7 (default k2,k7; k7 alone
+builds no graph). Prints the card's
 name and power limit, then one JSON line. Needs CUDA.
 Run parent and change in one call, in turns (parent, change, change,
 parent), to compare them: unpack the parent with ``git archive`` into a
@@ -29,6 +36,7 @@ gitignored directory and pass it as ``--root``.
 from __future__ import annotations
 
 import argparse
+import inspect
 import itertools
 import json
 import math
@@ -82,6 +90,58 @@ def time_k2(g, d, k, gen, dev, reps, random_inputs, sddmm):
                 (plain.double() - want64).abs().max())}
 
 
+def time_k3(g, gen, dev, reps, random_inputs, sddmm, softmax):
+    emb, w_rel, rel_embed = random_inputs(g.n_nodes, g.n_relations, 64, 64,
+                                          gen, dev)
+    logits = sddmm.sddmm_transr(g.rel_perm, g.tiles, g.src, g.dst, emb,
+                                w_rel, rel_embed)
+    kw = ({"split": g.split} if "split" in inspect.signature(
+        softmax.segment_softmax_csr).parameters else {})
+    got = softmax.segment_softmax_csr(g.row_offsets, logits, **kw)
+    want = softmax.segment_softmax_csr_plain(g.row_offsets, logits)
+    return {"ms": replay_ms(lambda: softmax.segment_softmax_csr(
+                g.row_offsets, logits, **kw), reps),
+            "max_abs_err": float((got - want).abs().max())}
+
+
+def profile_ms(fn, calls: int = 3) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, by name, from
+    torch.profiler over ``calls`` calls after a warm one."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        us = us if us is not None else getattr(e, "cuda_time_total", 0)
+        if us > 0:
+            out[e.key[:120]] = us / calls / 1e3
+    return out
+
+
+def time_k4(g, gen, dev, reps, random_inputs, sddmm):
+    emb, w_rel, rel_embed = random_inputs(g.n_nodes, g.n_relations, 64, 64,
+                                          gen, dev)
+    cot = torch.randn(g.n_edges, generator=gen).to(dev)
+    args = (g, cot, emb, w_rel, rel_embed)
+    got = sddmm.sddmm_transr_bwd(*args)
+    plain = sddmm.sddmm_transr_bwd_plain(*args)
+    want = sddmm.sddmm_transr_bwd_plain(g, cot.double(), emb.double(),
+                                        w_rel.double(), rel_embed.double())
+    res = {"ms": replay_ms(lambda: sddmm.sddmm_transr_bwd(*args), reps),
+           "launches_ms": profile_ms(lambda: sddmm.sddmm_transr_bwd(*args))}
+    for name, a, p, w in zip(("d_emb", "d_w_rel", "d_rel_embed"), got, plain,
+                             want):
+        res[f"{name}_max_abs_err_f64"] = float((a.double() - w).abs().max())
+        res[f"{name}_plain_f32_max_abs_err_f64"] = float(
+            (p.double() - w).abs().max())
+    return res
+
+
 def time_k7(rows, d, gen, dev, reps, ring_shift):
     res = {}
     srcs = [torch.randn(rows, d, generator=gen).to(dev)
@@ -125,7 +185,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from chip_smoke import YELP2018, random_inputs
     from kgat_tpu_torch.data import synthetic_dataset
-    from kgat_tpu_torch.ops.hopper import sddmm
+    from kgat_tpu_torch.ops.hopper import sddmm, softmax
     from kgat_tpu_torch.ops.hopper.remote_ring import ring_shift
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
@@ -134,16 +194,23 @@ def main(argv=None) -> int:
     # ceil(N / P) rounded up to 128.
     rows = math.ceil(math.ceil(136_880 / P_PARTS) / 128) * 128
     with torch.no_grad():
-        if "k2" in kernels:
+        if kernels & {"k2", "k3", "k4"}:
             t0 = time.perf_counter()
             g = synthetic_dataset(seed=0, name="yelp2018",
                                   **YELP2018).build()[0].to(dev)
             print(f"graph {g.n_edges} edges, {g.n_nodes} nodes, "
                   f"{g.tiles.shape[0]} tiles ({time.perf_counter() - t0:.1f} "
                   f"s on the host)", flush=True)
+        if "k2" in kernels:
             for d, k in ((64, 64), (64, 32)):
                 res[f"K2_d{d}_k{k}"] = time_k2(g, d, k, gen, dev, a.reps,
                                                random_inputs, sddmm)
+        if "k3" in kernels:
+            res["K3"] = time_k3(g, gen, dev, a.reps, random_inputs, sddmm,
+                                softmax)
+        if "k4" in kernels:
+            res["K4_d64_k64"] = time_k4(g, gen, dev, max(a.reps // 4, 3),
+                                        random_inputs, sddmm)
         if "k7" in kernels:
             res.update(time_k7(rows, 64, gen, dev, a.reps, ring_shift))
     print(json.dumps(res), flush=True)
