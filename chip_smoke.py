@@ -52,7 +52,7 @@ time the card could take for the same bytes or operations) and, last,
 the device JSON line. Kernels whose call may take less time on the card
 than on the host (K6-K8 and K7's copies) are timed by their device
 duration, in a CUDA graph replay; the others with CUDA events around
-back-to-back calls.
+back-to-back calls (K5 also by replay, its row's ``replay_ms``).
 A failure prints ``chip_smoke: FAILED in phase n: ...`` and re-raises: the
 exit code is non-zero and the last line is not printed.
 
@@ -247,11 +247,15 @@ class Times:
         self.per_call = {}
 
     def add(self, name, ms, plain_ms, library_ms=None, nbytes=0, flops=0,
-            n=1, tf32_flops=0):
+            n=1, tf32_flops=0, replay_ms=None):
         r = self.rows.setdefault(name, dict(ms=0.0, plain_ms=0.0,
                                             library_ms=None, bytes=0,
-                                            flops=0, tf32_flops=0))
+                                            flops=0, tf32_flops=0,
+                                            replay_ms=None))
         r["ms"] += n * ms
+        if replay_ms is not None:
+            # Also timed by CUDA-graph replay where ms comes from events.
+            r["replay_ms"] = (r["replay_ms"] or 0.0) + n * replay_ms
         r["plain_ms"] += n * plain_ms
         if library_ms is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + n * library_ms
@@ -263,7 +267,7 @@ class Times:
         """Records the CUDA launches that one call of ``name``'s wrapper
         made (``measured``; None where none could be counted), and fails
         where they are not ``expected``: the count its row splits give (K1,
-        K3, K6 and K8 two where their CSR has a split row, K4 the tile
+        K3, K5, K6 and K8 two where their CSR has a split row, K4 the tile
         kernel, the reduce and two such row reductions), else one."""
         if measured is not None and measured != expected:
             raise AssertionError(f"{name}: {measured} CUDA launches in one "
@@ -283,8 +287,11 @@ class Times:
         share = f", {bound_ms / r['ms']:.3f} of the bound" if r["ms"] else ""
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.3f} ms")
-        return (f"{name} kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
-                f"ms, library {lib}, bound {bound_ms:.4f} ms by {by}{share}")
+        replay = ("" if r["replay_ms"] is None
+                  else f" (by CUDA-graph replay {r['replay_ms']:.4f} ms)")
+        return (f"{name} kernel {r['ms']:.3f} ms{replay}, plain "
+                f"{r['plain_ms']:.3f} ms, library {lib}, bound "
+                f"{bound_ms:.4f} ms by {by}{share}")
 
 
 def spmm_bytes(n_rows, n_edges, n_in, d, elt=4):
@@ -377,14 +384,25 @@ class CudaTimer:
 
 
 class Progress:
-    """The phase being run, for the failure line."""
+    """The phase being run, for the failure line, and each phase's wall
+    seconds, printed as ``[n/8] took ... s`` when it ends: a run cut at a
+    time limit shows which phase ran long."""
 
     def __init__(self):
         self.n = 0
+        self.t0 = time.perf_counter()
 
     def phase(self, n: int, what: str):
+        self.end()
         self.n = n
         print(f"[{n}/8] {what} ...", flush=True)
+
+    def end(self):
+        """Ends the phase being run."""
+        now = time.perf_counter()
+        if self.n:
+            print(f"[{self.n}/8] took {now - self.t0:.1f} s", flush=True)
+        self.t0 = now
 
 
 class Check:
@@ -652,8 +670,9 @@ def check_backward_kernels(g, att, label, check, gen, dev, timer,
             lambda: sddmm_transr_bwd(*a4)), sddmm.cuda_launches(g))
 
     cot = torch.randn(g.n_edges, generator=gen).to(dev)
-    got = segment_softmax_csr_bwd(g.row_offsets, att, cot)
-    again = segment_softmax_csr_bwd(g.row_offsets, att, cot)
+    a5 = (g.row_offsets, att, cot, g.split)
+    got = segment_softmax_csr_bwd(*a5)
+    again = segment_softmax_csr_bwd(*a5)
     want = segment_softmax_csr_bwd_plain(g.row_offsets, att.double(),
                                          cot.double())
     dst = ref.offsets_to_dst(g.row_offsets)
@@ -661,7 +680,8 @@ def check_backward_kernels(g, att, label, check, gen, dev, timer,
     row_abs = ref.segment_sum_coo(dst, (att.double() * cot.double()).abs(),
                                   g.n_nodes)
     # s = sum over the row of w g takes row length + 5 roundings (lanes,
-    # then the shuffle tree), g - s and w (g - s) one each.
+    # then the shuffle tree; a split row's units, then its slots, fewer),
+    # g - s and w (g - s) one each.
     w64 = att.double()
     bound = (2 * U * w64 * ((row_len[dst] + 5) * row_abs[dst]
                             + cot.double().abs())
@@ -681,16 +701,19 @@ def check_backward_kernels(g, att, label, check, gen, dev, timer,
           segment_softmax_csr_bwd_plain(g.row_offsets, att, cot),
           rtol=1e-5, atol=1e-6)
     if times is not None:
+        # Events around calls, and the device duration alone by CUDA-graph
+        # replay: K5's two short launches may take less than its host work.
         times.add("segment_softmax_csr_bwd",
-                  timer.device_ms(lambda: segment_softmax_csr_bwd(
-                      g.row_offsets, att, cot), 20),
+                  timer.device_ms(lambda: segment_softmax_csr_bwd(*a5), 20),
                   timer.device_ms(lambda: segment_softmax_csr_bwd_plain(
-                      g.row_offsets, att, cot), 5),
+                      *a5[:3]), 5),
                   timer.device_ms(library_k5, 5),
                   nbytes=3 * g.n_edges * 4 + (g.n_nodes + 1) * 4,
-                  flops=4 * g.n_edges)
+                  flops=4 * g.n_edges,
+                  replay_ms=timer.replay_ms(
+                      lambda: segment_softmax_csr_bwd(*a5), 20))
         times.count_launches("segment_softmax_csr_bwd", timer.kernel_launches(
-            lambda: segment_softmax_csr_bwd(g.row_offsets, att, cot)), 1)
+            lambda: segment_softmax_csr_bwd(*a5)), g.split.cuda_launches)
     return shares, ", ".join(k4_errs)
 
 
@@ -1096,6 +1119,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                       f"the card")
     part_launches = phase_partitioned(tmp, ds, g_host, g, meta, sizes, check,
                                       times, gen, dev, timer, smi_line)
+    progress.end()
 
     paths = {"sddmm_transr_bwd": ("attention gradient", att_launches),
              "segment_softmax_csr_bwd": ("attention gradient", att_launches),
@@ -1114,7 +1138,9 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": r["library_ms"],
-                     "cuda_launches_per_call": times.per_call[name]})
+                     "cuda_launches_per_call": times.per_call[name],
+                     **({} if r["replay_ms"] is None
+                        else {"replay_ms": r["replay_ms"]})})
     print(json.dumps({"kernels": rows}), flush=True)
     return 0
 

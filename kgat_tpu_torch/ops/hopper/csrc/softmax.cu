@@ -86,9 +86,30 @@ softmax_units_kernel(const int4* __restrict__ units, int n_units,
   }
 }
 
+// Slot j of a split row: the row's slots [first, last) and the edges
+// [lo, hi) of slot j's unit, edges [i chunk, (i + 1) chunk) of the row for
+// the row's i-th slot.
+struct SlotUnit {
+  int first, last, lo, hi;
+};
+
+__device__ __forceinline__ SlotUnit slot_unit(
+    const int* __restrict__ row_offsets, const int* __restrict__ split_rows,
+    const int* __restrict__ slot_offsets, int n_split, int chunk, int j) {
+  // The split row holding slot j: the last s with slot_offsets[s] <= j.
+  int a = 0, b = n_split - 1;
+  while (a < b) {
+    const int mid = (a + b + 1) / 2;
+    if (slot_offsets[mid] <= j) a = mid; else b = mid - 1;
+  }
+  const int first = slot_offsets[a], row = split_rows[a];
+  const int lo = row_offsets[row] + (j - first) * chunk;
+  return {first, slot_offsets[a + 1], lo,
+          min(lo + chunk, row_offsets[row + 1])};
+}
+
 // Slot j of a split row on one warp: the row's (max, sum) from all its
-// slots, then the weights of slot j's unit, edges [first + i chunk,
-// first + (i + 1) chunk) of the row for the row's i-th slot.
+// slots, then the weights of slot j's unit.
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 softmax_split_kernel(const int* __restrict__ row_offsets,
                      const int* __restrict__ split_rows,
@@ -99,56 +120,114 @@ softmax_split_kernel(const int* __restrict__ row_offsets,
   const int j = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (j >= n_slots) return;  // whole warps exit together
-  // The split row holding slot j: the last s with slot_offsets[s] <= j.
-  int a = 0, b = n_split - 1;
-  while (a < b) {
-    const int mid = (a + b + 1) / 2;
-    if (slot_offsets[mid] <= j) a = mid; else b = mid - 1;
-  }
-  const int first = slot_offsets[a], last = slot_offsets[a + 1];
+  const SlotUnit su = slot_unit(row_offsets, split_rows, slot_offsets,
+                                n_split, chunk, j);
   float m = -FLT_MAX;
-  for (int t = first + lane; t < last; t += 32) m = fmaxf(m, partials[t].x);
+  for (int t = su.first + lane; t < su.last; t += 32)
+    m = fmaxf(m, partials[t].x);
   m = warp_max(m);
   float s = 0.f;
-  for (int t = first + lane; t < last; t += 32) {
+  for (int t = su.first + lane; t < su.last; t += 32) {
     const float2 p = partials[t];
     s += p.y * expf(p.x - m);
   }
   s = warp_sum(s);
-  const int row = split_rows[a];
-  const int lo = row_offsets[row] + (j - first) * chunk;
-  write_weights(logits, out, lo, min(lo + chunk, row_offsets[row + 1]), m, s,
-                lane);
+  write_weights(logits, out, su.lo, su.hi, m, s, lane);
 }
 
 // K5: the backward of K3, d_logit[e] = w[e] * (g[e] - sum_row w * g).
 //
 // Replaces kgat_tpu/ops/pallas/softmax.py::_wsum_kernel and _dlogit_kernel
 // (segment_softmax_aligned_bwd): two TPU passes over the aligned layout,
-// with the row sums stored between them. Here one warp owns a CSR row:
-// pass 1 sums w * g per lane and merges the lanes with a fixed shuffle
-// tree, pass 2 writes w * (g - s). Bounded by bytes like K3 (two reads of
-// w and g, one write: 20 bytes per edge); the sum order is fixed, so two
-// calls are bit-identical. Empty rows own no edge and write nothing.
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-segment_softmax_csr_bwd_kernel(const int* __restrict__ row_offsets,
-                               const float* __restrict__ w,
-                               const float* __restrict__ g,
-                               float* __restrict__ out, int n_rows) {
-  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= n_rows) return;  // whole warps exit together
-  const int lo = row_offsets[row];
-  const int hi = row_offsets[row + 1];
-  if (lo >= hi) return;
+// with the row sums stored between them.
+//
+// What bounds it on the H100: bytes. Per edge it reads w and g and writes
+// d_logit: 12 bytes an edge, 54 MB at yelp2018 scale (0.016 ms at 3.35
+// TB/s). The first design gave each CSR row to one warp, which read w and
+// g twice (20 bytes an edge), and the hub row (in-degree 70,884) held one
+// warp for 2,215 steps, twice over: 0.36-0.38 ms on an H100 80GB HBM3 at
+// 700 W (tools/bench_sddmm_shift.py). Now K5 walks K3's schedule,
+// the CSR's work units (ops/row_split.py: at most CHUNK = 256 edges of
+// one row a unit), one warp a unit:
+//  * the warp loads its unit's w and g into registers, at most
+//    kResident = 8 edges a lane (256 a warp), lane-strided so that the
+//    loads coalesce, all issued before the first is used; it sums w * g
+//    per lane by fmaf in edge order and merges the lanes with a fixed
+//    shuffle tree. A unit that is a whole row then writes w (g - s) from
+//    the registers: each of its edges crosses HBM once, the bound's 12
+//    bytes. A unit of a split row writes its sum into its slot;
+//  * a second launch, one warp per slot of a split row, sums the row's
+//    slots (lane-strided in slot order, then the same tree), the same
+//    order in every warp of the row, and writes w (g - s) over its unit's
+//    edges, reading them a second time (at yelp2018 scale the 1,568 split
+//    rows hold 1.77 M of the 4.46 M edges).
+// A split whose chunk exceeds 256 (RowSplit allows any) keeps nothing in
+// registers for its longer units: they read w and g twice, as before. An
+// empty row writes nothing. No atomics, every order fixed: two calls give
+// the same bits. One launch, two where a row is split.
+constexpr int kResident = 8;
 
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+softmax_bwd_units_kernel(const int4* __restrict__ units, int n_units,
+                         const float* __restrict__ w,
+                         const float* __restrict__ g, float* __restrict__ out,
+                         float* __restrict__ partials) {
+  const int u = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (u >= n_units) return;  // whole warps exit together
+  const int4 unit = units[u];
+  const int lo = unit.y, hi = unit.z;
   float s = 0.f;
-#pragma unroll 4
-  for (int e = lo + lane; e < hi; e += 32) s = fmaf(w[e], g[e], s);
+  if (hi - lo <= 32 * kResident) {
+    float wr[kResident], gr[kResident];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFullMask, s, off);
+    for (int i = 0; i < kResident; ++i) {
+      const int e = lo + lane + 32 * i;
+      wr[i] = e < hi ? w[e] : 0.f;
+      gr[i] = e < hi ? g[e] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kResident; ++i) s = fmaf(wr[i], gr[i], s);
+    s = warp_sum(s);
+    if (unit.w < 0) {
+#pragma unroll
+      for (int i = 0; i < kResident; ++i) {
+        const int e = lo + lane + 32 * i;
+        if (e < hi) out[e] = wr[i] * (gr[i] - s);
+      }
+    }
+  } else {
 #pragma unroll 4
-  for (int e = lo + lane; e < hi; e += 32) out[e] = w[e] * (g[e] - s);
+    for (int e = lo + lane; e < hi; e += 32) s = fmaf(w[e], g[e], s);
+    s = warp_sum(s);
+    if (unit.w < 0) {
+#pragma unroll 4
+      for (int e = lo + lane; e < hi; e += 32) out[e] = w[e] * (g[e] - s);
+    }
+  }
+  if (unit.w >= 0 && lane == 0) partials[unit.w] = s;
+}
+
+// Slot j of a split row on one warp: the row's sum from all its slots,
+// then d_logit over slot j's unit.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+softmax_bwd_split_kernel(const int* __restrict__ row_offsets,
+                         const int* __restrict__ split_rows,
+                         const int* __restrict__ slot_offsets, int n_split,
+                         int n_slots, int chunk, const float* __restrict__ w,
+                         const float* __restrict__ g,
+                         const float* __restrict__ partials,
+                         float* __restrict__ out) {
+  const int j = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (j >= n_slots) return;  // whole warps exit together
+  const SlotUnit su = slot_unit(row_offsets, split_rows, slot_offsets,
+                                n_split, chunk, j);
+  float s = 0.f;
+  for (int t = su.first + lane; t < su.last; t += 32) s += partials[t];
+  s = warp_sum(s);
+#pragma unroll 4
+  for (int e = su.lo + lane; e < su.hi; e += 32) out[e] = w[e] * (g[e] - s);
 }
 
 }  // namespace
@@ -184,15 +263,35 @@ extern "C" int kgat_segment_softmax_csr(const void* units, int n_units,
   return cudaGetLastError();
 }
 
-extern "C" int kgat_segment_softmax_csr_bwd(const void* row_offsets,
+// units .. chunk: the CSR's RowSplit, as for K3; partials: (n_slots,)
+// float32 scratch.
+extern "C" int kgat_segment_softmax_csr_bwd(const void* units, int n_units,
+                                            const void* split_rows,
+                                            const void* slot_offsets,
+                                            int n_split, int n_slots,
+                                            int chunk, const void* row_offsets,
                                             const void* w, const void* g,
-                                            void* out, int n_rows,
+                                            void* out, void* partials,
                                             void* stream) {
-  if (n_rows <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  segment_softmax_csr_bwd_kernel<<<grid, kWarpsPerBlock * 32, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(row_offsets), static_cast<const float*>(w),
-      static_cast<const float*>(g), static_cast<float*>(out), n_rows);
+  if (n_units <= 0 || chunk <= 0 || (n_split > 0) != (n_slots > 0) ||
+      reinterpret_cast<uintptr_t>(units) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(partials) % 4 != 0)
+    return cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto wp = static_cast<const float*>(w);
+  const auto gp = static_cast<const float*>(g);
+  const auto o = static_cast<float*>(out);
+  const auto p = static_cast<float*>(partials);
+  softmax_bwd_units_kernel<<<(n_units + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                             kWarpsPerBlock * 32, 0, st>>>(
+      static_cast<const int4*>(units), n_units, wp, gp, o, p);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 0) return err;
+  softmax_bwd_split_kernel<<<(n_slots + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                             kWarpsPerBlock * 32, 0, st>>>(
+      static_cast<const int*>(row_offsets),
+      static_cast<const int*>(split_rows),
+      static_cast<const int*>(slot_offsets), n_split, n_slots, chunk, wp, gp,
+      p, o);
   return cudaGetLastError();
 }

@@ -5,9 +5,9 @@ K3 replaces ``kgat_tpu/ops/pallas/softmax.py::_max_kernel``,
 ``_expsum_kernel`` and ``_norm_kernel``; K5 replaces ``_wsum_kernel`` and
 ``_dlogit_kernel`` (``segment_softmax_aligned_bwd``). The serving forward
 and each attention recompute call K3 once; K5 runs where the attention
-itself is differentiated (:func:`segment_softmax`). K3 walks the CSR's
-work units (``ops/row_split.py``, ``Graph.split``): one CUDA launch per
-call, two where a row is longer than the schedule's chunk.
+itself is differentiated (:func:`segment_softmax`). K3 and K5 walk the
+CSR's work units (``ops/row_split.py``, ``Graph.split``): one CUDA launch
+per call, two where a row is longer than the schedule's chunk.
 """
 
 from __future__ import annotations
@@ -77,29 +77,41 @@ def segment_softmax_csr_bwd_plain(row_offsets: torch.Tensor, w: torch.Tensor,
 
 
 def segment_softmax_csr_bwd(row_offsets: torch.Tensor, w: torch.Tensor,
-                            g: torch.Tensor) -> torch.Tensor:
+                            g: torch.Tensor,
+                            split: Optional[row_split.RowSplit] = None
+                            ) -> torch.Tensor:
     """K5: d_logit = w * (g - sum over the row of w * g) -> (E,) float32.
 
     w: (E,) float32 softmax output (from :func:`segment_softmax_csr`); g:
-    (E,) float32 cotangent of ``w``; both in CSR order. CPU tensors take
-    :func:`segment_softmax_csr_bwd_plain`; CUDA tensors launch the kernel.
+    (E,) float32 cotangent of ``w``; both in CSR order; split: the CSR's
+    :class:`~kgat_tpu_torch.ops.row_split.RowSplit`, as for K3. CPU
+    tensors take :func:`segment_softmax_csr_bwd_plain`; CUDA tensors
+    launch the kernel, and raise without ``split``.
     """
-    if not build.use_kernel("segment_softmax_csr_bwd", row_offsets, w, g):
+    tensors = () if split is None else split.tensors
+    if not build.use_kernel("segment_softmax_csr_bwd", row_offsets, w, g,
+                            *tensors):
         return segment_softmax_csr_bwd_plain(row_offsets, w, g)
     build.check_tensor("row_offsets", row_offsets, (torch.int32,), 1)
     build.check_tensor("w", w, (torch.float32,), 1)
     build.check_tensor("g", g, (torch.float32,), 1)
     if w.shape != g.shape:
         raise ValueError(f"w {tuple(w.shape)} != g {tuple(g.shape)}")
-    out = torch.empty_like(w)
     n_rows = row_offsets.numel() - 1
+    split = row_split.require("segment_softmax_csr_bwd", split, n_rows,
+                              w.numel())
+    out = torch.empty_like(w)
     if n_rows == 0 or w.numel() == 0:
         return out
+    partials = torch.empty(split.n_slots, dtype=torch.float32,
+                           device=w.device)
     lib = build.library()
     with torch.cuda.device(w.device):
         code = lib.kgat_segment_softmax_csr_bwd(
+            *split_args(split), split.n_slots, split.chunk,
             row_offsets.data_ptr(), w.data_ptr(), g.data_ptr(),
-            out.data_ptr(), n_rows, ctypes.c_void_p(build.stream_ptr(w.device)))
+            out.data_ptr(), partials.data_ptr(),
+            ctypes.c_void_p(build.stream_ptr(w.device)))
     build.check_launch(lib, code, "segment_softmax_csr_bwd")
     build.launch_counts["segment_softmax_csr_bwd"] += 1
     return out
@@ -112,12 +124,14 @@ class _SegmentSoftmax(torch.autograd.Function):
     def forward(ctx, logits, graph):
         w = segment_softmax_csr(graph.row_offsets, logits, graph.split)
         ctx.save_for_backward(graph.row_offsets, w)
+        ctx.split = graph.split
         return w
 
     @staticmethod
     def backward(ctx, g):
         row_offsets, w = ctx.saved_tensors
-        return segment_softmax_csr_bwd(row_offsets, w, g.contiguous()), None
+        return segment_softmax_csr_bwd(row_offsets, w, g.contiguous(),
+                                       ctx.split), None
 
 
 def segment_softmax(graph: Graph, logits: torch.Tensor) -> torch.Tensor:

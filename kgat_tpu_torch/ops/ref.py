@@ -58,6 +58,25 @@ def segment_sum_csr(row_offsets: torch.Tensor,
                            row_offsets.numel() - 1)
 
 
+def _unit_edges(split, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(unit, edge): the edges of the work units of ``split``
+    (``ops.row_split.RowSplit``), unit after unit, and each one's unit."""
+    lo, hi = split.units[:, 1:3].long().to(device).unbind(1)
+    lens = hi - lo
+    unit = torch.repeat_interleave(torch.arange(split.n_units,
+                                                device=device), lens)
+    start = torch.cumsum(lens, 0) - lens
+    return unit, lo[unit] + torch.arange(unit.numel(),
+                                         device=device) - start[unit]
+
+
+def _slot_rows(split, device) -> torch.Tensor:
+    """(n_slots,) the index into ``split.split_rows`` of each slot's row."""
+    offsets = split.slot_offsets.long().to(device)
+    return torch.repeat_interleave(torch.arange(split.n_split, device=device),
+                                   offsets[1:] - offsets[:-1])
+
+
 def split_segment_sum(split, vals: torch.Tensor) -> torch.Tensor:
     """A plain emulation of the row reduction K1, K6 and K8 run on the
     card, for the tests (no path of the package calls it): each work unit
@@ -66,13 +85,8 @@ def split_segment_sum(split, vals: torch.Tensor) -> torch.Tensor:
     split row the sum of its units' partials in unit order. Float32, or
     float64 when ``vals`` is."""
     dt = torch.promote_types(vals.dtype, torch.float32)
-    row, lo, hi, slot = split.units.long().to(vals.device).unbind(1)
-    lens = hi - lo
-    unit = torch.repeat_interleave(torch.arange(split.n_units,
-                                                device=vals.device), lens)
-    start = torch.cumsum(lens, 0) - lens
-    edge = lo[unit] + torch.arange(unit.numel(), device=vals.device) \
-        - start[unit]
+    row, _, _, slot = split.units.long().to(vals.device).unbind(1)
+    unit, edge = _unit_edges(split, vals.device)
     sums = segment_sum_coo(unit, vals.to(dt)[edge], split.n_units)
     out = sums.new_zeros((split.n_rows,) + tuple(vals.shape[1:]))
     whole = slot < 0
@@ -144,23 +158,16 @@ def split_segment_softmax(split, logits: torch.Tensor) -> torch.Tensor:
     row's (max, sum) partials in slot order, max M then sum_j s_j
     exp(m_j - M). Empty rows write nothing (their entries are absent)."""
     dev = logits.device
-    row, lo, hi, slot = split.units.long().to(dev).unbind(1)
-    lens = hi - lo
-    unit = torch.repeat_interleave(torch.arange(split.n_units, device=dev),
-                                   lens)
-    start = torch.cumsum(lens, 0) - lens
-    edge = lo[unit] + torch.arange(unit.numel(), device=dev) - start[unit]
+    unit, edge = _unit_edges(split, dev)
     vals = logits[edge]
     lowest = torch.finfo(logits.dtype).min
     m = torch.full((split.n_units,), lowest, dtype=logits.dtype, device=dev)
     m.scatter_reduce_(0, unit, vals, "amax", include_self=True)
     s = segment_sum_coo(unit, torch.exp(vals - m[unit]), split.n_units)
-    parts = slot >= 0
+    parts = split.units[:, 3].to(dev) >= 0
     if parts.any():
         # Slots are numbered in unit order, so m[parts] is slot 0, 1, ...
-        offsets = split.slot_offsets.long().to(dev)
-        owner = torch.repeat_interleave(
-            torch.arange(split.n_split, device=dev), offsets[1:] - offsets[:-1])
+        owner = _slot_rows(split, dev)
         pm, ps = m[parts], s[parts]
         rm = torch.full((split.n_split,), lowest, dtype=logits.dtype,
                         device=dev)
@@ -170,6 +177,25 @@ def split_segment_softmax(split, logits: torch.Tensor) -> torch.Tensor:
         m[parts], s[parts] = rm[owner], rs[owner]
     out = torch.empty_like(logits)
     out[edge] = torch.exp(vals - m[unit]) / s[unit]
+    return out
+
+
+def split_segment_softmax_bwd(split, w: torch.Tensor,
+                              g: torch.Tensor) -> torch.Tensor:
+    """A plain emulation of K5 on the card, for the tests (no path of the
+    package calls it): each work unit of ``split`` sums w * g over its
+    edges; a one-unit row's d_logit is w (g - s) with its unit's sum s, a
+    split row's units take s from their row's slot partials, summed in
+    slot order. Empty rows write nothing (their entries are absent)."""
+    dev = w.device
+    unit, edge = _unit_edges(split, dev)
+    s = segment_sum_coo(unit, w[edge] * g[edge], split.n_units)
+    parts = split.units[:, 3].to(dev) >= 0
+    if parts.any():
+        owner = _slot_rows(split, dev)   # s[parts] is slot 0, 1, ...
+        s[parts] = segment_sum_coo(owner, s[parts], split.n_split)[owner]
+    out = torch.empty_like(w)
+    out[edge] = w[edge] * (g[edge] - s[unit])
     return out
 
 

@@ -1,5 +1,5 @@
 """The unit schedule of the CSR row kernels: the row reduction that K1,
-K6, K8 and K4's fold share, and K3's softmax.
+K6, K8 and K4's fold share, and K3's softmax and K5, its backward.
 
 One row of a power-law graph can hold thousands of times the mean number
 of edges (the yelp2018-scale hub: 70,884 in-edges and as many out-edges,
@@ -11,7 +11,7 @@ order:
 * a row of at most ``chunk`` edges is one unit, which writes its output
   row (an empty row is one unit that writes 0);
 * a longer row's units each write a float32 partial row (K3: a (max,
-  sum) pair) into a slot of a scratch buffer, the slots of one row
+  sum) pair; K5: a sum) into a slot of a scratch buffer, the slots of one row
   consecutive and in unit order; a second pass combines each such row's
   slots in that order.
 

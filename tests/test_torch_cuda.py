@@ -278,28 +278,51 @@ def test_sddmm_backward_matches_float64_plain(dev, hand_graph, tile_graph,
             assert not got[1][4].any() and not got[2][4].any()
 
 
-def test_softmax_backward_matches_float64_plain(dev, hand_graph):
-    g, gen = hand_graph, torch.Generator().manual_seed(2)
-    w = segment_softmax_csr(g.row_offsets,
-                            _rand(gen, g.n_edges, dev=dev, scale=3.0),
-                            g.split)
-    cot = _rand(gen, g.n_edges, dev=dev, scale=1.0)
-    got = segment_softmax_csr_bwd(g.row_offsets, w, cot)
-    again = segment_softmax_csr_bwd(g.row_offsets, w, cot)
+@pytest.mark.parametrize("chunk", [CHUNK, 16, 1000])
+def test_softmax_backward_matches_float64_plain(dev, chunk):
+    """K5 on the row split's units against its float64 plain version,
+    under the Higham bound: an empty row, a one-edge row, hubs of 5,000
+    and 9,000 edges (past 256 x 32: at chunk 256 its 36 slots take more
+    than one a lane in the second launch), rows at the chunk boundaries,
+    one of +-1e30 logits (weights 0); one wrapper launch per call, a
+    second call bit-identical, no call without the split. Chunk 1000 puts
+    units longer than 256 edges on the units kernel, which reads them
+    twice instead of keeping them in registers."""
+    rs = np.random.default_rng(chunk)
+    deg = np.concatenate([[0, 1, 9000, 5000], BOUNDARY_ROWS,
+                          [chunk - 1, chunk + 1, 3 * chunk + 5],
+                          rs.integers(0, 30, 60)])
+    ro = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)]).astype(
+        np.int32)).to(dev)
+    split = build_row_split(ro, chunk)
+    assert split.n_split > 0 and split.cuda_launches == 2
+    gen = torch.Generator().manual_seed(2)
+    logits = _rand(gen, int(deg.sum()), dev=dev, scale=3.0)
+    big = slice(int(ro[9]), int(ro[10]))      # chunk + 1 edges: split
+    logits[big][::2], logits[big][1::2] = 1e30, -1e30
+    w = segment_softmax_csr(ro, logits, split)
+    cot = _rand(gen, w.numel(), dev=dev, scale=1.0)
+    n = build.launch_counts["segment_softmax_csr_bwd"]
+    got = segment_softmax_csr_bwd(ro, w, cot, split)
+    again = segment_softmax_csr_bwd(ro, w, cot, split)
     torch.cuda.synchronize()
-    assert torch.equal(got, again)
-    want = segment_softmax_csr_bwd_plain(g.row_offsets, w.double(),
-                                         cot.double())
-    dst = ref.offsets_to_dst(g.row_offsets)
-    rows = (g.row_offsets[1:] - g.row_offsets[:-1]).double()
+    assert build.launch_counts["segment_softmax_csr_bwd"] == n + 2
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert got[int(ro[1])] == 0.0             # one edge: w = 1
+    assert not got[big][1::2].any()           # weight 0
+    want = segment_softmax_csr_bwd_plain(ro, w.double(), cot.double())
+    dst = ref.offsets_to_dst(ro)
+    rows = (ro[1:] - ro[:-1]).double()
     row_abs = ref.segment_sum_coo(dst, (w.double() * cot.double()).abs(),
-                                  g.n_nodes)
+                                  len(deg))
     # The row sum takes its length + 5 roundings (lanes, then the shuffle
-    # tree); g - s and w (g - s) one each.
+    # tree; a split row's slots fewer); g - s and w (g - s) one each.
     bound = (2 * U * w.double() * ((rows[dst] + 5) * row_abs[dst]
                                    + cot.double().abs())
              + 2 * U * want.abs())
     _assert_within(got, want, bound, "d_logits")
+    with pytest.raises(ValueError, match="RowSplit"):
+        segment_softmax_csr_bwd(ro, w, cot)
 
 
 def test_attention_gradient_kernel_path_matches_plain_path(dev, hand_graph):

@@ -22,6 +22,8 @@ from kgat_tpu_torch import eval as teval
 from kgat_tpu_torch.recommend import disable_tf32
 from kgat_tpu_torch.utils import metrics as tmetrics
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 SMALL = dict(seed=9, n_users=70, n_items=50, n_entities=90, n_relations_kg=3,
              n_interactions=900, n_triples=300)
 

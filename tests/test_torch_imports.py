@@ -6,6 +6,8 @@ import os
 import subprocess
 import sys
 
+import torch_threads  # one intra-op thread
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = """
@@ -29,7 +31,8 @@ def test_port_imports_without_jax():
     # -I: ignore PYTHONPATH and user site, so nothing preloads jax.
     proc = subprocess.run([sys.executable, "-I", "-c",
                            PROBE.format(repo=REPO)],
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=120,
+                          env=torch_threads.one_thread_env())
     assert proc.returncode == 0, proc.stderr
     n_modules, rest = proc.stdout.split(maxsplit=1)
     assert int(n_modules) >= 26, proc.stdout

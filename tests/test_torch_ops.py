@@ -34,6 +34,8 @@ from kgat_tpu_torch.ops.hopper.segment_sum import spmm_csr
 from kgat_tpu_torch.ops.hopper.softmax import segment_softmax_csr
 from kgat_tpu_torch.recommend import disable_tf32
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 SMALL = dict(seed=11, n_users=60, n_items=40, n_entities=90,
              n_relations_kg=4, n_interactions=700, n_triples=500)
 

@@ -23,6 +23,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 torch = pytest.importorskip("torch")
 
 from kgat_tpu.models import kgat

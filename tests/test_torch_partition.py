@@ -36,6 +36,8 @@ from kgat_tpu_torch.parallel.partition import (build_ring_buckets,
                                                partition_graph)
 from kgat_tpu_torch.utils.config import TrainConfig
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 P = 4
 MODEL = dict(embed_dim=16, relation_dim=16, conv_dims=(16, 8))
 CASES = [("allgather", "ppermute"), ("ring", "ppermute"), ("ring", "dma"),

@@ -25,6 +25,8 @@ from kgat_tpu_torch import recommend as trec
 from kgat_tpu_torch.models import kgat as tkgat
 from kgat_tpu_torch.utils.checkpoint import load_params, save_params
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 TINY = dict(seed=7, n_users=30, n_items=25, n_entities=50, n_relations_kg=4,
             n_interactions=300, n_triples=200)
 

@@ -37,6 +37,8 @@ from kgat_tpu_torch.ops.hopper.segment_sum import bucket_spmm, segment_sum_csr
 from kgat_tpu_torch.parallel.partition import (build_ring_buckets,
                                                partition_graph)
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 P = 4
 AXIS = "ep"
 D = 16

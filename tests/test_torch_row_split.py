@@ -31,6 +31,8 @@ from kgat_tpu_torch.parallel.partition import (build_ring_buckets,
                                                partition_graph)
 from kgat_tpu_torch.recommend import disable_tf32
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 P = 4
 D = 16
 SMALL = dict(seed=11, n_users=60, n_items=40, n_entities=90,

@@ -17,6 +17,8 @@ from kgat_tpu_torch import data as tdata
 from kgat_tpu_torch.sampler import (CFSampleTable, KGSampleTable, rank_skip,
                                     sample_cf_batch, sample_kg_batch)
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 SMALL = dict(seed=3, n_users=50, n_items=40, n_entities=80, n_relations_kg=4,
              n_interactions=600, n_triples=400)
 

@@ -1,4 +1,4 @@
-"""K3 and K4's fold on the row split, emulated on the CPU.
+"""K3, K5 and K4's fold on the row split, emulated on the CPU.
 
 On the card, K3 (``csrc/softmax.cu``) walks the CSR's work units
 (``ops/row_split.py``): a whole row's unit writes its weights, a split
@@ -8,7 +8,11 @@ is held against ``kgat_tpu``'s segment softmax kernel
 (``segment_softmax_aligned``, interpret mode) and ``ref.segment_softmax_coo``
 on rows at the chunk boundaries, a hub, rows of equal logits, rows of
 +-1e30 and empty rows, at rtol 1e-5 and atol 1e-7 (the sums take another
-order than the Pallas kernel's).
+order than the Pallas kernel's). K5, its backward, walks the same units
+(a split row's units write sums of w g); ``ref.split_segment_softmax_bwd``
+is held against ``segment_softmax_aligned_bwd`` and
+``ref.segment_softmax_coo_bwd`` on the same rows and at the same
+tolerance.
 
 K4's fold sums each node's d_eh rows over the forward CSR's units and its
 d_et rows, gathered through ``rev_perm``, over the reverse CSR's
@@ -32,12 +36,15 @@ from kgat_tpu import data as jdata
 from kgat_tpu.graph import build_graph as jax_build_graph
 from kgat_tpu.graph import host_array
 from kgat_tpu.models import kgat as jkgat
-from kgat_tpu.ops.pallas.softmax import segment_softmax_aligned
+from kgat_tpu.ops.pallas.softmax import (segment_softmax_aligned,
+                                         segment_softmax_aligned_bwd)
 from kgat_tpu_torch import data as tdata
 from kgat_tpu_torch.graph import build_graph
 from kgat_tpu_torch.ops import ref
 from kgat_tpu_torch.ops.row_split import CHUNK, build_row_split
 from kgat_tpu_torch.recommend import disable_tf32
+
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 SMALL = dict(seed=11, n_users=60, n_items=40, n_entities=90,
              n_relations_kg=4, n_interactions=700, n_triples=500)
@@ -66,28 +73,43 @@ def _softmax_rows(chunk):
     return np.array(lens), np.concatenate(logits)
 
 
+class _Rows:
+    """:func:`_softmax_rows` as a CSR on both sides: the port's graph and
+    its row split of ``chunk`` edges, and ``kgat_tpu``'s forward layout,
+    with the maps between canonical and aligned edge order."""
+
+    def __init__(self, chunk):
+        self.lens, self.logits = _softmax_rows(chunk)
+        n = len(self.lens)
+        dst = np.repeat(np.arange(n), self.lens)
+        src = np.random.default_rng(0).integers(0, n, len(dst))
+        ety = np.zeros(len(dst), np.int64)
+        self.tg = build_graph(src, dst, ety, n_nodes=n, n_relations=1)
+        self.split = build_row_split(self.tg.row_offsets, chunk)
+        assert self.split.n_split > 0
+        self.lay = jax_build_graph(src, dst, ety, n, 1).fwd_layout
+        self.gather = host_array(self.lay, "gather")
+        self.real = self.gather < len(dst)
+
+    def aligned(self, x):
+        """Canonical (E,) -> the layout's aligned order, dead slots 0."""
+        out = np.zeros(len(self.gather), np.float32)
+        out[self.real] = x[self.gather[self.real]]
+        return jnp.asarray(out)
+
+    def canonical(self, x_al):
+        out = np.zeros(len(self.logits), np.float32)
+        out[self.gather[self.real]] = np.asarray(x_al)[self.real]
+        return out
+
+
 @pytest.mark.parametrize("chunk", [1, 3, CHUNK])
 def test_split_softmax_matches_pallas_and_plain(chunk):
-    lens, logits = _softmax_rows(chunk)
-    n = len(lens)
-    dst = np.repeat(np.arange(n), lens)
-    src = np.random.default_rng(0).integers(0, n, len(dst))
-    ety = np.zeros(len(dst), np.int64)
-    tg = build_graph(src, dst, ety, n_nodes=n, n_relations=1)
-    split = build_row_split(tg.row_offsets, chunk)
-    assert split.n_split > 0
-    got = ref.split_segment_softmax(split, torch.from_numpy(logits)).numpy()
-
-    jg = jax_build_graph(src, dst, ety, n, 1)
-    lay = jg.fwd_layout
-    gather = host_array(lay, "gather")
-    real = gather < jg.n_edges
-    aligned = np.zeros(len(gather), np.float32)
-    aligned[real] = logits[gather[real]]
+    c = _Rows(chunk)
+    lens, logits, tg, n = c.lens, c.logits, c.tg, len(c.lens)
+    got = ref.split_segment_softmax(c.split, torch.from_numpy(logits)).numpy()
     with pltpu.force_tpu_interpret_mode():
-        w_al = np.asarray(segment_softmax_aligned(jnp.asarray(aligned), lay))
-    want = np.zeros(len(logits), np.float32)
-    want[gather[real]] = w_al[real]
+        want = c.canonical(segment_softmax_aligned(c.aligned(logits), c.lay))
     plain = ref.segment_softmax_coo(tg.dst, torch.from_numpy(logits),
                                     n).numpy()
 
@@ -105,6 +127,50 @@ def test_split_softmax_matches_pallas_and_plain(chunk):
     np.testing.assert_allclose(row(14), 1 / 3, rtol=1e-6)
     sums = np.add.reduceat(got, ro[:-1][lens > 0])
     np.testing.assert_allclose(sums, 1.0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, CHUNK])
+def test_split_softmax_bwd_matches_pallas_and_plain(chunk):
+    """K5's unit arithmetic (``ref.split_segment_softmax_bwd``: unit sums
+    of w g, a split row's slots summed in slot order, then w (g - s))
+    against ``kgat_tpu``'s ``segment_softmax_aligned_bwd`` (interpret
+    mode) and ``ref.segment_softmax_coo_bwd``, on the weights of the
+    Pallas forward, so that all three see the same w."""
+    c = _Rows(chunk)
+    g = np.random.default_rng(chunk + 1).normal(
+        size=len(c.logits)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        w_al = segment_softmax_aligned(c.aligned(c.logits), c.lay)
+        want = c.canonical(segment_softmax_aligned_bwd(w_al, c.aligned(g),
+                                                       c.lay))
+    w, gt = torch.from_numpy(c.canonical(w_al)), torch.from_numpy(g)
+    got = ref.split_segment_softmax_bwd(c.split, w, gt).numpy()
+    plain = ref.segment_softmax_coo_bwd(c.tg.dst, w, gt,
+                                        len(c.lens)).numpy()
+
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-7)
+    ro = c.tg.row_offsets.numpy()
+    assert got[ro[1]] == 0.0                  # one edge: w = 1, g - s = 0
+    # +-1e30: the edges of weight 0 get 0.
+    assert not got[ro[13]:ro[14]][1::3].any()
+
+
+def test_split_softmax_bwd_is_the_plain_backward_in_float64():
+    """In float64 K5's unit arithmetic equals the plain backward up to
+    float64 roundings."""
+    lens, logits = _softmax_rows(4)
+    dst = torch.from_numpy(np.repeat(np.arange(len(lens)), lens))
+    ro = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)]))
+    w = ref.segment_softmax_coo(dst, torch.from_numpy(logits).double(),
+                                len(lens))
+    g = torch.from_numpy(np.random.default_rng(5).normal(size=len(dst)))
+    got = ref.split_segment_softmax_bwd(build_row_split(ro, 4), w, g)
+    assert got.dtype == torch.float64
+    torch.testing.assert_close(
+        got, ref.segment_softmax_coo_bwd(dst, w, g, len(lens)), rtol=1e-12,
+        atol=1e-12)
 
 
 def test_split_softmax_is_the_plain_softmax_in_float64():

@@ -44,6 +44,8 @@ from kgat_tpu.ops.pallas.sddmm import sddmm_transr as jax_sddmm_transr
 from kgat_tpu.ops.pallas.sddmm import sddmm_transr_bwd as jax_sddmm_bwd
 from kgat_tpu_torch.ops import ref
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 RTOL, ATOL = 1e-5, 1e-7
 TILE = 1024            # the Pallas kernel's relation tile
 N_REL, PER_REL = 4, 5 * TILE

@@ -29,6 +29,8 @@ from kgat_tpu_torch import train
 from kgat_tpu_torch.models.kgat import KGATConfig
 from kgat_tpu_torch.utils.config import TrainConfig, parse_args
 
+import torch_threads  # one intra-op thread
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(seed=2, n_users=60, n_items=40, n_entities=90, n_relations_kg=3,
              n_interactions=800, n_triples=400)
@@ -146,7 +148,8 @@ def test_cli_runs_without_jax(tmp_path, backend):
             *MODEL_FLAGS, *SYN_FLAGS]
     proc = subprocess.run([sys.executable, "-I", "-c",
                            BLOCKED.format(repo=REPO, argv=argv)],
-                          capture_output=True, text=True, timeout=240)
+                          capture_output=True, text=True, timeout=240,
+                          env=torch_threads.one_thread_env())
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().splitlines()[-1] == "LEAKED []"
     events = _events(tmp_path / "blocked.jsonl")

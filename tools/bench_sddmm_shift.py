@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time K2 (the TransR attention SDDMM), K3 (the segment softmax), K4
-(K2's backward) and K7 (the ring shift) of a checkout on the card.
+(K2's backward), K5 (K3's backward) and K7 (the ring shift) of a checkout
+on the card.
 
     python tools/bench_sddmm_shift.py [--root DIR] [--label NAME] [--reps 20] \
-        [--kernels k2,k3,k4,k7]
+        [--kernels k2,k3,k4,k5,k7]
 
 Builds the yelp2018-scale synthetic graph (chip_smoke's numbers, seed 0)
 with the checkout at DIR (default: this one), then times on the card, per
@@ -19,13 +20,18 @@ graph replayed three times after a warm replay):
   max abs error against a float64 plain version beside the plain float32
   path's, and its CUDA launches apart: device ms per call of each kernel
   by name, from ``torch.profiler`` over three calls;
+- K5 on the plain softmax of K2's logits at d = k = 64 and a random
+  cotangent, per call, with its max abs error against a float64 plain
+  version beside the plain float32 path's, its CUDA launches apart (as
+  K4's), and the edges of the forward CSR's split rows (the row split
+  passed where the wrapper takes one);
 - K7 and ``copy_`` hot: one chunk of R x 64 float32 (R = 34,304, the rows
   of one of P = 4 partitions; 8.78 MB) copied every call, so it stays in
   L2;
 - K7 and ``copy_`` fresh: the calls take 8 such chunks in turn (70 MB,
   more than L2), as a ring CF step finds them.
 
-``--kernels`` picks among k2, k3, k4 and k7 (default k2,k7; k7 alone
+``--kernels`` picks among k2, k3, k4, k5 and k7 (default k2,k7; k7 alone
 builds no graph). Prints the card's
 name and power limit, then one JSON line. Needs CUDA.
 Run parent and change in one call, in turns (parent, change, change,
@@ -102,6 +108,31 @@ def time_k3(g, gen, dev, reps, random_inputs, sddmm, softmax):
     return {"ms": replay_ms(lambda: softmax.segment_softmax_csr(
                 g.row_offsets, logits, **kw), reps),
             "max_abs_err": float((got - want).abs().max())}
+
+
+def time_k5(g, gen, dev, reps, random_inputs, sddmm, softmax):
+    emb, w_rel, rel_embed = random_inputs(g.n_nodes, g.n_relations, 64, 64,
+                                          gen, dev)
+    w = softmax.segment_softmax_csr_plain(g.row_offsets, sddmm.sddmm_transr(
+        g.rel_perm, g.tiles, g.src, g.dst, emb, w_rel, rel_embed))
+    cot = torch.randn(g.n_edges, generator=gen).to(dev)
+    kw = ({"split": g.split} if "split" in inspect.signature(
+        softmax.segment_softmax_csr_bwd).parameters else {})
+
+    def k5():
+        return softmax.segment_softmax_csr_bwd(g.row_offsets, w, cot, **kw)
+    got = k5()
+    plain = softmax.segment_softmax_csr_bwd_plain(g.row_offsets, w, cot)
+    want = softmax.segment_softmax_csr_bwd_plain(g.row_offsets, w.double(),
+                                                 cot.double())
+    rows = g.split.split_rows.long()
+    return {"ms": replay_ms(k5, reps), "launches_ms": profile_ms(k5),
+            "max_abs_err_f64": float((got.double() - want).abs().max()),
+            "plain_f32_max_abs_err_f64": float(
+                (plain.double() - want).abs().max()),
+            "split_rows": int(rows.numel()),
+            "split_row_edges": int((g.row_offsets[rows + 1]
+                                    - g.row_offsets[rows]).sum())}
 
 
 def profile_ms(fn, calls: int = 3) -> dict:
@@ -194,7 +225,7 @@ def main(argv=None) -> int:
     # ceil(N / P) rounded up to 128.
     rows = math.ceil(math.ceil(136_880 / P_PARTS) / 128) * 128
     with torch.no_grad():
-        if kernels & {"k2", "k3", "k4"}:
+        if kernels & {"k2", "k3", "k4", "k5"}:
             t0 = time.perf_counter()
             g = synthetic_dataset(seed=0, name="yelp2018",
                                   **YELP2018).build()[0].to(dev)
@@ -211,6 +242,9 @@ def main(argv=None) -> int:
         if "k4" in kernels:
             res["K4_d64_k64"] = time_k4(g, gen, dev, max(a.reps // 4, 3),
                                         random_inputs, sddmm)
+        if "k5" in kernels:
+            res["K5"] = time_k5(g, gen, dev, a.reps, random_inputs, sddmm,
+                                softmax)
         if "k7" in kernels:
             res.update(time_k7(rows, 64, gen, dev, a.reps, ring_shift))
     print(json.dumps(res), flush=True)
