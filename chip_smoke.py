@@ -6,7 +6,7 @@ an H100, sm_90a):
 
     python3 chip_smoke.py
 
-Phases, each announced by a line ``[n/8] ...``:
+Phases, each announced by a line ``[n/9] ...``:
   1. device   — requires CUDA; prints nvidia-smi's name and power limit.
   2. build    — compiles the kernels from kgat_tpu_torch/ops/hopper/csrc.
   3. forward kernels (K1 SpMM, K2 SDDMM, K3 softmax) against their plain
@@ -27,13 +27,18 @@ Phases, each announced by a line ``[n/8] ...``:
                attention gradient driven through the model (K2 -> K3 ->
                K5 -> K4).
   6. training steps at yelp2018 scale and full width: the first CF and KG
-               steps' losses and gradients on the kernel path against the
-               plain path in float64 (same params, batch and dropout mask);
-               more steps on a fixed batch, whose loss must fall; an
-               attention recompute; evaluate(); ms per step and launch
-               counts.
-  7. the trainer CLI — ``kgat_tpu_torch.train.main`` for one epoch, then
-               its best checkpoint served for the users of phase 4.
+               steps, eager on the kernel path and replayed from the
+               trainer's CUDA graphs, each against the plain path in
+               float64 (its losses and gradients; same params, and the
+               batch and dropout masks the replay drew); two replays must
+               draw different batches; more steps on a fixed batch, whose
+               loss must fall; an attention recompute; evaluate(); ms per
+               step, eager and replayed, and launch counts.
+  7. the trainer CLI — ``kgat_tpu_torch.train`` for one epoch of replayed
+               steps (the launches of its K1 calls counted from the
+               graphs' kernel nodes times the replays), its losses within
+               1% of an epoch of eager steps from the same seed, then its
+               best checkpoint served for the users of phase 4.
   8. the edge-partitioned trainer, P = 4 partitions on the card: the
                ring kernels (K6 segment sum, K7 ring shift, K8 fused
                reduce + send) against their plain versions on the real
@@ -45,6 +50,12 @@ Phases, each announced by a line ``[n/8] ...``:
                (loss and gradients) and a KG step; the launch counts each
                exchange predicts; then the trainer CLI for one epoch with
                ``--n-devices 4 --halo-exchange ring --ring-transport fused``.
+  9. the rest of the trainer at phase 7's scale: ``--resume`` of phase 7's
+               run for a second epoch; the BPR-MF CLI for one epoch and a
+               trainer epoch with ``--use-pretrain`` on its npz; a
+               replayed ``--sparse-adam`` epoch, its first KG step held
+               against the float64 dense-state oracle; host-sampled CF and
+               KG steps (``--sampler host``).
 Then a JSON line of per-kernel results (each kernel's launches on its
 path, error, time beside its plain version, the library call that
 computes the same function where there is one, and the bound: the least
@@ -83,11 +94,11 @@ import numpy as np
 import torch
 
 from kgat_tpu_torch import recommend as rec
-from kgat_tpu_torch import train
+from kgat_tpu_torch import optim, train
 from kgat_tpu_torch.data import (load_dataset, save_dataset,
                                  synthetic_dataset)
 from kgat_tpu_torch.graph import build_graph
-from kgat_tpu_torch.models import kgat
+from kgat_tpu_torch.models import bprmf, kgat
 from kgat_tpu_torch.models.kgat import KGATConfig
 from kgat_tpu_torch.ops import ref
 from kgat_tpu_torch.ops.hopper import build
@@ -109,7 +120,7 @@ from kgat_tpu_torch.parallel.partition import (build_ring_buckets,
                                                partition_graph)
 from kgat_tpu_torch.sampler import (CFSampleTable, KGSampleTable,
                                     sample_cf_batch, sample_kg_batch)
-from kgat_tpu_torch.utils.checkpoint import save_params
+from kgat_tpu_torch.utils.checkpoint import load_checkpoint, save_params
 from kgat_tpu_torch.utils.config import TrainConfig
 
 # yelp2018 at published scale, as the repo's `make datasets` generates it.
@@ -385,7 +396,7 @@ class CudaTimer:
 
 class Progress:
     """The phase being run, for the failure line, and each phase's wall
-    seconds, printed as ``[n/8] took ... s`` when it ends: a run cut at a
+    seconds, printed as ``[n/9] took ... s`` when it ends: a run cut at a
     time limit shows which phase ran long."""
 
     def __init__(self):
@@ -395,13 +406,13 @@ class Progress:
     def phase(self, n: int, what: str):
         self.end()
         self.n = n
-        print(f"[{n}/8] {what} ...", flush=True)
+        print(f"[{n}/9] {what} ...", flush=True)
 
     def end(self):
         """Ends the phase being run."""
         now = time.perf_counter()
         if self.n:
-            print(f"[{self.n}/8] took {now - self.t0:.1f} s", flush=True)
+            print(f"[{self.n}/9] took {now - self.t0:.1f} s", flush=True)
         self.t0 = now
 
 
@@ -545,7 +556,7 @@ def check_kernels(g, label, check, gen, dev, timer, times=None):
         if times is not None:
             ms = timer.device_ms(lambda: spmm_csr(*a1, g.split), 20)
             plain_ms = timer.device_ms(lambda: spmm_csr_plain(*a1), 5)
-            print(f"[3/8] spmm_csr per call at d={dd} {dt}: kernel "
+            print(f"[3/9] spmm_csr per call at d={dd} {dt}: kernel "
                   f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
             if dt == torch.float32:
                 # A forward runs K1 at d = 64, 64, 32.
@@ -777,6 +788,35 @@ def expect_launches(dev, launches, want, what):
                                  f"expected {n}: {launches}")
 
 
+def replayed_launches(counts, step_graphs, graph):
+    """Wrapper launches of a run whose steps replay CUDA graphs, and each
+    graph's kernel nodes. ``build.launch_counts`` counts a wrapper's call
+    at capture too, where nothing launches, and a replay launches without
+    a call: a captured call is taken out and counted once per replay.
+    Each graph's kernel nodes are counted from the graph itself
+    (``graph_kernel_names``): all of them, and the port's own, which must
+    be the captured calls times each call's CUDA launches (its CSR's row
+    split). Returns (launches, {step: (kernel nodes, own, replays)})."""
+    launches, nodes = dict(counts), {}
+    per_call = {"spmm_csr": graph.split.cuda_launches,
+                "spmm_csr_rev": graph.rev_split.cuda_launches}
+    own = [f"{len(n)}{n}" for n in own_kernels()]  # as mangled
+    for name, steps in zip(("CF", "KG"), step_graphs):
+        for k, n in steps.calls.items():
+            launches[k] += n * (steps.replays - 1)
+        if steps.graph is None:
+            continue
+        kernels = graph_kernel_names(steps.graph.raw_cuda_graph())
+        mine = sum(any(o in k for o in own) for k in kernels)
+        want = sum(n * per_call[k] for k, n in steps.calls.items())
+        if mine != want:
+            raise AssertionError(f"{name} step graph: {mine} kernel nodes of "
+                                 f"the port's kernels, {want} expected from "
+                                 f"its captured calls {steps.calls}")
+        nodes[name] = (len(kernels), mine, steps.replays)
+    return launches, nodes
+
+
 def check_lists(lines, users, train_user_dict, what):
     if [ln["user"] for ln in lines] != list(users):
         raise AssertionError(f"{what}: output users differ from the request")
@@ -794,7 +834,7 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     line = smi.stdout.strip().splitlines()[0]
-    print(f"[1/8] device: torch {torch.__version__}, CUDA "
+    print(f"[1/9] device: torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
     print(line, flush=True)
     return line
@@ -805,7 +845,7 @@ def phase_build():
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))
     build.library()
-    print(f"[2/8] build: nvcc sm_90a {seconds:.1f} s (one nvcc per source, "
+    print(f"[2/9] build: nvcc sm_90a {seconds:.1f} s (one nvcc per source, "
           f"in parallel), {len(regs)} kernels, max {max(regs, default=0)} "
           f"registers, {spills} spill-store bytes", flush=True)
 
@@ -837,7 +877,7 @@ def main() -> int:
 
 def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
         sizes: Sizes = YELP_SIZES, timer=None, progress=None) -> int:
-    """Phases 3-7 in ``tmp``, on ``dev``; prints the kernels' JSON line."""
+    """Phases 3-9 in ``tmp``, on ``dev``; prints the kernels' JSON line."""
     timer = timer or CudaTimer()
     progress = progress or Progress()
     check = Check(timer)
@@ -853,7 +893,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     g_host, meta = ds.build()
     gen_s = time.perf_counter() - t0
     deg = (g_host.row_offsets[1:] - g_host.row_offsets[:-1])
-    print(f"[3/8] yelp2018-scale graph: {g_host.n_edges} edges, "
+    print(f"[3/9] yelp2018-scale graph: {g_host.n_edges} edges, "
           f"{g_host.n_nodes} nodes, {g_host.n_relations} relations, "
           f"max in-degree {int(deg.max())}, {int((deg == 0).sum())} empty "
           f"rows, {g_host.tiles.shape[0]} tiles (generated, written, read "
@@ -861,7 +901,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     hand = handmade_graph(gen, sizes.hub, sizes.chunk).to(dev)
     e2, e3, e1, hand_att = check_kernels(hand, "hand-made", check, gen, dev,
                                          timer)
-    print(f"[3/8] hand-made rows (empty, one edge, hub of {sizes.hub}, "
+    print(f"[3/9] hand-made rows (empty, one edge, hub of {sizes.hub}, "
           f"{boundary_rows(sizes.chunk)} at the chunk boundaries): "
           f"max abs err sddmm {k2_errs(e2)}, softmax {e3:.2e}, spmm "
           f"{', '.join(f'{e:.2e}' for e in e1)} (d64, d32, d64 bf16)",
@@ -880,19 +920,19 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                      f"{host:.1f} ms on the host ({card:.1f} ms on the "
                      f"card), {sp.cuda_launches} CUDA launches per K1 call by "
                      f"the split")
-    print(f"[3/8] row split (chunk {CHUNK} edges), once per CSR at "
+    print(f"[3/9] row split (chunk {CHUNK} edges), once per CSR at "
           f"start-up: " + "; ".join(lines), flush=True)
     times = Times()
     e2, e3, e1, att = check_kernels(g, "yelp2018", check, gen, dev, timer,
                                     times)
-    print(f"[3/8] yelp2018 shapes: max abs err sddmm {k2_errs(e2)}, softmax "
+    print(f"[3/9] yelp2018 shapes: max abs err sddmm {k2_errs(e2)}, softmax "
           f"{e3:.2e}, spmm {', '.join(f'{e:.2e}' for e in e1)} "
           f"(d64, d32, d64 bf16)", flush=True)
     for name in ("spmm_csr", "sddmm_transr", "segment_softmax_csr"):
-        print(f"[3/8] time per {'forward' if name == 'spmm_csr' else 'call'}"
+        print(f"[3/9] time per {'forward' if name == 'spmm_csr' else 'call'}"
               f" ({smi_line}): {times.line(name)}", flush=True)
     fma_ms = g.n_edges * 4 * 64 * 64 / F32_FLOPS * 1e3
-    print(f"[3/8] sddmm_transr's bound on the float32 FMA units, for the "
+    print(f"[3/9] sddmm_transr's bound on the float32 FMA units, for the "
           f"same products without tensor cores: {fma_ms:.4f} ms", flush=True)
 
     # --- 4. serving at full width ------------------------------------------
@@ -925,7 +965,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                                     "segment_softmax_csr": 1, "spmm_csr": 3},
                     "serving")
     check_lists(lines, users.tolist(), ds.train_user_dict, "serving CLI")
-    print(f"[4/8] serving CLI: {len(lines)} users x top-{TOP_K} valid in "
+    print(f"[4/9] serving CLI: {len(lines)} users x top-{TOP_K} valid in "
           f"{cli_s:.1f} s (load, build, forward, score); launches {launches}",
           flush=True)
 
@@ -978,14 +1018,14 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     server = rec.Recommender(model, g, meta, cfg,
                              train_user_dict=ds.train_user_dict)
     serve_ms = timer.host_ms(lambda: server.recommend(users, k=TOP_K), 5)
-    print(f"[4/8] kernel path vs plain path on the card: all_embed max abs "
+    print(f"[4/9] kernel path vs plain path on the card: all_embed max abs "
           f"err {err:.2e}; top-{TOP_K} scores within rtol {RTOL}; item sets "
           f"equal for {int(clear.sum())}/{len(users)} users with a "
           f"20th/21st gap > 1e-4, same order for {int(ordered.sum())} with "
           f"every gap > 1e-4; CLI lists in the same order for "
           f"{same_order}/{len(users)} users; a second kernel forward is "
           f"{'bit-identical' if repeat else 'NOT bit-identical'}", flush=True)
-    print(f"[4/8] forward {fwd_ms:.2f} ms (plain path {fwd_plain_ms:.2f} "
+    print(f"[4/9] forward {fwd_ms:.2f} ms (plain path {fwd_plain_ms:.2f} "
           f"ms); serve {len(users)} users top-{TOP_K} from the cached "
           f"forward {serve_ms:.2f} ms ({smi_line})", flush=True)
     del emb_k, emb_p, server
@@ -996,7 +1036,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                                ("yelp2018", g, att, times)):
         shares, k4_errs = check_backward_kernels(graph, w, label, check,
                                                  gen, dev, timer, t)
-        print(f"[5/8] {label}: max abs err, and the bound where the error "
+        print(f"[5/9] {label}: max abs err, and the bound where the error "
               f"is largest against it: "
               + ", ".join(f"{k} {e:.2e} (bound {b:.2e}, {s:.3f} of it)"
                           for k, (e, b, s) in shares.items())
@@ -1006,9 +1046,9 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                  "segment_softmax_csr_bwd"):
         per = "per CF-step backward (d = 64, 64, 32)" if name == \
             "spmm_csr_rev" else "per call"
-        print(f"[5/8] {per} ({smi_line}): {times.line(name)}", flush=True)
+        print(f"[5/9] {per} ({smi_line}): {times.line(name)}", flush=True)
     row_gb = 4 * g.n_edges * 64 * 4 / 1e9
-    print(f"[5/8] sddmm_transr_bwd: {times.per_call['sddmm_transr_bwd']} "
+    print(f"[5/9] sddmm_transr_bwd: {times.per_call['sddmm_transr_bwd']} "
           f"CUDA launches per call (counted); bound on the float32 FMA units, for the "
           f"same products without tensor cores, "
           f"{12 * 64 * 64 * g.n_edges / F32_FLOPS * 1e3:.4f} ms; its d_eh "
@@ -1040,7 +1080,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                           stat_bound(b, length))
             for name, a, b in zip(("d_entity_embed", "d_w_rel",
                                    "d_rel_embed"), *grads.values())]
-    print(f"[5/8] attention gradient through compute_attention, kernel path "
+    print(f"[5/9] attention gradient through compute_attention, kernel path "
           f"vs float64 plain path: "
           + ", ".join(f"{n} {e:.2e} (bound {b:.2e}, {s:.3f} of it)"
                       for n, (e, b, s) in zip(
@@ -1058,7 +1098,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     trainer = train.Trainer(tcfg, dataset=ds)
     build_s = time.perf_counter() - t0
     train_stats = phase_train_steps(trainer, sizes, check, timer, dev)
-    print(f"[6/8] trainer built in {build_s:.1f} s ({trainer.n_cf_batches} "
+    print(f"[6/9] trainer built in {build_s:.1f} s ({trainer.n_cf_batches} "
           f"CF and {trainer.n_kg_batches} KG batches an epoch); "
           + train_stats, flush=True)
     del trainer
@@ -1069,27 +1109,58 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     progress.phase(7, "trainer CLI for one epoch, then serving its "
                       "best checkpoint")
     log_dir = os.path.join(tmp, "runs")
+    argv = ["--dataset", "yelp2018", "--data-root", tmp, "--epochs", "1",
+            "--eval-every", "1", "--device", str(dev), "--log-dir", log_dir,
+            "--run-name", "smoke", "--seed", "0", "--cf-batch-size",
+            str(sizes.cf_batch), "--kg-batch-size", str(sizes.kg_batch)]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     build.launch_counts.clear()
     t0 = time.perf_counter()
-    train.main(["--dataset", "yelp2018", "--data-root", tmp, "--epochs", "1",
-                "--eval-every", "1", "--device", str(dev), "--log-dir",
-                log_dir, "--run-name", "smoke", "--seed", "0",
-                "--cf-batch-size", str(sizes.cf_batch),
-                "--kg-batch-size", str(sizes.kg_batch)])
+    # What train.main runs, keeping the trainer for its graphs.
+    cli = train.Trainer(train.parse_args(argv))
+    cli.train()
     timer.sync()
     cli_s = time.perf_counter() - t0
-    main_launches = dict(build.launch_counts)
+    main_launches, graph_nodes = replayed_launches(
+        dict(build.launch_counts), (cli.cf_steps, cli.kg_steps), cli.graph)
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if dev.type == "cuda" else 0.0)
+    # The CLI returns nothing: its trainer, graphs and their memory pools
+    # go before the phases after it, as main's would.
+    del cli
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     with open(os.path.join(log_dir, "smoke.jsonl")) as f:
         events = [json.loads(ln) for ln in f]
     check_events(events)
     epoch = next(e for e in events if e["event"] == "epoch")
     ev = next(e for e in events if e["event"] == "eval")
     n_cf = next(e for e in events if e["event"] == "start")["cf_batches"]
-    # Per CF step: K1 three times forward, three times on the reverse CSR;
-    # K2 and K3 once per attention recompute (epoch start and end).
+    # Per CF step: K1 three times forward, three times on the reverse CSR
+    # (captured once, replayed); K2 and K3 once per attention recompute
+    # (epoch start and end).
     expect_launches(dev, main_launches, {
         "spmm_csr": 3 * n_cf, "spmm_csr_rev": (3 * n_cf,),
         "sddmm_transr": (2,), "segment_softmax_csr": (2,)}, "trainer CLI")
+    # The same epoch of eager steps, from the same seed.
+    t0 = time.perf_counter()
+    eager = train.Trainer(dataclasses.replace(train.parse_args(argv),
+                                              log_dir=None), dataset=ds)
+    att = eager.attention()
+    cf_sum = kg_sum = torch.zeros((), device=dev)
+    for _ in range(eager.n_cf_batches):
+        cf_sum = cf_sum + eager.cf_step(att, *eager.sample_cf())
+    for _ in range(eager.n_kg_batches):
+        kg_sum = kg_sum + eager.kg_step(*eager.sample_kg())
+    eager_losses = (float(cf_sum) / eager.n_cf_batches,
+                    float(kg_sum) / eager.n_kg_batches)
+    eager_s = time.perf_counter() - t0
+    for key, want in zip(("cf_loss", "kg_loss"), eager_losses):
+        if abs(epoch[key] - want) > 0.01 * abs(want):
+            raise AssertionError(f"replayed epoch {key} {epoch[key]} vs "
+                                 f"eager {want}: beyond 1%")
+    del eager, att
     best = os.path.join(log_dir, "smoke_best")
     with open(best + ".json") as f:
         side = json.load(f)
@@ -1106,12 +1177,16 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
         raise AssertionError(f"recommend.main returned {rc}")
     check_lists(lines, users.tolist(), ds.train_user_dict,
                 "serving the trained checkpoint")
-    print(f"[7/8] trainer CLI: 1 epoch in {epoch['secs']:.1f} s "
-          f"({cli_s:.1f} s with data load, build, eval and checkpoints), "
-          f"cf_loss {epoch['cf_loss']:.4f}, kg_loss {epoch['kg_loss']:.4f}, "
-          f"recall@20 {ev['recall']:.4f}, ndcg@20 {ev['ndcg']:.4f}; events "
-          f"{[e['event'] for e in events]}; served {len(lines)} users "
-          f"top-{TOP_K} from smoke_best; launches {main_launches} "
+    print(f"[7/9] trainer CLI: 1 epoch of replayed steps in "
+          f"{epoch['secs']:.1f} s ({cli_s:.1f} s with data load, build, "
+          f"eval and checkpoints), cf_loss {epoch['cf_loss']:.4f}, kg_loss "
+          f"{epoch['kg_loss']:.4f} (eager steps from the same seed: "
+          f"{eager_losses[0]:.4f}, {eager_losses[1]:.4f}, in {eager_s:.1f} "
+          f"s with the trainer's build), recall@20 {ev['recall']:.4f}, "
+          f"ndcg@20 {ev['ndcg']:.4f}; events {[e['event'] for e in events]};"
+          f" served {len(lines)} users top-{TOP_K} from smoke_best; "
+          f"launches {main_launches}; CUDA kernel nodes per replayed step "
+          f"{graph_nodes}; peak device memory {peak_gb:.2f} GB "
           f"({smi_line})", flush=True)
 
     # --- 8. the edge-partitioned trainer, P = 4 on the card -----------------
@@ -1119,6 +1194,11 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                       f"the card")
     part_launches = phase_partitioned(tmp, ds, g_host, g, meta, sizes, check,
                                       times, gen, dev, timer, smi_line)
+
+    # --- 9. the rest of the trainer -----------------------------------------
+    progress.phase(9, "the rest of the trainer: resume, pretrain, sparse "
+                      "Adam, host samplers")
+    phase_rest(tmp, ds, argv, check, dev, timer, smi_line)
     progress.end()
 
     paths = {"sddmm_transr_bwd": ("attention gradient", att_launches),
@@ -1196,50 +1276,106 @@ def plain_grads(model, loss_fn):
             products.term_magnitudes(grads[len(params64):]))
 
 
+def snapshot(trainer):
+    """The trainer's parameters and Adam state, copied."""
+    return ([p.detach().clone() for p in trainer.model.parameters()],
+            [{k: v.clone() for k, v in trainer.opt.state[p].items()}
+             for p in trainer.model.parameters()])
+
+
+def restore(trainer, snap):
+    """Copies a :func:`snapshot` back in place (a captured step reads the
+    tensors it found at its capture)."""
+    with torch.no_grad():
+        for p, v, st in zip(trainer.model.parameters(), *snap):
+            p.copy_(v)
+            for k, t in st.items():
+                trainer.opt.state[p][k].copy_(t)
+
+
+def replayed_step(steps):
+    """One step of a StepGraph and its loss: a replay of its graph on the
+    card (captured before), its body on the CPU, which cannot capture."""
+    return float(steps.run(1))
+
+
 def phase_train_steps(trainer, sizes, check, timer, dev) -> str:
-    """The first CF and KG steps on the kernel and the plain path, more
-    steps on a fixed batch, a recompute and an evaluate(); returns the
-    summary line."""
+    """The first CF and KG steps, eager on the kernel path and replayed
+    from their CUDA graphs, each against the plain path in float64 on the
+    batch and dropout masks the replay drew; two replays draw different
+    batches; more steps on a fixed batch, a recompute and an evaluate();
+    returns the summary line."""
     model, mcfg = trainer.model, trainer.cfg.model
     plain = dataclasses.replace(mcfg, ops_backend="ref")
     names = [n for n, _ in model.named_parameters()]
     params = list(model.parameters())
-    mask_gen = lambda: torch.Generator(device=dev).manual_seed(7)  # noqa: E731
     # The longest reduction of a gradient: a CSR row, or every node for a
     # layer weight.
     g = trainer.graph
     length = max(int((g.row_offsets[1:] - g.row_offsets[:-1]).max()),
                  g.n_nodes)
 
-    # The first CF step: one batch, one dropout mask, both paths.
+    # Capture both steps (each capture runs one real step first, its
+    # warm-up), then stage the attention of the parameters they left.
+    trainer.stage(trainer.attention())
+    if dev.type == "cuda":
+        trainer.cf_steps.capture()
+        trainer.kg_steps.capture()
     att = trainer.attention()
-    cf_batch = trainer.sample_cf()
-    loss_k = float(trainer.cf_grad(att, *cf_batch, generator=mask_gen()))
-    loss_p, grads_p, terms = plain_grads(model, lambda m: kgat.cf_loss(
-        m, g, kgat.attention_for_training(m, g, plain), trainer.meta,
-        *cf_batch[:3], plain, generator=mask_gen(), train=True,
-        weight=cf_batch[3]))
-    cf_errs = compare_step("CF", loss_k, loss_p, names, _grads(params),
-                           grads_p, terms, check, length)
-    trainer.opt.step()
-    del grads_p, terms
+    trainer.stage(att)
 
-    # The first KG step (no graph op: the two paths run the same code).
-    kg_batch = trainer.sample_kg()
-    kg_loss_k = float(trainer.kg_grad(*kg_batch))
-    kg_loss_p, grads_p, terms = plain_grads(model, lambda m: kgat.kg_loss(
-        m, *kg_batch[:4], plain, weight=kg_batch[4]))
-    kg_errs = compare_step("KG", kg_loss_k, kg_loss_p, names, _grads(params),
-                           grads_p, terms, check, length)
-    trainer.opt.step()
-    del grads_p, terms
+    def cf_plain(batch, masks):
+        return lambda m: kgat.cf_loss(
+            m, g, kgat.attention_for_training(m, g, plain), trainer.meta,
+            *batch[:3], plain, masks=masks, train=True, weight=batch[3])
+
+    # The first CF step replayed, then eagerly from the same state on the
+    # batch and masks the replay drew; both against the plain path.
+    errs = {}
+    for what, steps in (("CF", trainer.cf_steps), ("KG", trainer.kg_steps)):
+        before = snapshot(trainer)
+        loss_r = replayed_step(steps)
+        grads_r = _grads(params)
+        restore(trainer, before)
+        if what == "CF":
+            *batch, masks = trainer.cf_drawn
+            loss_k = float(trainer.cf_grad(att, *batch, masks=masks))
+            plain_loss = cf_plain(batch, masks)
+        else:
+            batch = trainer.kg_drawn
+            loss_k = float(trainer.kg_grad(*batch))
+            plain_loss = lambda m, b=batch: kgat.kg_loss(  # noqa: E731
+                m, *b[:4], plain, weight=b[4])
+        loss_p, grads_p, terms = plain_grads(model, plain_loss)
+        errs[what] = compare_step(what, loss_k, loss_p, names,
+                                  _grads(params), grads_p, terms, check,
+                                  length)
+        errs[f"{what} replayed"] = compare_step(
+            f"{what} replayed", loss_r, loss_p, names, grads_r, grads_p,
+            terms, check, length)
+        trainer.opt.step()
+        del grads_p, grads_r, terms
+
+    # Two replays in a row draw different batches and masks.
+    drawn = []
+    for _ in range(2):
+        replayed_step(trainer.cf_steps)
+        replayed_step(trainer.kg_steps)
+        u, _, _, _, masks = trainer.cf_drawn
+        drawn.append([t.clone() for t in (u, *masks, trainer.kg_drawn[0])])
+    if any(torch.equal(a, b) for a, b in zip(*drawn)):
+        raise AssertionError("two replays drew the same batch or masks")
 
     # More steps on one fixed batch and dropout mask: the loss on it falls.
+    att = trainer.attention()
+    cf_batch = trainer.sample_cf()
+    masks = kgat.dropout_masks(mcfg, trainer.meta.n_nodes, trainer.generator,
+                               dev)
+    kg_batch = trainer.sample_kg()
     build.launch_counts.clear()
-    cf_losses = [float(trainer.cf_step(att, *cf_batch, generator=mask_gen()))
+    cf_losses = [float(trainer.cf_step(att, *cf_batch, masks=masks))
                  for _ in range(sizes.steps)]
-    cf_losses.append(float(trainer.cf_grad(att, *cf_batch,
-                                           generator=mask_gen())))
+    cf_losses.append(float(trainer.cf_grad(att, *cf_batch, masks=masks)))
     step_launches = dict(build.launch_counts)
     kg_losses = [float(trainer.kg_step(*kg_batch)) for _ in range(sizes.steps)]
     kg_losses.append(float(trainer.kg_grad(*kg_batch)))
@@ -1255,6 +1391,8 @@ def phase_train_steps(trainer, sizes, check, timer, dev) -> str:
 
     cf_ms = timer.host_ms(lambda: trainer.cf_step(att, *trainer.sample_cf()),
                           5)
+    trainer.stage(att)
+    cf_replay_ms = timer.host_ms(lambda: replayed_step(trainer.cf_steps), 10)
 
     def plain_cf_step():
         """The same step on the plain path: sample, loss, backward, Adam."""
@@ -1266,6 +1404,7 @@ def phase_train_steps(trainer, sizes, check, timer, dev) -> str:
         trainer.opt.step()
     cf_plain_ms = timer.host_ms(plain_cf_step, 3)
     kg_ms = timer.host_ms(lambda: trainer.kg_step(*trainer.sample_kg()), 10)
+    kg_replay_ms = timer.host_ms(lambda: replayed_step(trainer.kg_steps), 20)
     build.launch_counts.clear()
     trainer._att = trainer.attention()
     recompute_launches = dict(build.launch_counts)
@@ -1279,17 +1418,20 @@ def phase_train_steps(trainer, sizes, check, timer, dev) -> str:
     for key in ("recall", "ndcg"):
         if not 0.0 <= metrics[key] <= 1.0:
             raise AssertionError(f"{key}@20 = {metrics[key]}")
-    return (f"first CF step, kernel path vs float64 plain path: {cf_errs}; "
-            f"first KG step: "
-            f"{kg_errs}; {sizes.steps} CF steps on a fixed batch, loss "
+    return (f"first CF step, kernel path vs float64 plain path: eager "
+            f"{errs['CF']}; replayed {errs['CF replayed']}; first KG step: "
+            f"eager {errs['KG']}; replayed {errs['KG replayed']}; two "
+            f"replays drew different batches and masks; {sizes.steps} CF "
+            f"steps on a fixed batch, loss "
             f"{cf_losses[0]:.5f} -> {cf_losses[-1]:.5f}, launches "
             f"{step_launches}; {sizes.steps} KG steps, loss "
             f"{kg_losses[0]:.5f} -> {kg_losses[-1]:.5f}; CF step (sample + "
-            f"step) median {cf_ms:.2f} ms (plain path {cf_plain_ms:.2f} ms), "
-            f"KG step {kg_ms:.2f} ms, attention "
-            f"recompute {att_ms:.2f} ms (launches {recompute_launches}), "
-            f"evaluate {eval_s:.2f} s: recall@20 {metrics['recall']:.4f}, "
-            f"ndcg@20 {metrics['ndcg']:.4f}")
+            f"step) median {cf_ms:.2f} ms eager, {cf_replay_ms:.2f} ms "
+            f"replayed (plain path {cf_plain_ms:.2f} ms), KG step "
+            f"{kg_ms:.2f} ms eager, {kg_replay_ms:.2f} ms replayed, "
+            f"attention recompute {att_ms:.2f} ms (launches "
+            f"{recompute_launches}), evaluate {eval_s:.2f} s: recall@20 "
+            f"{metrics['recall']:.4f}, ndcg@20 {metrics['ndcg']:.4f}")
 
 
 class LayerProducts(torch.overrides.TorchFunctionMode):
@@ -1605,7 +1747,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
     b_edges = [[b.n_edges for b in row] for row in buckets]
     b_launches = [[(b.split.cuda_launches, b.rev_split.cuda_launches)
                    for b in row] for row in buckets]
-    print(f"[8/8] partitioned on the host in {host_s:.1f} s (row splits "
+    print(f"[8/9] partitioned on the host in {host_s:.1f} s (row splits "
           f"of the {len(csrs)} bucket CSRs included, {split_ms:.2f} ms per "
           f"CSR): R = {info.rows_per_part}, n_pad = {info.n_nodes_pad}, "
           f"shard edges {[s.n_edges for s in shards]}, ring bucket edges "
@@ -1613,7 +1755,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
           f"splits (forward, reverse) {b_launches}", flush=True)
     summary = check_ring_kernels(buckets, info, sizes, check, times, gen,
                                  dev, timer)
-    print(f"[8/8] ring kernels ({smi_line}): {summary}", flush=True)
+    print(f"[8/9] ring kernels ({smi_line}): {summary}", flush=True)
 
     # Attention and all_embed of every exchange against the single-device
     # paths, on one random full-width model.
@@ -1657,7 +1799,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                      f"all_embed {err:.2e} vs float64 plain, eval forward "
                      f"{ms:.2f} ms (launches {fwd_launches})")
     del want, att_single
-    print(f"[8/8] partitioned forward against single-device ("
+    print(f"[8/9] partitioned forward against single-device ("
           f"{smi_line}): " + "; ".join(lines), flush=True)
 
     # The first CF step of every exchange (dropout 0): the loss against
@@ -1704,7 +1846,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
         lines.append(f"{'/'.join(key)}: {errs}; forward + backward {ms:.2f}"
                      f" ms (launches {step_launches})")
     del grads_p, terms
-    print(f"[8/8] first CF step (batch {u.numel()}, dropout 0) against the "
+    print(f"[8/9] first CF step (batch {u.numel()}, dropout 0) against the "
           f"single-device kernel path ({loss_single:.6f}) and the float64 "
           f"plain path ({smi_line}): " + "; ".join(lines), flush=True)
 
@@ -1723,7 +1865,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                            names, [torch.zeros_like(p) if gp is None else gp
                                    for p, gp in zip(params, kg_grads)],
                            grads_p, terms, check, length)
-    print(f"[8/8] KG step (batch {kg_batch[0].numel()}) against the float64 "
+    print(f"[8/9] KG step (batch {kg_batch[0].numel()}) against the float64 "
           f"plain path: {kg_errs}", flush=True)
     del grads_p, terms, kg_grads, parts, staged, model
     if dev.type == "cuda":
@@ -1757,7 +1899,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                      for k in {*step, *evalf}}
     want_launches.update(sddmm_transr=2 * P, segment_softmax_csr=2 * P)
     expect_exact(dev, launches, want_launches, "partitioned trainer CLI")
-    print(f"[8/8] partitioned trainer CLI (python -m kgat_tpu_torch.train "
+    print(f"[8/9] partitioned trainer CLI (python -m kgat_tpu_torch.train "
           f"{' '.join(argv[argv.index('--n-devices'):])}): 1 epoch in "
           f"{epoch['secs']:.1f} s ({cli_s:.1f} s with data load, partition, "
           f"eval and checkpoints), cf_loss {epoch['cf_loss']:.4f}, kg_loss "
@@ -1766,6 +1908,198 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
           f"launches {launches} ({n_cf} CF steps; predicted per step "
           f"{step}) ({smi_line})", flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the rest of the single-device trainer.
+# ---------------------------------------------------------------------------
+
+def phase_rest(tmp, ds, argv, check, dev, timer, smi_line) -> None:
+    """Phase 9 at phase 7's scale and width: ``--resume`` of phase 7's
+    run for a second epoch; the BPR-MF CLI for one epoch, then a trainer
+    epoch from its npz; a replayed ``--sparse-adam`` epoch whose first KG
+    step is held against the float64 dense-state oracle; host-sampled
+    steps."""
+    log_dir = argv[argv.index("--log-dir") + 1]
+    epochs = argv.index("--epochs") + 1
+
+    def with_flags(run, *flags, n_epochs=1):
+        a = list(argv)
+        a[epochs] = str(n_epochs)
+        a[a.index("--run-name") + 1] = run
+        return [*a, *flags]
+
+    # Resume phase 7's run for a second epoch.
+    last = os.path.join(log_dir, "smoke_best_last")
+    count = load_checkpoint(last)["count"]
+    t0 = time.perf_counter()
+    tr = train.Trainer(train.parse_args(with_flags("smoke", "--resume",
+                                                   n_epochs=2)))
+    tr.train()
+    resume_s = time.perf_counter() - t0
+    steps = tr.n_cf_batches + tr.n_kg_batches
+    with open(os.path.join(log_dir, "smoke.jsonl")) as f:
+        events = [json.loads(ln) for ln in f]
+    names = [e["event"] for e in events]
+    resumed = events[names.index("resume")]
+    after = optim.adam_count(tr.opt)
+    if (names[-5:] != ["resume", "start", "epoch", "eval", "done"]
+            or resumed["epoch"] != 1 or events[-3]["epoch"] != 2
+            or count != steps or after != 2 * steps
+            or load_checkpoint(last)["count"] != 2 * steps):
+        raise AssertionError(f"resume: events {names}, resume {resumed}, "
+                             f"count {count} then {after} for {steps} "
+                             f"steps an epoch")
+    resume_line = (f"--resume: from {os.path.basename(resumed['source'])} "
+                   f"at epoch 1, Adam count {count} restored, epoch 2 in "
+                   f"{events[-3]['secs']:.1f} s ({resume_s:.1f} s in all), "
+                   f"cf_loss {events[-3]['cf_loss']:.4f}, kg_loss "
+                   f"{events[-3]['kg_loss']:.4f}")
+    del tr
+
+    # BPR-MF for one epoch, then a trainer epoch from its npz.
+    npz = os.path.join(tmp, "mf.npz")
+    data = argv[argv.index("--data-root") + 1]
+    t0 = time.perf_counter()
+    if bprmf.main(["--dataset", "yelp2018", "--data-root", data, "--out",
+                   npz, "--epochs", "1", "--seed", "0", "--device",
+                   str(dev)]) != 0:
+        raise AssertionError("the BPR-MF CLI failed")
+    mf_s = time.perf_counter() - t0
+    with np.load(npz) as z:
+        ue, ie = (torch.as_tensor(z[k]) for k in ("user_embed",
+                                                   "item_embed"))
+    tr = train.Trainer(train.parse_args(with_flags("pretrain",
+                                                   "--use-pretrain", npz)))
+    emb = tr.model.entity_embed.detach().cpu()
+    n_ent = tr.meta.n_entities
+    if (ue.shape != (ds.n_users, 64) or ie.shape != (ds.n_items, 64)
+            or not torch.equal(emb[:ds.n_items], ie)
+            or not torch.equal(emb[n_ent:n_ent + ds.n_users], ue)):
+        raise AssertionError("--use-pretrain: rows not placed")
+    tr.train()
+    with open(os.path.join(log_dir, "pretrain.jsonl")) as f:
+        events = [json.loads(ln) for ln in f]
+    ep = next(e for e in events if e["event"] == "epoch")
+    if events[0]["event"] != "pretrain" or not math.isfinite(ep["cf_loss"]):
+        raise AssertionError(f"--use-pretrain events {events}")
+    pretrain_line = (f"BPR-MF CLI 1 epoch in {mf_s:.1f} s ({ue.shape[0]} x "
+                     f"64 users, {ie.shape[0]} x 64 items); --use-pretrain "
+                     f"epoch in {ep['secs']:.1f} s, cf_loss "
+                     f"{ep['cf_loss']:.4f}, kg_loss {ep['kg_loss']:.4f}")
+    del tr, emb
+
+    # --sparse-adam: the first replayed KG step against the float64
+    # oracle, then a replayed epoch.
+    tr = train.Trainer(train.parse_args(with_flags("sparse",
+                                                   "--sparse-adam")))
+    tr.stage(tr.attention())
+    if dev.type == "cuda":
+        tr.kg_steps.capture()
+    before = snapshot(tr)
+    loss = replayed_step(tr.kg_steps)
+    batch = [t.clone() for t in tr.kg_drawn]
+    after = snapshot(tr)
+    restore(tr, before)
+    sparse_line = check_sparse_step(tr, before, after, loss, batch, check)
+    restore(tr, after)
+    tr.train()
+    with open(os.path.join(log_dir, "sparse.jsonl")) as f:
+        ep = next(e for e in map(json.loads, f) if e["event"] == "epoch")
+    if not (math.isfinite(ep["cf_loss"]) and math.isfinite(ep["kg_loss"])):
+        raise AssertionError(f"--sparse-adam epoch {ep}")
+    sparse_line += (f"; replayed epoch in {ep['secs']:.1f} s, cf_loss "
+                    f"{ep['cf_loss']:.4f}, kg_loss {ep['kg_loss']:.4f}")
+    del tr, before, after
+
+    # Host-sampled steps, the batch counts cut in the trainer object.
+    t0 = time.perf_counter()
+    tr = train.Trainer(dataclasses.replace(
+        train.parse_args(argv), sampler="host", log_dir=None), dataset=ds)
+    build_s = time.perf_counter() - t0
+    tr.n_cf_batches = tr.n_kg_batches = 3
+    t0 = time.perf_counter()
+    cf, kg = tr.train_one_epoch()
+    host_s = time.perf_counter() - t0
+    if not (math.isfinite(cf) and math.isfinite(kg)):
+        raise AssertionError(f"host-sampled losses {cf}, {kg}")
+    print(f"[9/9] {resume_line}; {pretrain_line}; {sparse_line}; "
+          f"--sampler host: trainer with the host samplers built in "
+          f"{build_s:.1f} s, 3 CF and 3 KG steps (and a recompute) in "
+          f"{host_s:.2f} s, cf_loss {cf:.4f}, kg_loss {kg:.4f} ({smi_line})",
+          flush=True)
+
+
+def correction_error(b: float, t: float) -> float:
+    """The relative error of Adam's bias correction 1 - b^t in float32:
+    b and b^t each rounded (b^t's error grows with t), then a difference
+    that cancels where b^t is near 1 (b2 = 0.999 at small t)."""
+    return b ** t * (t + 2) * U / (1 - b ** t) + U
+
+
+def check_sparse_step(tr, before, after, loss, batch, check) -> str:
+    """The lazy KG step (``after`` from ``before`` on ``batch``) against
+    ``sparse_kg_step_plain`` in float64: the loss to LOSS_RTOL; the
+    touched rows' moments (and the relation tables') under stat_bound,
+    the longest reduction being the relation width times the most
+    repeats of an id; the parameters against the update recomputed in
+    float64 from the step's own moments, within 4 roundings; untouched
+    rows and the conv weights (values and moments) bit-equal to before;
+    every step count advanced by one."""
+    loss64, want, touched = optim.sparse_kg_step_plain(
+        tr.model, tr.opt, *batch[:4], tr.cfg.model, batch[4])
+    if abs(loss - loss64) > LOSS_RTOL * abs(loss64):
+        raise AssertionError(f"sparse KG step loss {loss} vs {loss64}")
+    lr, (b1, b2), eps = (tr.opt.param_groups[0][k]
+                         for k in ("lr", "betas", "eps"))
+    count = float(before[1][0]["step"]) + 1
+    repeats = int(torch.unique(torch.cat([batch[0], batch[2], batch[3]]),
+                               return_counts=True)[1].max())
+    length = tr.cfg.model.relation_dim * repeats
+    rows = torch.as_tensor(touched, device=batch[0].device)
+    idx = {n: i for i, (n, _) in enumerate(tr.model.named_parameters())}
+    shares = []
+    for name, (p64, m64, v64) in want.items():
+        i = idx[name]
+        sel = rows if name == "entity_embed" else slice(None)
+        p, st, p0 = after[0][i], after[1][i], before[0][i]
+        m, v = st["exp_avg"], st["exp_avg_sq"]
+        for label, got, ref in (("exp_avg", m, m64), ("exp_avg_sq", v, v64)):
+            shares.append(check.bounded("sparse KG step", f"{name} {label}",
+                                        got[sel], ref[sel],
+                                        stat_bound(ref[sel], length))[2])
+        ratio = ((m[sel].double() / (1 - b1 ** count))
+                 / ((v[sel].double() / (1 - b2 ** count)).sqrt() + eps))
+        expect = p0[sel].double() - lr * ratio
+        shares.append(check.bounded(
+            "sparse KG step", f"{name} update", p[sel], expect,
+            lr * ratio.abs() * (8 * U + correction_error(b1, count)
+                                + correction_error(b2, count))
+            + 2 * U * expect.abs())[2])
+    keep = torch.ones(want["entity_embed"][0].shape[0], dtype=torch.bool,
+                      device=batch[0].device)
+    keep[rows] = False
+    i = idx["entity_embed"]
+    frozen = [(after[0][i][keep], before[0][i][keep])] + [
+        (after[1][i][k][keep], before[1][i][k][keep])
+        for k in ("exp_avg", "exp_avg_sq")]
+    for n, j in idx.items():
+        if n.startswith("layers."):
+            frozen += [(after[0][j], before[0][j])] + [
+                (after[1][j][k], before[1][j][k])
+                for k in ("exp_avg", "exp_avg_sq")]
+    if not all(torch.equal(a, b) for a, b in frozen):
+        raise AssertionError("the sparse KG step moved an untouched row or "
+                             "a conv weight")
+    if {float(st["step"]) for st in after[1]} != {count}:
+        raise AssertionError("the sparse KG step did not advance every "
+                             "step count")
+    return (f"--sparse-adam: first replayed KG step (batch "
+            f"{batch[0].numel()}, {len(touched)} rows touched, up to "
+            f"{repeats} repeats of an id) against the float64 oracle: loss "
+            f"{loss:.6f} vs {loss64:.6f}, moments and update within "
+            f"{max(shares):.3f} of their bounds; untouched rows and the "
+            f"conv weights unmoved, every step count + 1")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""kgat_tpu_torch — the KGAT serving path in PyTorch, with hand-written
-CUDA kernels for an NVIDIA Hopper GPU (sm_90a).
+"""kgat_tpu_torch — KGAT serving and training in PyTorch, with
+hand-written CUDA kernels for an NVIDIA Hopper GPU (sm_90a).
 
 A port of ``kgat_tpu`` (JAX/Pallas on a TPU), which stays beside it as the
 reference this package is tested against. The package imports ``torch``
@@ -7,14 +7,18 @@ and ``numpy`` and never ``jax`` or ``kgat_tpu``.
 
 Layer map (module names mirror ``kgat_tpu``):
   data      -> kgat_tpu_torch.data          (loaders, synthetic data; numpy)
-  graph     -> kgat_tpu_torch.graph         (dst-sorted COO + CSR, relation tiles)
+  graph     -> kgat_tpu_torch.graph         (CSR both ways, relation tiles)
   kernels   -> kgat_tpu_torch.ops           (plain torch path + Hopper kernels)
-  model     -> kgat_tpu_torch.models.kgat   (KGAT nn.Module, serving forward)
+  model     -> kgat_tpu_torch.models.kgat   (KGAT module, losses), models.bprmf
+  samplers  -> kgat_tpu_torch.sampler       (device and host samplers)
+  training  -> kgat_tpu_torch.train, optim  (captured steps, Adam, lazy Adam)
+  multi-GPU -> kgat_tpu_torch.parallel      (edge partitions in one process)
+  eval      -> kgat_tpu_torch.eval          (blocked full-ranking metrics)
   serving   -> kgat_tpu_torch.recommend     (checkpoint -> masked top-K)
-  checkpoint-> kgat_tpu_torch.utils.checkpoint (reads kgat_tpu checkpoints)
+  checkpoint-> kgat_tpu_torch.utils.checkpoint (kgat_tpu's format, both ways)
 
-Training (samplers, losses, optimizers, the backward kernels), eval,
-explain and multi-GPU are not ported yet; see ROADMAP.md.
+Explain, the graph cache and multi-host training are not ported yet; see
+ROADMAP.md.
 """
 
 __version__ = "0.1.0"

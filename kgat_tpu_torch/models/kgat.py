@@ -23,7 +23,7 @@ Randomness comes from explicit ``torch.Generator``s: the dropout masks of
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -105,11 +105,17 @@ class KGAT(nn.Module):
 
 
 def init_params(n_nodes: int, n_relations: int, cfg: KGATConfig, *,
-                generator: torch.Generator, device=None) -> KGAT:
+                generator: torch.Generator, device=None,
+                pretrain=None) -> KGAT:
     """Xavier-uniform weights, zero biases (the JAX package's init rule;
     the numbers differ, as the generators do). Weights are drawn on the
     CPU from ``generator`` and then moved, so a seed gives the same model
-    on every device."""
+    on every device.
+
+    ``pretrain``: optional ``(user_embed, item_embed, n_entities)``, the
+    BPR-MF embeddings of a ``--use-pretrain`` npz (``models/bprmf.py``):
+    item rows go to entity ids [0, n_items), user rows to n_entities +
+    uid, as ``kgat_tpu``'s ``init_params`` places them."""
     model = KGAT(n_nodes, n_relations, cfg, device="cpu")
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -118,6 +124,16 @@ def init_params(n_nodes: int, n_relations: int, cfg: KGATConfig, *,
             else:
                 limit = (6.0 / (p.shape[-2] + p.shape[-1])) ** 0.5
                 p.uniform_(-limit, limit, generator=generator)
+        if pretrain is not None:
+            user_embed, item_embed, n_entities = pretrain
+            user_embed = torch.as_tensor(np.asarray(user_embed, np.float32))
+            item_embed = torch.as_tensor(np.asarray(item_embed, np.float32))
+            if (user_embed.shape[1] != cfg.embed_dim
+                    or item_embed.shape[1] != cfg.embed_dim):
+                raise ValueError("pretrain dims do not match embed_dim")
+            emb = model.entity_embed
+            emb[:item_embed.shape[0]] = item_embed
+            emb[n_entities:n_entities + user_embed.shape[0]] = user_embed
     return model.to(device)
 
 
@@ -129,9 +145,20 @@ def params_from_jax(params: Dict[str, Any], cfg: KGATConfig, *,
     n_nodes = np.shape(params["entity_embed"])[0]
     n_relations = np.shape(params["rel_embed"])[0]
     model = KGAT(n_nodes, n_relations, cfg, device=device)
+    copy_params_(model, params)
+    return model
+
+
+def copy_params_(model: KGAT, tree: Dict[str, Any],
+                 of: Callable[[torch.Tensor], torch.Tensor] = lambda p: p
+                 ) -> None:
+    """Copies a ``kgat_tpu``-shaped numpy pytree into ``of(p)`` for each
+    parameter p, in place: the parameters themselves, or for example
+    their Adam moments. The tree must name every parameter, with its
+    shape."""
     expected = {name for name, _ in model.named_parameters()}
     given = {"entity_embed", "rel_embed", "w_rel"} | {
-        f"layers.{i}.{name}" for i, layer in enumerate(params["layers"])
+        f"layers.{i}.{name}" for i, layer in enumerate(tree["layers"])
         for name in layer}
     if given != expected:
         raise ValueError(f"params do not match the config: missing "
@@ -139,21 +166,23 @@ def params_from_jax(params: Dict[str, Any], cfg: KGATConfig, *,
                          f"{sorted(given - expected)}")
     with torch.no_grad():
         for name, p in model.named_parameters():
-            node = params
+            node = tree
             for part in name.split("."):
                 node = node[int(part)] if part.isdigit() else node[part]
             value = torch.tensor(np.asarray(node, dtype=np.float32))
             if value.shape != p.shape:
                 raise ValueError(f"{name}: shape {tuple(value.shape)}, "
                                  f"config wants {tuple(p.shape)}")
-            p.copy_(value)
-    return model
+            of(p).copy_(value)
 
 
-def numpy_params(model: KGAT) -> Dict[str, Any]:
-    """The model's parameters as a ``kgat_tpu``-shaped numpy pytree (the
-    inverse of :func:`params_from_jax`)."""
-    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+def numpy_params(model: KGAT,
+                 of: Callable[[torch.Tensor], torch.Tensor] = lambda p: p
+                 ) -> Dict[str, Any]:
+    """``of(p)`` for each parameter p (default: the parameters) as a
+    ``kgat_tpu``-shaped numpy pytree (the inverse of
+    :func:`params_from_jax` and :func:`copy_params_`)."""
+    host = lambda t: of(t).detach().cpu().numpy()  # noqa: E731
     return {"entity_embed": host(model.entity_embed),
             "rel_embed": host(model.rel_embed),
             "w_rel": host(model.w_rel),
@@ -212,16 +241,41 @@ def aggregate(ego: torch.Tensor, side: torch.Tensor, layer,
             + _leaky((ego * side) @ layer["w2"] + layer["b2"], slope))
 
 
+def dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
+                 device) -> torch.Tensor:
+    """The keep mask of message dropout: each entry kept with probability
+    1 - rate, drawn from ``generator``."""
+    if generator is None:
+        raise ValueError("message dropout needs a generator")
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def apply_dropout(ego: torch.Tensor, mask: torch.Tensor,
+                  rate: float) -> torch.Tensor:
+    """The kept entries scaled by 1 / (1 - rate), the others 0."""
+    keep = 1.0 - rate
+    return torch.where(mask, ego / keep, 0.0)
+
+
 def dropout(ego: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Message dropout: each entry kept with probability 1 - rate and
     scaled by 1 / (1 - rate), with the mask drawn from ``generator``."""
-    if generator is None:
-        raise ValueError("message dropout needs a generator")
-    keep = 1.0 - rate
-    mask = torch.rand(ego.shape, generator=generator,
-                      device=ego.device) < keep
-    return torch.where(mask, ego / keep, 0.0)
+    return apply_dropout(
+        ego, dropout_mask(ego.shape, rate, generator, ego.device), rate)
+
+
+def dropout_masks(cfg: KGATConfig, n_nodes: int,
+                  generator: Optional[torch.Generator],
+                  device) -> List[Optional[torch.Tensor]]:
+    """The keep masks of one training forward over ``n_nodes`` nodes, one
+    per layer (None where the rate is 0), drawn from ``generator`` in
+    layer order: the same numbers :func:`propagate` draws when it is given
+    no masks."""
+    check_dropout(cfg)
+    return [dropout_mask((n_nodes, d_out), rate, generator, device)
+            if rate > 0 else None
+            for d_out, rate in zip(cfg.conv_dims, cfg.mess_dropout)]
 
 
 def check_dropout(cfg: KGATConfig) -> None:
@@ -232,12 +286,15 @@ def check_dropout(cfg: KGATConfig) -> None:
 
 def propagate(model: KGAT, graph: Graph, edge_att, cfg: KGATConfig, *,
               train: bool = False,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None,
+              masks: Optional[Sequence[Optional[torch.Tensor]]] = None
+              ) -> torch.Tensor:
     """L-layer attentive propagation -> (n_nodes, cfg.out_dim).
 
     SpMM per layer: e_N(h) = sum over edges (t -> h) of att * e_t.
     ``edge_att`` is canonical (E,) weights or staged :class:`EdgeWeights`.
-    ``train=True`` applies message dropout, with masks drawn from
+    ``train=True`` applies message dropout, with the keep masks ``masks``
+    (:func:`dropout_masks`) or, without them, masks drawn from
     ``generator`` (on the graph's device).
     """
     ops = get_backend(cfg.ops_backend)
@@ -249,8 +306,10 @@ def propagate(model: KGAT, graph: Graph, edge_att, cfg: KGATConfig, *,
     for li, layer in enumerate(model.layers):
         side = ops.spmm(graph, edge_att, ego if low is None else ego.to(low))
         ego = aggregate(ego, side, layer, cfg)
-        if train and cfg.mess_dropout[li] > 0:
-            ego = dropout(ego, cfg.mess_dropout[li], generator)
+        rate = cfg.mess_dropout[li]
+        if train and rate > 0:
+            ego = (dropout(ego, rate, generator) if masks is None
+                   else apply_dropout(ego, masks[li], rate))
         outs.append(l2norm(ego))
     return torch.cat(outs, dim=-1)
 
@@ -272,8 +331,10 @@ def _l2_reg_mean(*tensors: torch.Tensor) -> torch.Tensor:
     return sum(0.5 * (t.float() ** 2).sum() for t in tensors) / b
 
 
-def _weighted_mean(terms: torch.Tensor,
-                   weight: Optional[torch.Tensor]) -> torch.Tensor:
+def weighted_mean(terms: torch.Tensor,
+                  weight: Optional[torch.Tensor]) -> torch.Tensor:
+    """The mean of ``terms``, or their ``weight``-weighted mean over a
+    total weight of at least 1."""
     if weight is None:
         return terms.mean()
     return (terms * weight).sum() / weight.sum().clamp(min=1.0)
@@ -283,17 +344,20 @@ def cf_loss(model: KGAT, graph: Graph, edge_att, meta: CKGMeta,
             users: torch.Tensor, pos_items: torch.Tensor,
             neg_items: torch.Tensor, cfg: KGATConfig, *,
             generator: Optional[torch.Generator] = None, train: bool = True,
-            weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+            weight: Optional[torch.Tensor] = None,
+            masks: Optional[Sequence[Optional[torch.Tensor]]] = None
+            ) -> torch.Tensor:
     """BPR loss over a minibatch with full-graph propagation (SURVEY.md
     §3.3). ``weight`` (B,) optionally down-weights batch rows (the device
-    sampler gives weight 0 to a row with no allowed negative)."""
+    sampler gives weight 0 to a row with no allowed negative); ``masks``
+    are the dropout masks (:func:`propagate`)."""
     all_embed = propagate(model, graph, edge_att, cfg, train=train,
-                          generator=generator)
+                          generator=generator, masks=masks)
     u = all_embed[meta.user_node(users)]
     ip = all_embed[pos_items]
     ineg = all_embed[neg_items]
     bpr = -F.logsigmoid((u * ip).sum(-1) - (u * ineg).sum(-1))
-    return _weighted_mean(bpr, weight) + cfg.reg_cf * _l2_reg_mean(u, ip,
+    return weighted_mean(bpr, weight) + cfg.reg_cf * _l2_reg_mean(u, ip,
                                                                    ineg)
 
 
@@ -329,4 +393,4 @@ def kg_loss(model: KGAT, h: torch.Tensor, r: torch.Tensor,
     g(h,r,t+)), plus ``reg_kg`` times the mean regularizer. No graph ops
     (SURVEY.md §3.4)."""
     pair, ssq = kg_pair_terms(model, h, r, t_pos, t_neg)
-    return _weighted_mean(pair, weight) + cfg.reg_kg * ssq / h.shape[0]
+    return weighted_mean(pair, weight) + cfg.reg_kg * ssq / h.shape[0]

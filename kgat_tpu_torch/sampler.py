@@ -1,11 +1,13 @@
 """Minibatch samplers on the device: BPR (u, i+, i-) and TransR
 (h, r, t+, t-).
 
-Port of ``kgat_tpu/sampler.py``'s device path (``--sampler device``, the
-default). The tables live on the device; a batch is a few vectorised
+Port of ``kgat_tpu/sampler.py``. The device path (``--sampler device``,
+the default): the tables live on the device; a batch is a few vectorised
 gathers and one binary search, with randomness from an explicit
-``torch.Generator`` on the same device. The JAX package's host samplers
-(``--sampler host``) are not ported yet.
+``torch.Generator`` on the same device. The host samplers (``--sampler
+host``, :class:`HostCFSampler` and :class:`HostKGSampler`) are
+``kgat_tpu``'s numpy rejection loops, which draw the same batches as
+``kgat_tpu``'s from the same seed and data.
 
 The negative draw is direct, not rejection sampling: a rank k is drawn
 uniformly among the values the row may take (items the user has not
@@ -163,3 +165,59 @@ def sample_kg_batch(table: KGSampleTable, generator: torch.Generator,
     valid = n_allowed > 0
     return (h, r, t_pos, torch.where(valid, t_neg, 0),
             valid.to(torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# Host samplers (the reference's numpy rejection sampling), for parity runs.
+# ---------------------------------------------------------------------------
+
+class HostCFSampler:
+    """(u, i+, i-) in numpy: users uniform over users with interactions,
+    a positive uniform over the user's items, a negative by rejection
+    (``kgat_tpu.sampler.HostCFSampler``, draw for draw)."""
+
+    def __init__(self, train_user_dict, n_items: int, seed: int = 0):
+        self.dict = {u: set(v.tolist()) for u, v in train_user_dict.items()}
+        self.users = np.asarray(sorted(self.dict), dtype=np.int64)
+        self.items_by_user = {u: np.asarray(sorted(s), dtype=np.int64)
+                              for u, s in self.dict.items()}
+        self.n_items = n_items
+        self.rng = np.random.default_rng(seed)
+
+    def sample(self, batch_size: int):
+        u = self.rng.choice(self.users, size=batch_size)
+        i_pos = np.empty(batch_size, np.int64)
+        i_neg = np.empty(batch_size, np.int64)
+        for k, uu in enumerate(u):
+            items = self.items_by_user[int(uu)]
+            i_pos[k] = items[self.rng.integers(len(items))]
+            while True:
+                cand = int(self.rng.integers(self.n_items))
+                if cand not in self.dict[int(uu)]:
+                    i_neg[k] = cand
+                    break
+        return u, i_pos, i_neg
+
+
+class HostKGSampler:
+    """(h, r, t+, t-) in numpy: a triple uniform over the list, a negative
+    tail by rejection against the set of triples
+    (``kgat_tpu.sampler.HostKGSampler``, draw for draw)."""
+
+    def __init__(self, triples: np.ndarray, n_entities: int, seed: int = 0):
+        self.triples = np.asarray(triples, dtype=np.int64)
+        self.existing = set(map(tuple, self.triples.tolist()))
+        self.n_entities = n_entities
+        self.rng = np.random.default_rng(seed)
+
+    def sample(self, batch_size: int):
+        idx = self.rng.integers(len(self.triples), size=batch_size)
+        h, r, t_pos = self.triples[idx].T
+        t_neg = np.empty(batch_size, np.int64)
+        for k in range(batch_size):
+            while True:
+                cand = int(self.rng.integers(self.n_entities))
+                if (int(h[k]), int(r[k]), cand) not in self.existing:
+                    t_neg[k] = cand
+                    break
+        return h, r, t_pos, t_neg

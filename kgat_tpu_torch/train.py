@@ -1,11 +1,11 @@
 """Alternating-phase KGAT trainer on one GPU.
 
-Port of ``kgat_tpu/train.py``'s single-device path with the device
-sampler and dense Adam. Per epoch (SURVEY.md §3.1): the BPR CF loss over
-all CF minibatches, then the TransR KG loss over all KG minibatches, then
-the edge attention recomputed with no gradient, which serves evaluation
-and the next epoch's CF phase. Evaluation runs every ``eval_every``
-epochs, with early stopping on recall@K and best/last checkpoints.
+Port of ``kgat_tpu/train.py``. Per epoch (SURVEY.md §3.1): the BPR CF
+loss over all CF minibatches, then the TransR KG loss over all KG
+minibatches, then the edge attention recomputed with no gradient, which
+serves evaluation and the next epoch's CF phase. Evaluation runs every
+``eval_every`` epochs, with early stopping on recall@K and best/last
+checkpoints.
 
     python -m kgat_tpu_torch.train --dataset yelp2018 --epochs 400
     python -m kgat_tpu_torch.train --device cpu --ops-backend ref \\
@@ -25,32 +25,51 @@ step on a global batch, batch sizes rounded up to a multiple of P:
     python -m kgat_tpu_torch.train --dataset yelp2018 --n-devices 4 \\
         --halo-exchange ring --ring-transport fused
 
-PyTorch runs eagerly, so each step is its own sequence of launches; the
-losses stay on the device through an epoch and are read once at its end.
+On CUDA the single-device trainer's device-sampled epoch replays two
+CUDA graphs, one CF step and one KG step each captured once
+(:class:`StepGraph`, where ``kgat_tpu`` runs chunked ``lax.scan``s): one
+host call a step, where an eager step makes some 400 launches. The CPU,
+the partitioned trainer and ``--sampler host`` (numpy batches from
+``kgat_tpu``'s host samplers, one step per batch) run eagerly. The losses
+stay on the device through an epoch and are read once at its end.
+
 One ``torch.optim.Adam`` with optax's defaults spans every parameter in
-both phases, and every parameter gets a gradient at every step (zeros
-where the phase does not touch it), because optax steps leaves with a
-zero gradient where torch would skip a parameter whose ``.grad`` is None.
+both phases (``optim.make_optimizer``), and every parameter gets a
+gradient at every step (zeros where the phase does not touch it), because
+optax steps leaves with a zero gradient where torch would skip a parameter
+whose ``.grad`` is None. ``--sparse-adam`` runs the KG phase's update
+lazily over the rows the batch touches (``optim.sparse_kg_step``).
+
+Checkpoints hold the full state in ``kgat_tpu``'s format (params, Adam's
+moments and count, the counters, and the port's generator states), and
+``--resume`` continues from the newer of the best and last ones, a
+``kgat_tpu`` checkpoint too. ``--use-pretrain mf.npz`` starts the user and
+item rows from BPR-MF embeddings (``python -m kgat_tpu_torch.models.bprmf``).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from kgat_tpu_torch import eval as evaluation
 from kgat_tpu_torch.data import Dataset, load_dataset, synthetic_dataset
+from kgat_tpu_torch.graph import EdgeWeights
 from kgat_tpu_torch.models import kgat
+from kgat_tpu_torch.ops.hopper import build
+from kgat_tpu_torch.optim import (adam_count, make_optimizer, set_adam_count,
+                                  sparse_kg_step)
 from kgat_tpu_torch.parallel import dp, halo
 from kgat_tpu_torch.parallel.partition import (build_ring_buckets,
                                                partition_graph)
 from kgat_tpu_torch.recommend import disable_tf32
-from kgat_tpu_torch.sampler import (CFSampleTable, KGSampleTable,
+from kgat_tpu_torch.sampler import (CFSampleTable, HostCFSampler,
+                                    HostKGSampler, KGSampleTable,
                                     sample_cf_batch, sample_kg_batch)
-from kgat_tpu_torch.utils.checkpoint import save_params
+from kgat_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from kgat_tpu_torch.utils.config import TrainConfig, parse_args
 from kgat_tpu_torch.utils.logging import RunLogger
 
@@ -64,17 +83,90 @@ def load_any_dataset(cfg: TrainConfig) -> Dataset:
     return load_dataset(cfg.data_root, cfg.dataset)
 
 
-def make_optimizer(params, lr: float) -> torch.optim.Adam:
-    """One Adam over every parameter with ``optax.adam``'s defaults (b1
-    0.9, b2 0.999, eps 1e-8 outside the square root). Each parameter gets a
-    zero ``.grad`` now, and the steps zero it in place (``zero_grad(
-    set_to_none=False)``), so a parameter that a loss does not reach still
-    takes its step, as an optax leaf whose gradient is 0 does, and all
-    share one step count."""
-    params = list(params)
-    for p in params:
-        p.grad = torch.zeros_like(p)
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+class StepGraph:
+    """Training steps replayed from a CUDA graph: the port's counterpart of
+    ``kgat_tpu/train.py``'s ``_chunked_epoch``, which runs an epoch's
+    steps as a few device calls.
+
+    ``body()`` runs one step (sample, loss, backward, Adam) and returns
+    its loss on the device; :meth:`run` runs n steps and returns the sum
+    of their losses, still on the device. On CUDA the first step is run
+    eagerly on a side stream, as a warm-up (it is a real step, the run's
+    first), then one step is captured into a CUDA graph with
+    ``generator`` registered, so that each replay draws fresh numbers
+    from it; every later step is a replay, one host call. A capture that
+    fails raises, and nothing runs the step eagerly in its place. On the
+    CPU, which cannot capture, every step runs ``body()``.
+
+    What the body reads must keep its address between replays: the
+    parameters, their ``.grad``, Adam's state, and staged inputs that the
+    caller refreshes with ``copy_``. What it allocates (a batch, dropout
+    masks, the loss) lives in the graph's memory pool and each replay
+    writes it anew, so a reference the body keeps to it shows the latest
+    replay's values.
+    """
+
+    def __init__(self, body: Callable[[], torch.Tensor],
+                 generator: torch.Generator, device: torch.device):
+        self.body = body
+        self.generator = generator
+        self.device = device
+        self.loss_sum = torch.zeros((), device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.replays = 0
+        # Wrapper calls the capture recorded (each launches at a replay).
+        self.calls: Dict[str, int] = {}
+
+    def _step(self) -> None:
+        self.loss_sum += self.body()
+
+    def capture(self) -> None:
+        """The warm-up step on a side stream, then the capture."""
+        if self.device.type != "cuda":
+            raise RuntimeError(f"CUDA graphs need a CUDA device, not "
+                               f"{self.device}")
+        stream = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self._step()
+        stream.wait_stream(side)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.register_generator_state(self.generator)
+        before = dict(build.launch_counts)
+        with torch.cuda.graph(graph):
+            self._step()
+        graph.instantiate()
+        self.calls = {k: n - before.get(k, 0)
+                      for k, n in build.launch_counts.items()
+                      if n != before.get(k, 0)}
+        self.graph = graph
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.replays += 1
+
+    def run(self, n: int) -> torch.Tensor:
+        """n steps; the sum of their losses on the device."""
+        self.loss_sum.zero_()
+        if self.device.type != "cuda":
+            for _ in range(n):
+                self._step()
+            return self.loss_sum
+        done = 0
+        if self.graph is None and n > 0:
+            self.capture()
+            done = 1
+        for _ in range(n - done):
+            self.replay()
+        return self.loss_sum
+
+
+def reseed(seed: int, epoch: int, stream: int = 0) -> int:
+    """A generator seed from (seed, epoch, stream), for a resume from a
+    checkpoint that holds no torch generator state."""
+    return int(np.random.SeedSequence([seed, epoch, stream])
+               .generate_state(1)[0])
 
 
 class Trainer:
@@ -88,7 +180,7 @@ class Trainer:
         self.ds = dataset if dataset is not None else load_any_dataset(cfg)
         graph, self.meta = self.ds.build()
         self.graph = graph.to(dev)
-        self.logger = RunLogger(cfg.log_dir, cfg.run_name)
+        self.logger = RunLogger(cfg.log_dir, cfg.run_name, resume=cfg.resume)
 
         # Samplers: CF over train interactions; KG over all CKG triples.
         self.cf_table = CFSampleTable.build(
@@ -109,18 +201,46 @@ class Trainer:
 
         # Weights are drawn on the CPU (one seed, one model on every
         # device); batches and dropout masks from a generator on the device.
+        pretrain = None
+        if cfg.pretrain_path:
+            # The reference's --use_pretrain: a BPR-MF npz.
+            with np.load(cfg.pretrain_path) as z:
+                pretrain = (z["user_embed"], z["item_embed"],
+                            self.meta.n_entities)
+            self.logger.log("pretrain", path=cfg.pretrain_path,
+                            user_rows=len(pretrain[0]),
+                            item_rows=len(pretrain[1]))
         self.model = kgat.init_params(
             self.meta.n_nodes, self.meta.n_relations, cfg.model,
-            generator=torch.Generator().manual_seed(cfg.seed), device=dev)
+            generator=torch.Generator().manual_seed(cfg.seed), device=dev,
+            pretrain=pretrain)
         self.generator = torch.Generator(device=dev).manual_seed(cfg.seed)
-        self.opt = make_optimizer(self.model.parameters(), cfg.lr)
-        self.cf_batch_size, self.kg_batch_size = (cfg.cf_batch_size,
-                                                  cfg.kg_batch_size)
         self.n_parts = dp.n_parts_for(cfg.n_devices, dev)
         self.partitioned = self.n_parts > 1
+        # Adam is capturable where the steps are captured, and only there:
+        # its device-side bias corrections add 38 launches to an eager
+        # step, which gains nothing from them.
+        self.opt = make_optimizer(
+            self.model.parameters(), cfg.lr,
+            capturable=(dev.type == "cuda" and not self.partitioned
+                        and cfg.sampler == "device"))
+        self.cf_batch_size, self.kg_batch_size = (cfg.cf_batch_size,
+                                                  cfg.kg_batch_size)
         self.part: Optional[halo.Partitioned] = None
         if self.partitioned:
             self._build_partitioned(graph)
+        elif cfg.sampler == "host":
+            self._host_cf = HostCFSampler(self.ds.train_user_dict,
+                                          self.meta.n_items, cfg.seed)
+            self._host_kg = HostKGSampler(ckg_triples, self.meta.n_nodes,
+                                          cfg.seed)
+        # The device-sampled steps, captured on CUDA; the batch and dropout
+        # masks each one drew (cf_drawn, kg_drawn) and the attention its
+        # CF steps read (_step_att, refreshed with copy_ every epoch).
+        self.cf_steps = StepGraph(self._cf_body, self.generator, dev)
+        self.kg_steps = StepGraph(self._kg_body, self.generator, dev)
+        self.cf_drawn = self.kg_drawn = None
+        self._step_att: Optional[EdgeWeights] = None
         self.epoch = 0
         self.best_metric = -1.0
         self.bad_evals = 0
@@ -137,6 +257,11 @@ class Trainer:
         ``kg_step`` on the global batch: in one process it is the
         data-parallel TransR loss (``parallel/dp.py``)."""
         cfg, P = self.cfg, self.n_parts
+        if cfg.sparse_adam:
+            raise ValueError(
+                "--sparse-adam is single-device only: the data-parallel "
+                "KG step updates DENSE gradient trees (parallel/dp.py); "
+                "drop the flag or --n-devices")
         mesh = dp.make_mesh(P, self.device)
         src, dst = graph.src.numpy(), graph.dst.numpy()
         shards, self.pinfo = partition_graph(
@@ -175,12 +300,13 @@ class Trainer:
 
     def cf_grad(self, att, u, i_pos, i_neg, weight=None, *,
                 generator: Union[None, torch.Generator,
-                                 Sequence[torch.Generator]] = None
-                ) -> torch.Tensor:
+                                 Sequence[torch.Generator]] = None,
+                masks=None) -> torch.Tensor:
         """The BPR loss of one batch, with its gradient in every
         parameter's ``.grad`` (zeros for ``w_rel`` and ``rel_embed``).
-        Dropout masks come from ``generator`` (default: the trainer's),
-        or when partitioned from one generator per partition (default:
+        Dropout applies ``masks`` (``kgat.dropout_masks``) or draws its
+        masks from ``generator`` (default: the trainer's), or when
+        partitioned from one generator per partition (default:
         ``part_generators``)."""
         self.opt.zero_grad(set_to_none=False)
         if self.partitioned:
@@ -191,15 +317,16 @@ class Trainer:
             loss = kgat.cf_loss(self.model, self.graph, att, self.meta, u,
                                 i_pos, i_neg, self.cfg.model,
                                 generator=generator or self.generator,
-                                train=True, weight=weight)
+                                train=True, weight=weight, masks=masks)
         loss.backward()
         return loss.detach()
 
     def cf_step(self, att, u, i_pos, i_neg, weight=None, *,
-                generator=None) -> torch.Tensor:
+                generator=None, masks=None) -> torch.Tensor:
         """One CF step: loss, gradient, Adam update. Returns the loss on
         the device."""
-        loss = self.cf_grad(att, u, i_pos, i_neg, weight, generator=generator)
+        loss = self.cf_grad(att, u, i_pos, i_neg, weight, generator=generator,
+                            masks=masks)
         self.opt.step()
         return loss
 
@@ -213,28 +340,77 @@ class Trainer:
         return loss.detach()
 
     def kg_step(self, h, r, t_pos, t_neg, weight=None) -> torch.Tensor:
-        """One KG step: loss, gradient, Adam update. Returns the loss on
-        the device."""
+        """One KG step: loss, gradient, Adam update (lazy under
+        ``--sparse-adam``, which leaves ``.grad`` as it is). Returns the
+        loss on the device."""
+        if self.cfg.sparse_adam:
+            return sparse_kg_step(self.model, self.opt, h, r, t_pos, t_neg,
+                                  self.cfg.model, weight)
         loss = self.kg_grad(h, r, t_pos, t_neg, weight)
         self.opt.step()
         return loss
+
+    def _cf_body(self) -> torch.Tensor:
+        """One device-sampled CF step on the staged attention: the batch,
+        then the dropout masks, drawn from the trainer's generator (the
+        draws :meth:`cf_step` makes given the batch alone)."""
+        u, i_pos, i_neg, weight = self.sample_cf()
+        masks = kgat.dropout_masks(self.cfg.model, self.meta.n_nodes,
+                                   self.generator, self.device)
+        self.cf_drawn = (u, i_pos, i_neg, weight, masks)
+        return self.cf_step(self._step_att, u, i_pos, i_neg, weight,
+                            masks=masks)
+
+    def _kg_body(self) -> torch.Tensor:
+        """One device-sampled KG step."""
+        self.kg_drawn = self.sample_kg()
+        return self.kg_step(*self.kg_drawn)
+
+    def stage(self, att: EdgeWeights) -> None:
+        """Copies the epoch's attention into the buffers the CF steps read,
+        which keep their addresses, as a captured step needs."""
+        if self._step_att is None:
+            self._step_att = EdgeWeights(att.fwd.clone(), att.rev.clone())
+        else:
+            self._step_att.fwd.copy_(att.fwd)
+            self._step_att.rev.copy_(att.rev)
 
     def train_one_epoch(self) -> Tuple[float, float]:
         att = self._att if self._att is not None else self.attention()
         self._att = None  # params are about to change
         try:
-            cf_sum = torch.zeros((), device=self.device)
-            for _ in range(self.n_cf_batches):
-                cf_sum += self.cf_step(att, *self.sample_cf())
-            kg_sum = torch.zeros((), device=self.device)
-            for _ in range(self.n_kg_batches):
-                kg_sum += self.kg_step(*self.sample_kg())
-            return (float(cf_sum) / self.n_cf_batches,
-                    float(kg_sum) / self.n_kg_batches)
+            if self.partitioned:
+                return self._partitioned_epoch(att)
+            if self.cfg.sampler == "host":
+                return self._host_sampled_epoch(att)
+            self.stage(att)
+            cf = float(self.cf_steps.run(self.n_cf_batches))
+            kg = float(self.kg_steps.run(self.n_kg_batches))
+            return cf / self.n_cf_batches, kg / self.n_kg_batches
         finally:
             # Reference order (SURVEY.md §3.1): attention recomputed after
             # the KG phase, reused by evaluate() and the next epoch.
             self._att = self.attention()
+
+    def _partitioned_epoch(self, att) -> Tuple[float, float]:
+        cf_sum = torch.zeros((), device=self.device)
+        for _ in range(self.n_cf_batches):
+            cf_sum += self.cf_step(att, *self.sample_cf())
+        kg_sum = torch.zeros((), device=self.device)
+        for _ in range(self.n_kg_batches):
+            kg_sum += self.kg_step(*self.sample_kg())
+        return (float(cf_sum) / self.n_cf_batches,
+                float(kg_sum) / self.n_kg_batches)
+
+    def _host_sampled_epoch(self, att) -> Tuple[float, float]:
+        """One eager step per batch of the host samplers, weight None
+        (``kgat_tpu/train.py:371-389``)."""
+        on = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
+        cf = [self.cf_step(att, *map(on, self._host_cf.sample(
+            self.cf_batch_size))) for _ in range(self.n_cf_batches)]
+        kg = [self.kg_step(*map(on, self._host_kg.sample(
+            self.kg_batch_size))) for _ in range(self.n_kg_batches)]
+        return float(torch.stack(cf).mean()), float(torch.stack(kg).mean())
 
     def all_embed(self) -> torch.Tensor:
         """The eval-mode forward over the cached attention."""
@@ -259,30 +435,86 @@ class Trainer:
         return self.ckpt_path() + "_last"
 
     def _save_ckpt(self, path: str) -> None:
-        """Params and the JSON sidecar in ``kgat_tpu``'s format, which
-        ``kgat_tpu_torch.recommend`` and ``kgat_tpu``'s ``load_params``
-        read. The Adam state and the generator are not saved yet
-        (``--resume`` is ROADMAP.md queue 1, item 7)."""
-        mc = self.cfg.model
-        save_params(path, kgat.numpy_params(self.model), {
-            "epoch": self.epoch, "best_metric": float(self.best_metric),
-            "bad_evals": self.bad_evals,
-            "model": {"embed_dim": mc.embed_dim,
-                      "relation_dim": mc.relation_dim,
-                      "conv_dims": list(mc.conv_dims),
-                      "aggregator": mc.aggregator,
-                      "mess_dropout": list(mc.mess_dropout)},
-            "dataset": self.cfg.dataset})
+        """The full state in ``kgat_tpu``'s format (``utils/checkpoint.py``):
+        params, Adam's moments and count, the counters, and the port's
+        generator states, which ``kgat_tpu`` ignores. ``rng`` is JAX key
+        data made from (seed, epoch), not the state of a generator here:
+        ``kgat_tpu`` resumes from it with a stream of its own."""
+        mc, state = self.cfg.model, self.opt.state
+        moments = {key: kgat.numpy_params(self.model,
+                                          lambda p, key=key: state[p][key])
+                   for key in ("exp_avg", "exp_avg_sq")}
+        own = {"generator": self.generator.get_state().numpy()}
+        if self.partitioned:
+            own.update({f"part_generator/{p}": g.get_state().numpy()
+                        for p, g in enumerate(self.part_generators)})
+        save_checkpoint(
+            path, kgat.numpy_params(self.model), moments["exp_avg"],
+            moments["exp_avg_sq"], adam_count(self.opt), epoch=self.epoch,
+            rng=np.array([self.cfg.seed % 2 ** 32, self.epoch], np.uint32),
+            best_metric=self.best_metric, bad_evals=self.bad_evals, own=own,
+            extra={"model": {"embed_dim": mc.embed_dim,
+                             "relation_dim": mc.relation_dim,
+                             "conv_dims": list(mc.conv_dims),
+                             "aggregator": mc.aggregator,
+                             "mess_dropout": list(mc.mess_dropout)},
+                   "dataset": self.cfg.dataset})
+
+    def _resume(self) -> None:
+        """Restore from the newer (by epoch) of the best and last
+        checkpoints, as ``kgat_tpu/train.py:430-456`` does: params, Adam's
+        moments and count, epoch, best_metric and bad_evals, and the
+        generators' states. A ``kgat_tpu`` checkpoint holds no torch
+        generator state: the generators are then re-seeded from (seed,
+        epoch), and a ``rng_reseeded`` event says so."""
+        states = []
+        for path in (self.ckpt_path(), self.last_ckpt_path()):
+            try:
+                states.append((load_checkpoint(path), path))
+            except FileNotFoundError:
+                pass
+        if not states:
+            self.logger.log("resume_missing")
+            return
+        state, path = max(states, key=lambda s: s[0]["meta"]["epoch"])
+        opt_state = self.opt.state
+        kgat.copy_params_(self.model, state["params"])
+        for key, tree in (("exp_avg", state["mu"]),
+                          ("exp_avg_sq", state["nu"])):
+            kgat.copy_params_(self.model, tree,
+                              lambda p, key=key: opt_state[p][key])
+        set_adam_count(self.opt, state["count"])
+        meta = state["meta"]
+        self.epoch = meta["epoch"]
+        self.best_metric = meta["best_metric"]
+        self.bad_evals = meta["bad_evals"]
+        self._att = None  # params changed; recomputed when needed
+        gens = [self.generator] + (self.part_generators
+                                   if self.partitioned else [])
+        keys = ["generator"] + [f"part_generator/{p}"
+                                for p in range(len(gens) - 1)]
+        self.logger.log("resume", epoch=self.epoch, best=self.best_metric,
+                        bad_evals=self.bad_evals, source=path)
+        if all(k in state["own"] for k in keys):
+            for g, k in zip(gens, keys):
+                g.set_state(torch.from_numpy(state["own"][k]))
+        else:
+            for i, g in enumerate(gens):
+                g.manual_seed(reseed(self.cfg.seed, self.epoch, i))
+            self.logger.log("rng_reseeded", seed=self.cfg.seed,
+                            epoch=self.epoch)
 
     def train(self) -> dict:
         cfg = self.cfg
+        if cfg.resume:
+            self._resume()
         self.logger.log("start", dataset=self.ds.name,
                         n_nodes=self.meta.n_nodes, n_edges=self.graph.n_edges,
                         n_relations=self.meta.n_relations,
                         cf_batches=self.n_cf_batches,
                         kg_batches=self.n_kg_batches,
                         aggregator=cfg.model.aggregator,
-                        backend=cfg.model.ops_backend, sampler="device")
+                        backend=cfg.model.ops_backend, sampler=cfg.sampler)
         if cfg.profile_epochs > 0 and cfg.log_dir:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == "cuda":

@@ -4,6 +4,8 @@ Port of ``kgat_tpu/utils/config.py`` with the same flags. The defaults are
 the reference recipe (SURVEY.md §2.9) on one GPU: ``--device cuda
 --ops-backend hopper``. Flags whose module is not ported yet are refused
 with the ROADMAP.md item that will bring them, never accepted and ignored.
+On CUDA the single-device trainer's device-sampled epoch replays CUDA
+graphs of its steps (``train.StepGraph``); no flag turns that off.
 
 ``--n-devices P`` trains edge-partitioned over P partitions placed
 round-robin over the visible GPUs (``parallel/dp.py``); more partitions
@@ -30,7 +32,7 @@ class TrainConfig:
     # model (SURVEY.md §2.9 reference defaults)
     model: KGATConfig = dataclasses.field(
         default_factory=lambda: KGATConfig(ops_backend="hopper"))
-    # optimization: one dense Adam over every parameter, both phases
+    # optimization: one Adam over every parameter, both phases
     lr: float = 1e-4
     cf_batch_size: int = 1024
     kg_batch_size: int = 2048
@@ -41,11 +43,15 @@ class TrainConfig:
     ks: tuple = ()                      # extra report-only cutoffs, e.g. (40, 100)
     test_block: int = 2048
     seed: int = 1234
+    sampler: str = "device"             # device | host (numpy, per batch)
+    sparse_adam: bool = False           # lazy row-sparse Adam, KG phase
+    pretrain_path: Optional[str] = None  # BPR-MF npz (--use-pretrain)
     # infra
     device: str = "cuda"                # cuda | cpu (the plain path)
     log_dir: Optional[str] = "runs"
     run_name: str = "kgat"
     ckpt_path: Optional[str] = None     # defaults to <log_dir>/<run_name>_best
+    resume: bool = False                # restore the newer of best and last
     profile_epochs: int = 0             # torch.profiler trace of the first N epochs
     # edge partitioning (BASELINE config 5): > 1 partitions the CF phase;
     # 0 = one partition per visible GPU
@@ -101,15 +107,6 @@ _UNPORTED = (
     ("NUM_PROCESSES > 1", lambda a: int(os.environ.get("NUM_PROCESSES", 1))
      > 1, f"multi-host training over torch.distributed is not ported yet "
      f"{_ITEM_13}"),
-    ("--sparse-adam", lambda a: a.sparse_adam,
-     "lazy sparse Adam is not ported yet (ROADMAP.md queue 1, item 10)"),
-    ("--use-pretrain", lambda a: a.pretrain_path is not None,
-     "pretrain is not ported yet (ROADMAP.md queue 1, item 9)"),
-    ("--sampler host", lambda a: a.sampler == "host",
-     "the host samplers are not ported yet (ROADMAP.md queue 1, item 6)"),
-    ("--resume", lambda a: a.resume,
-     "the full-state checkpoint and resume are not ported yet (ROADMAP.md "
-     "queue 1, item 7)"),
     ("--graph-cache", lambda a: a.graph_cache is not None,
      "the npz graph cache is not ported yet (ROADMAP.md queue 1, item 2)"),
     ("--att-impl dense", lambda a: a.att_impl == "dense",
@@ -165,13 +162,18 @@ def parse_args(argv=None) -> TrainConfig:
                    help="comma-separated extra eval cutoffs; --k stays the "
                         "early-stopping metric")
     p.add_argument("--seed", type=int, default=None)
-    p.add_argument("--sampler", default=None, choices=["device", "host"])
+    p.add_argument("--sampler", default=None, choices=["device", "host"],
+                   help="device (default): batches drawn on the device; "
+                        "host: kgat_tpu's numpy samplers, one eager step "
+                        "per batch")
     p.add_argument("--sparse-adam", action="store_true", default=None,
-                   help="not ported yet (ROADMAP.md queue 1, item 10)")
+                   help="lazy row-sparse Adam for the KG phase "
+                        "(single device only)")
     p.add_argument("--log-dir", default=None)
     p.add_argument("--run-name", default=None)
     p.add_argument("--resume", action="store_true",
-                   help="not ported yet (ROADMAP.md queue 1, item 7)")
+                   help="restore the full state from the newer of the "
+                        "best and last checkpoints, and append to the log")
     p.add_argument("--n-devices", type=int, default=None,
                    help="partitions for edge-partitioned training, placed "
                         "round-robin over the visible GPUs (several may "
@@ -190,7 +192,9 @@ def parse_args(argv=None) -> TrainConfig:
                         "ring-shift kernel (K7), or the fused reduce + send "
                         "kernel (K8)")
     p.add_argument("--use-pretrain", dest="pretrain_path", default=None,
-                   help="not ported yet (ROADMAP.md queue 1, item 9)")
+                   help="BPR-MF npz (user_embed, item_embed) for the "
+                        "initial user and item rows "
+                        "(python -m kgat_tpu_torch.models.bprmf)")
     p.add_argument("--profile-epochs", type=int, default=None,
                    help="write a torch.profiler trace of the first N "
                         "epochs into --log-dir")
@@ -208,7 +212,8 @@ def parse_args(argv=None) -> TrainConfig:
     cfg = TrainConfig(**PRESETS[a.preset]) if a.preset else TrainConfig()
     for field in ("dataset", "data_root", "lr", "cf_batch_size",
                   "kg_batch_size", "epochs", "eval_every", "stopping_steps",
-                  "k", "seed", "device", "log_dir", "run_name",
+                  "k", "seed", "sampler", "sparse_adam", "pretrain_path",
+                  "resume", "device", "log_dir", "run_name",
                   "profile_epochs", "n_devices", "halo_exchange",
                   "ring_transport", "syn_users", "syn_items", "syn_entities",
                   "syn_relations", "syn_interactions", "syn_triples"):

@@ -15,19 +15,21 @@ from typing import Any, Dict, Optional
 
 class RunLogger:
     """Appends ``{"event": ..., "t": seconds since start, **fields}`` to
-    ``<log_dir>/<run_name>.jsonl`` (truncated when the logger is made) and
-    prints the fields to stderr unless ``quiet``."""
+    ``<log_dir>/<run_name>.jsonl`` and prints the fields to stderr unless
+    ``quiet``. The file is truncated when the logger is made, unless
+    ``resume``: a resumed run appends, so its event log stays one file."""
 
     def __init__(self, log_dir: Optional[str] = None, run_name: str = "run",
-                 quiet: bool = False):
+                 quiet: bool = False, resume: bool = False):
         self.t0 = time.time()
         self.quiet = quiet
         self.path = None
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
             self.path = os.path.join(log_dir, f"{run_name}.jsonl")
-            with open(self.path, "w"):
-                pass
+            if not resume:
+                with open(self.path, "w"):
+                    pass
 
     def log(self, event: str, **fields: Any) -> Dict[str, Any]:
         rec = {"event": event, "t": round(time.time() - self.t0, 3), **fields}

@@ -1,7 +1,7 @@
 """chip_smoke.py rehearsed on the CPU.
 
 Its phases run only on the GPU machine, where a Python fault would show
-for the first time. Here ``run()`` drives phases 3-8 at a tiny size with
+for the first time. Here ``run()`` drives phases 3-9 at a tiny size with
 the plain versions and a stub timer, in a subprocess where importing jax
 or the JAX package raises (the GPU machine has no jax). ``main()`` itself
 must refuse to run without CUDA, and the script must fail outside the
@@ -70,7 +70,8 @@ print("RC", rc, leaked)
 
 
 def test_phases_3_to_7_run_on_the_cpu_without_jax():
-    """Phases 3-7, and phase 8 after them (the partitioned trainer). Each
+    """Phases 3-7, phase 8 (the partitioned trainer) and phase 9 (resume,
+    pretrain, sparse Adam and the host samplers, eager here). Each
     phase prints its wall seconds: a run cut at the time limit shows which
     phase ran long."""
     try:
@@ -85,8 +86,8 @@ def test_phases_3_to_7_run_on_the_cpu_without_jax():
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     assert lines[-1] == "RC 0 []", lines[-1]
-    for n in range(3, 9):
-        assert any(ln.startswith(f"[{n}/8] took ") for ln in lines), n
+    for n in range(3, 10):
+        assert any(ln.startswith(f"[{n}/9] took ") for ln in lines), n
     kernels = json.loads(lines[-2])["kernels"]
     assert [k["name"] for k in kernels] == [
         "spmm_csr", "spmm_csr_rev", "sddmm_transr", "segment_softmax_csr",

@@ -8,6 +8,7 @@ there without the suite's conftest:
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -31,6 +32,8 @@ from kgat_tpu_torch.ops.hopper.softmax import (segment_softmax_csr,
                                                segment_softmax_csr_bwd_plain,
                                                segment_softmax_csr_plain)
 from kgat_tpu_torch.recommend import disable_tf32
+from kgat_tpu_torch import train
+from kgat_tpu_torch.utils.config import TrainConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -530,3 +533,140 @@ def test_forward_kernel_path_matches_plain_path(dev):
     assert dict(build.launch_counts) == {
         "sddmm_transr": 1, "segment_softmax_csr": 1, "spmm_csr": 3}
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The captured training steps (train.StepGraph).
+# ---------------------------------------------------------------------------
+
+def _trainer(**kw):
+    cfg = TrainConfig(
+        dataset="synthetic", device="cuda", log_dir=None, seed=3,
+        cf_batch_size=128, kg_batch_size=256, syn_users=300, syn_items=200,
+        syn_entities=500, syn_relations=6, syn_interactions=6000,
+        syn_triples=4000,
+        model=kgat.KGATConfig(embed_dim=32, relation_dim=32,
+                              conv_dims=(32, 16), mess_dropout=(0.1, 0.1),
+                              ops_backend="hopper"), **kw)
+    tr = train.Trainer(cfg)
+    tr.stage(tr.attention())
+    return tr
+
+
+def _snapshot(tr):
+    return ([p.detach().clone() for p in tr.model.parameters()],
+            {p: {k: v.clone() for k, v in s.items()}
+             for p, s in tr.opt.state.items()})
+
+
+def _restore(tr, snap):
+    params, state = snap
+    with torch.no_grad():
+        for p, v in zip(tr.model.parameters(), params):
+            p.copy_(v)
+        for p, s in state.items():
+            for k, v in s.items():
+                tr.opt.state[p][k].copy_(v)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_replayed_steps_match_eager_steps(dev, sparse):
+    """One replay of each captured step against an eager step from the same
+    parameters and Adam state on the batch and dropout masks the replay
+    drew (it exposes them): equal losses (rtol 1e-5), gradients within
+    rtol 1e-4 (two float32 paths whose gather backward adds in no fixed
+    order), the same step counts. Under --sparse-adam the KG step leaves
+    .grad alone: its moments are compared instead, and the conv weights
+    must not move."""
+    tr = _trainer(sparse_adam=sparse)
+    tr.cf_steps.capture()
+    tr.kg_steps.capture()
+    build.launch_counts.clear()
+    for steps, eager in ((tr.cf_steps, lambda: tr.cf_step(
+            tr._step_att, *tr.cf_drawn[:4], masks=tr.cf_drawn[4])),
+            (tr.kg_steps, lambda: tr.kg_step(*tr.kg_drawn))):
+        snap = _snapshot(tr)
+        steps.loss_sum.zero_()
+        steps.replay()
+        loss = float(steps.loss_sum)
+        grads = [p.grad.clone() for p in tr.model.parameters()]
+        state = {k: [tr.opt.state[p][k].clone() for p in tr.model.parameters()]
+                 for k in ("exp_avg", "exp_avg_sq", "step")}
+        moved = [p.detach().clone() for p in tr.model.parameters()]
+        _restore(tr, snap)
+        assert abs(float(eager()) - loss) <= 1e-5 * abs(loss)
+        for (name, p), g, m, v, n, new, old in zip(
+                tr.model.named_parameters(), grads, *state.values(), moved,
+                snap[0]):
+            s = tr.opt.state[p]
+            assert torch.equal(s["step"], n)
+            if sparse and steps is tr.kg_steps:
+                torch.testing.assert_close(s["exp_avg"], m, rtol=1e-4,
+                                           atol=1e-9)
+                torch.testing.assert_close(s["exp_avg_sq"], v, rtol=1e-4,
+                                           atol=1e-12)
+                if name.startswith("layers."):
+                    assert torch.equal(new, old), name
+            else:
+                torch.testing.assert_close(p.grad, g, rtol=1e-4, atol=1e-8)
+    # Replays launch nothing through the wrappers: only the eager CF step
+    # above counted its K1 launches.
+    assert dict(build.launch_counts) == {"spmm_csr": 2, "spmm_csr_rev": 2}
+    assert tr.cf_steps.calls == {"spmm_csr": 2, "spmm_csr_rev": 2}
+
+
+def test_two_replays_draw_different_batches(dev):
+    """The trainer's generator is registered with each graph: every replay
+    draws a fresh batch and fresh dropout masks, as eager steps from the
+    same seed would, in the same order."""
+    tr = _trainer()
+    tr.cf_steps.capture()
+    tr.kg_steps.capture()
+    draws = []
+    for _ in range(2):
+        tr.cf_steps.replay()
+        tr.kg_steps.replay()
+        u, i_pos, i_neg, _, masks = tr.cf_drawn
+        h, r, t_pos, t_neg, _ = tr.kg_drawn
+        draws.append([t.clone() for t in (u, i_pos, i_neg, *masks, h, r,
+                                          t_pos, t_neg)])
+    for a, b in zip(*draws):
+        assert not torch.equal(a, b)
+    # The same seed drives eager steps through the same draws.
+    eager = _trainer()
+    for _ in range(3):                  # the warm-up step and two replays
+        eager.sample_cf()
+        masks = kgat.dropout_masks(eager.cfg.model, eager.meta.n_nodes,
+                                   eager.generator, dev)
+        eager.sample_kg()
+    u = eager.sample_cf()[0]
+    tr.cf_steps.replay()
+    assert torch.equal(u, tr.cf_drawn[0]) and len(masks) == 2
+
+
+def test_sparse_kg_step_captures_and_replays(dev):
+    """A replayed epoch under --sparse-adam: finite losses, every step
+    count advanced by the epoch's steps, the conv weights unmoved by the
+    KG phase."""
+    tr = _trainer(sparse_adam=True)
+    n_kg = tr.n_kg_batches
+    convs = [p for n, p in tr.model.named_parameters()
+             if n.startswith("layers.")]
+    tr.cf_steps.run(2)
+    before = [p.detach().clone() for p in convs]
+    total = float(tr.kg_steps.run(n_kg))
+    assert math.isfinite(total) and tr.kg_steps.replays == n_kg - 1
+    assert all(torch.equal(p, b) for p, b in zip(convs, before))
+    assert {int(s["step"]) for s in tr.opt.state.values()} == {2 + n_kg}
+
+
+def test_capture_with_a_host_sync_raises(dev):
+    """A step that reads a value back to the host cannot be captured: the
+    capture raises, and nothing runs the step eagerly in its place."""
+    x = torch.ones(4, device=dev)
+    steps = train.StepGraph(lambda: x.sum() * float(x.sum()),
+                            torch.Generator(device=dev).manual_seed(0), dev)
+    with pytest.raises(RuntimeError):
+        steps.run(3)
+    assert steps.graph is None and steps.replays == 0
+    torch.cuda.synchronize()

@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's training steps on a GPU with torch.profiler.
 
-    python tools/profile_train_step.py [--steps 3] [--trace DIR] \
-        [--n-devices P --halo-exchange allgather|ring \
+    python tools/profile_train_step.py [--steps 3] [--trace DIR] [--epoch] \
+        [--sparse-adam] [--n-devices P --halo-exchange allgather|ring \
          --ring-transport ppermute|dma|fused]
 
 Builds the yelp2018-scale synthetic dataset (the repo's `make datasets`
 numbers) and a Trainer at the reference recipe (d = k = 64, layers 64/32/16,
 bi-interaction, CF batch 1024, KG batch 2048) on the kernel path, warms up,
-then traces ``--steps`` CF steps, ``--steps`` KG steps and one attention
-recompute. ``--n-devices P`` profiles the edge-partitioned trainer (P
-partitions placed round-robin over the visible GPUs, so P = 4 share one
-card) with the exchange and transport given. For each window it prints
-the wall time per step (host clock around work ending in a synchronize,
-without the profiler, and traced), the device time per step summed over
-kernels, the device idle share against the untraced wall, the launches,
-and the kernels by device time. With
-``--trace``, it writes one Chrome trace per window there. Needs CUDA.
+then traces ``--steps`` eager CF steps and ``--steps`` eager KG steps, the
+same steps replayed from the trainer's CUDA graphs (``train.StepGraph``,
+single device), and one attention recompute. ``--n-devices P`` profiles
+the edge-partitioned trainer (P partitions placed round-robin over the
+visible GPUs, so P = 4 share one card) with the exchange and transport
+given; it runs eagerly. For each window it prints the wall time per step
+(host clock around work ending in a synchronize, without the profiler,
+and traced), the device time per step summed over kernels, the device
+idle share against the untraced wall, the launches (for a replay, the
+kernel nodes of its graph) and the kernels by device time. ``--epoch``
+then times one epoch of eager steps (the trainer's steps called one by
+one, uncaptured) and one replayed epoch (``Trainer.train_one_epoch``),
+each with its attention recompute. ``--sparse-adam`` profiles the
+trainer with the lazy KG step. With ``--trace``, it writes one Chrome
+trace per window there. Needs CUDA.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import YELP2018  # noqa: E402
+from chip_smoke import YELP2018, graph_kernel_names  # noqa: E402
 from kgat_tpu_torch import train  # noqa: E402
 from kgat_tpu_torch.data import synthetic_dataset  # noqa: E402
 from kgat_tpu_torch.utils.config import TrainConfig  # noqa: E402
@@ -64,10 +70,12 @@ def _wall_ms(fn, steps) -> float:
     return (time.perf_counter() - t0) * 1e3 / steps
 
 
-def profile(name, fn, steps, trace_dir):
+def profile(name, fn, steps, trace_dir, graph=None):
     """The window once without the profiler (its wall time, the step's),
     then traced: the profiler's own host work per launch slows a
-    host-bound step, so the idle share is taken against the first."""
+    host-bound step, so the idle share is taken against the first.
+    ``graph``: the StepGraph that ``fn`` replays, whose kernel nodes are
+    the step's launches."""
     wall_ms = _wall_ms(fn, steps)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -76,10 +84,13 @@ def profile(name, fn, steps, trace_dir):
     kernels = [(e.key, _device_us(e) / 1e3 / steps, e.count // steps)
                for e in _device_kernels(prof)]
     busy = sum(ms for _, ms, _ in kernels)
+    launches = sum(n for _, _, n in kernels)
+    if graph is not None:
+        launches = (f"{len(graph_kernel_names(graph.graph.raw_cuda_graph()))}"
+                    f" kernel nodes in the graph ({launches} in the trace)")
     print(f"== {name}: wall {wall_ms:.3f} ms per step ({traced_ms:.3f} "
           f"traced), device busy {busy:.3f} ms per step, idle "
-          f"{100 * (1 - busy / wall_ms):.1f}%, "
-          f"{sum(n for _, _, n in kernels)} launches")
+          f"{100 * (1 - busy / wall_ms):.1f}%, {launches} launches")
     for key, ms, n in sorted(kernels, key=lambda r: -r[1])[:15]:
         print(f"   {ms:9.3f} ms  x{n:<4d} {key[:100]}")
     if trace_dir:
@@ -91,6 +102,10 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--trace", default=None, help="directory for traces")
+    p.add_argument("--epoch", action="store_true",
+                   help="also time an eager and a replayed epoch")
+    p.add_argument("--sparse-adam", action="store_true",
+                   help="the lazy row-sparse Adam KG step")
     p.add_argument("--n-devices", type=int, default=1)
     p.add_argument("--halo-exchange", default="allgather",
                    choices=["allgather", "ring"])
@@ -107,10 +122,11 @@ def main(argv=None) -> int:
     ds = synthetic_dataset(seed=0, name="yelp2018", **YELP2018)
     trainer = train.Trainer(TrainConfig(
         dataset="yelp2018", log_dir=None, seed=0, n_devices=a.n_devices,
-        halo_exchange=a.halo_exchange, ring_transport=a.ring_transport),
+        halo_exchange=a.halo_exchange, ring_transport=a.ring_transport,
+        sparse_adam=a.sparse_adam),
         dataset=ds)
     print(f"partitions {trainer.n_parts}, exchange {a.halo_exchange}, "
-          f"transport {a.ring_transport}")
+          f"transport {a.ring_transport}, sparse Adam {a.sparse_adam}")
     att = trainer.attention()
     cf = lambda: trainer.cf_step(att, *trainer.sample_cf())  # noqa: E731
     kg = lambda: trainer.kg_step(*trainer.sample_kg())  # noqa: E731
@@ -119,7 +135,30 @@ def main(argv=None) -> int:
         kg()
     profile("cf_step", cf, a.steps, a.trace)
     profile("kg_step", kg, a.steps, a.trace)
+    if not trainer.partitioned:
+        trainer.stage(att)
+        for steps in (trainer.cf_steps, trainer.kg_steps):
+            steps.capture()
+            for _ in range(3):
+                steps.replay()
+        profile("cf_step_replayed", trainer.cf_steps.replay, a.steps,
+                a.trace, trainer.cf_steps)
+        profile("kg_step_replayed", trainer.kg_steps.replay, a.steps,
+                a.trace, trainer.kg_steps)
     profile("attention_recompute", trainer.attention, a.steps, a.trace)
+    if a.epoch and not trainer.partitioned:
+        def eager_epoch():
+            att = trainer.attention()
+            for _ in range(trainer.n_cf_batches):
+                trainer.cf_step(att, *trainer.sample_cf())
+            for _ in range(trainer.n_kg_batches):
+                trainer.kg_step(*trainer.sample_kg())
+
+        for what, fn in (("eager", eager_epoch),
+                         ("replayed", trainer.train_one_epoch)):
+            print(f"== epoch, {what} steps ({trainer.n_cf_batches} CF, "
+                  f"{trainer.n_kg_batches} KG, one attention recompute): "
+                  f"{_wall_ms(fn, 1) / 1e3:.3f} s")
     return 0
 
 
