@@ -45,11 +45,17 @@ Phases, each announced by a line ``[n/9] ...``:
                ring buckets and on hand-made ones (K6 and K8's sums under
                a float64 bound, K7 and K8's send bit-exact), with times
                (K7 and copy_ also on chunks fresh from memory);
-               attention and all_embed of every exchange against the
-               single-device paths; the first CF step of every exchange
-               (loss and gradients) and a KG step; the launch counts each
-               exchange predicts; then the trainer CLI for one epoch with
-               ``--n-devices 4 --halo-exchange ring --ring-transport fused``.
+               the selective halo's H, T, build time and table bytes
+               against the all-gather's; attention and all_embed of every
+               exchange (a2a too) and of a (2, 2) (dp, ep) mesh against
+               the single-device paths; the first CF step of each (loss
+               and gradients) against float64, and a KG step; the launch
+               counts each predicts; ring/fused and a2a trainers' steps
+               replayed from their CUDA graphs against eager steps from
+               the same generator states, with each graph's kernel nodes
+               against its captured calls; then the trainer CLI for one
+               epoch of replayed steps with ``--n-devices 4
+               --halo-exchange ring --ring-transport fused``.
   9. the rest of the trainer at phase 7's scale: ``--resume`` of phase 7's
                run for a second epoch; the BPR-MF CLI for one epoch and a
                trainer epoch with ``--use-pretrain`` on its npz; a
@@ -117,6 +123,7 @@ from kgat_tpu_torch.ops.hopper.softmax import (segment_softmax_csr,
                                                segment_softmax_csr_plain)
 from kgat_tpu_torch.parallel import dp, halo
 from kgat_tpu_torch.parallel.partition import (build_ring_buckets,
+                                               build_selective_halo,
                                                partition_graph)
 from kgat_tpu_torch.sampler import (CFSampleTable, KGSampleTable,
                                     sample_cf_batch, sample_kg_batch)
@@ -788,18 +795,26 @@ def expect_launches(dev, launches, want, what):
                                  f"expected {n}: {launches}")
 
 
-def replayed_launches(counts, step_graphs, graph):
+def single_device_nodes(graph):
+    """The CUDA launches of a single-device step's captured wrapper calls
+    (``calls``: name -> count): K1 forward and on the reverse CSR, each
+    as many as its CSR's row split needs."""
+    per_call = {"spmm_csr": graph.split.cuda_launches,
+                "spmm_csr_rev": graph.rev_split.cuda_launches}
+    return lambda calls: sum(n * per_call[k] for k, n in calls.items())
+
+
+def replayed_launches(counts, step_graphs, want_nodes):
     """Wrapper launches of a run whose steps replay CUDA graphs, and each
     graph's kernel nodes. ``build.launch_counts`` counts a wrapper's call
     at capture too, where nothing launches, and a replay launches without
     a call: a captured call is taken out and counted once per replay.
     Each graph's kernel nodes are counted from the graph itself
     (``graph_kernel_names``): all of them, and the port's own, which must
-    be the captured calls times each call's CUDA launches (its CSR's row
-    split). Returns (launches, {step: (kernel nodes, own, replays)})."""
+    be ``want_nodes(calls)``, the CUDA launches its captured wrapper calls
+    make (each by its CSR's row split). Returns (launches, {step: (kernel
+    nodes, own, replays)})."""
     launches, nodes = dict(counts), {}
-    per_call = {"spmm_csr": graph.split.cuda_launches,
-                "spmm_csr_rev": graph.rev_split.cuda_launches}
     own = [f"{len(n)}{n}" for n in own_kernels()]  # as mangled
     for name, steps in zip(("CF", "KG"), step_graphs):
         for k, n in steps.calls.items():
@@ -808,7 +823,7 @@ def replayed_launches(counts, step_graphs, graph):
             continue
         kernels = graph_kernel_names(steps.graph.raw_cuda_graph())
         mine = sum(any(o in k for o in own) for k in kernels)
-        want = sum(n * per_call[k] for k, n in steps.calls.items())
+        want = want_nodes(steps.calls)
         if mine != want:
             raise AssertionError(f"{name} step graph: {mine} kernel nodes of "
                                  f"the port's kernels, {want} expected from "
@@ -1123,7 +1138,8 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     timer.sync()
     cli_s = time.perf_counter() - t0
     main_launches, graph_nodes = replayed_launches(
-        dict(build.launch_counts), (cli.cf_steps, cli.kg_steps), cli.graph)
+        dict(build.launch_counts), (cli.cf_steps, cli.kg_steps),
+        single_device_nodes(cli.graph))
     peak_gb = (torch.cuda.max_memory_allocated() / 1e9
                if dev.type == "cuda" else 0.0)
     # The CLI returns nothing: its trainer, graphs and their memory pools
@@ -1237,12 +1253,17 @@ EVENT_KEYS = {
 }
 
 
-def check_events(events):
+def check_events(events, partitioned=False):
+    """The events of a one-epoch run: kgat_tpu's keys, and in the
+    partitioned trainer's epoch events whether its steps were captured
+    and why."""
     names = [e["event"] for e in events]
     if names != ["start", "epoch", "eval", "done"]:
         raise AssertionError(f"trainer events {names}")
     for e in events:
-        if set(e) != EVENT_KEYS[e["event"]]:
+        want = EVENT_KEYS[e["event"]] | ({"captured", "why"} if partitioned
+                                         and e["event"] == "epoch" else set())
+        if set(e) != want:
             raise AssertionError(f"{e['event']} keys {sorted(e)}")
     epoch = events[1]
     if not (math.isfinite(epoch["cf_loss"]) and math.isfinite(
@@ -1495,22 +1516,32 @@ def compare_step(what, loss_k, loss_p, names, grads_k, grads_p, terms,
 # Phase 8: the edge-partitioned trainer.
 # ---------------------------------------------------------------------------
 
-EXCHANGES = (("allgather", "ppermute"), ("ring", "ppermute"), ("ring", "dma"),
-             ("ring", "fused"))
+# (exchange, transport, dp rows): phase 8's meshes, each of P_PARTS
+# partitions in all, D rows of P_PARTS / D.
+MESHES = (("allgather", "ppermute", 1), ("ring", "ppermute", 1),
+          ("ring", "dma", 1), ("ring", "fused", 1), ("a2a", "ppermute", 1),
+          ("ring", "fused", 2))
+
+
+def mesh_label(key):
+    ex, tr, rows = key
+    name = ex if ex != "ring" else f"ring/{tr}"
+    return name if rows == 1 else f"{name} on a ({rows}, {P_PARTS // rows}) mesh"
 
 
 def partitioned_launches(exchange, transport, n_layers, n_parts,
-                         backward=True):
+                         backward=True, rows=1):
     """The launches one forward (and its backward) of an exchange makes,
     each wrapper launching once per partition and ring step: K1 per
-    shard and layer on the all-gather (K1 on the reverse CSR backward);
-    on the ring a bucket reduce per partition, step and layer, K6 or,
-    at the P - 1 steps that send under 'fused', K8; the sends of the
-    P - 1 steps by K7 under 'dma'; backward, K6 on every bucket's reverse
-    CSR and (under 'dma' and 'fused') K7 the other way at every send."""
+    shard (a2a: per halo CSR) and layer on the all-gather (K1 on the
+    reverse CSR backward); on the ring a bucket reduce per partition,
+    step and layer, K6 or, at the P - 1 steps that send under 'fused',
+    K8; the sends of the P - 1 steps by K7 under 'dma'; backward, K6 on
+    every bucket's reverse CSR and (under 'dma' and 'fused') K7 the other
+    way at every send. Each of ``rows`` dp rows does all of it."""
     L, P = n_layers, n_parts
     sends = L * P * (P - 1)
-    if exchange == "allgather":
+    if exchange in ("allgather", "a2a"):
         fwd, bwd = {"spmm_csr": L * P}, {"spmm_csr_rev": L * P}
     else:
         if transport == "fused":
@@ -1523,8 +1554,28 @@ def partitioned_launches(exchange, transport, n_layers, n_parts,
         if transport != "ppermute":
             bwd["ring_shift"] = sends
     if not backward:
-        return fwd
-    return {k: fwd.get(k, 0) + bwd.get(k, 0) for k in {*fwd, *bwd}}
+        return {k: rows * n for k, n in fwd.items()}
+    return {k: rows * (fwd.get(k, 0) + bwd.get(k, 0)) for k in {*fwd, *bwd}}
+
+
+def partitioned_nodes(part, n_layers):
+    """The CUDA launches of one partitioned CF step's wrapper calls, for
+    the kernel nodes of its captured graph: each K1, K6 and K8 call as
+    many as its CSR's row split needs, each K7 call one (a KG step makes
+    no wrapper call)."""
+    n, P = 0, part.n_parts
+    for d in range(part.n_rows):
+        for p in range(P):
+            if part.ring:
+                for s, b in enumerate(part.buckets[d][p]):
+                    n += b.split.cuda_launches + b.rev_split.cuda_launches
+                    if s < P - 1:   # K7: forward under dma, backward both
+                        n += {"ppermute": 0, "dma": 2,
+                              "fused": 1}[part.transport]
+            else:
+                g = (part.halos if part.a2a else part.shards)[d][p].graph
+                n += g.split.cuda_launches + g.rev_split.cuda_launches
+    return lambda calls: n_layers * n if calls else 0
 
 
 def expect_exact(dev, launches, want, what):
@@ -1728,15 +1779,96 @@ def check_ring_kernels(buckets, info, sizes, check, times, gen, dev, timer):
             f" ms (d = 64: {per[64][0]:.4f}, {per[64][1]:.4f})")
 
 
+def layouts(g_host, meta, n_parts, halos=False):
+    """The partitions of the yelp-scale graph on the host: shards, row
+    split, ring buckets, and the selective halos with their build time."""
+    src, dst = g_host.src.numpy(), g_host.dst.numpy()
+    shards, info = partition_graph(src, dst, g_host.etype.numpy(),
+                                   meta.n_nodes, meta.n_relations, n_parts)
+    buckets = build_ring_buckets(src, dst, info)
+    t0 = time.perf_counter()
+    sel = build_selective_halo(shards, info) if halos else None
+    return shards, info, buckets, sel, time.perf_counter() - t0
+
+
+def replay_against_eager(tmp, ds, sizes, dev, timer, exchange, transport):
+    """A partitioned trainer at full scale, its steps captured: one replay
+    of each against the same step run eagerly from the same parameters,
+    Adam state and generator states (the trainer's and every
+    partition's). The loss within LOSS_RTOL, each gradient within 1e-4 of
+    its largest entry (two float32 runs whose gather backwards add with
+    atomics), the same batch; the kernel nodes of each graph against its
+    captured calls. Returns the summary."""
+    L = 3
+    tr = train.Trainer(TrainConfig(
+        dataset="yelp2018", data_root=tmp, device=str(dev), log_dir=None,
+        cf_batch_size=sizes.cf_batch, kg_batch_size=sizes.kg_batch, seed=0,
+        n_devices=P_PARTS, halo_exchange=exchange,
+        ring_transport=transport), dataset=ds)
+    if tr.captured != (dev.type == "cuda"):
+        raise AssertionError(f"{exchange}/{transport}: captured "
+                             f"{tr.captured} ({tr.capture_why})")
+    tr.stage(tr.attention())
+    build.launch_counts.clear()
+    for steps in (tr.cf_steps, tr.kg_steps):
+        steps.run(1)            # the warm-up step, then the capture
+    if dev.type == "cuda" and tr.cf_steps.calls != partitioned_launches(
+            exchange, transport, L, P_PARTS):
+        raise AssertionError(f"{exchange}/{transport}: captured calls "
+                             f"{tr.cf_steps.calls}")
+    params = list(tr.model.parameters())
+    out = []
+    for name, steps, body, drawn in (
+            ("CF", tr.cf_steps, tr._cf_body, "cf_drawn"),
+            ("KG", tr.kg_steps, tr._kg_body, "kg_drawn")):
+        snap = snapshot(tr)
+        states = [g.get_state() for g in steps.generators]
+        loss_r = replayed_step(steps)
+        batch = [t.clone() for t in getattr(tr, drawn)[:4]]
+        grads_r = _grads(params)
+        restore(tr, snap)
+        for g, st in zip(steps.generators, states):
+            g.set_state(st)
+        loss_e = float(body())
+        timer.sync()
+        if not all(torch.equal(a, b)
+                   for a, b in zip(batch, getattr(tr, drawn)[:4])):
+            raise AssertionError(f"{exchange}/{transport} {name}: the "
+                                 f"replay and the eager step drew "
+                                 f"different batches")
+        if abs(loss_r - loss_e) > LOSS_RTOL * abs(loss_e):
+            raise AssertionError(f"{exchange}/{transport} {name} loss: "
+                                 f"replayed {loss_r}, eager {loss_e}")
+        worst = 0.0
+        for (pname, p), gr in zip(tr.model.named_parameters(), grads_r):
+            scale = float(p.grad.abs().max())
+            err = float((gr - p.grad).abs().max())
+            if err > 1e-4 * scale:
+                raise AssertionError(f"{exchange}/{transport} {name} "
+                                     f"{pname}: replayed against eager "
+                                     f"{err:.3e}, largest entry "
+                                     f"{scale:.3e}")
+            worst = max(worst, err / scale if scale else 0.0)
+        out.append(f"{name} loss {loss_r:.6f} (eager {loss_e:.6f}), "
+                   f"gradients within {worst:.2e} of their largest entry")
+    _, nodes = replayed_launches(dict(build.launch_counts),
+                                 (tr.cf_steps, tr.kg_steps),
+                                 partitioned_nodes(tr.part, L))
+    calls = dict(tr.cf_steps.calls)
+    del tr
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return (f"{exchange}/{transport}: " + "; ".join(out)
+            + f"; CUDA kernel nodes per graph (all, the port's, replays) "
+            f"{nodes} for the CF graph's captured calls {calls}")
+
+
 def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                       dev, timer, smi_line):
     """Phase 8; returns the launch counts of the partitioned CLI epoch."""
     P, L = P_PARTS, 3
     t0 = time.perf_counter()
-    src, dst = g_host.src.numpy(), g_host.dst.numpy()
-    shards, info = partition_graph(src, dst, g_host.etype.numpy(),
-                                   meta.n_nodes, meta.n_relations, P)
-    buckets = build_ring_buckets(src, dst, info)
+    shards, info, buckets, halos, halo_s = layouts(g_host, meta, P, True)
     host_s = time.perf_counter() - t0
     csrs = [ro for row in buckets for b in row
             for ro in (b.row_offsets, b.rev_row_offsets)]
@@ -1744,6 +1876,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                              3) / len(csrs)
     shards = [s.to(dev) for s in shards]
     buckets = [[b.to(dev) for b in row] for row in buckets]
+    halos = [h.to(dev) for h in halos]
     b_edges = [[b.n_edges for b in row] for row in buckets]
     b_launches = [[(b.split.cuda_launches, b.rev_split.cuda_launches)
                    for b in row] for row in buckets]
@@ -1753,21 +1886,44 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
           f"shard edges {[s.n_edges for s in shards]}, ring bucket edges "
           f"per (p, s) {b_edges}, CUDA launches per K6/K8 call by the "
           f"splits (forward, reverse) {b_launches}", flush=True)
+    H, T, R = halos[0].halo_rows, halos[0].table_rows, info.rows_per_part
+    d0 = KGATConfig().embed_dim
+    reads = [[int((h.local_ids[R + q * H:R + (q + 1) * H]
+                   < info.n_nodes_global).sum()) for q in range(P)]
+             for h in halos]
+    print(f"[8/9] selective halo (a2a): H = {H} rows a peer, T = {T} "
+          f"table rows a partition (R + {P} H), built in {halo_s:.2f} s "
+          f"on the host ({halo_s / P:.3f} s a partition; reverse CSR row "
+          f"splits included); rows each partition reads of each peer "
+          f"{reads}; its layer-0 table {T * d0 * 4 / 1e6:.2f} MB a partition "
+          f"({P * T * d0 * 4 / 1e6:.2f} MB for {P}) against the "
+          f"all-gather's replicated (n_pad, {d0}) "
+          f"{info.n_nodes_pad * d0 * 4 / 1e6:.2f} MB a partition "
+          f"({P * info.n_nodes_pad * d0 * 4 / 1e6:.2f} MB for {P}), "
+          f"float32", flush=True)
     summary = check_ring_kernels(buckets, info, sizes, check, times, gen,
                                  dev, timer)
     print(f"[8/9] ring kernels ({smi_line}): {summary}", flush=True)
 
-    # Attention and all_embed of every exchange against the single-device
+    # Attention and all_embed of every mesh against the single-device
     # paths, on one random full-width model.
     cfg = KGATConfig(ops_backend="hopper", mess_dropout=(0.0,) * L)
     plain = dataclasses.replace(cfg, ops_backend="ref")
     model = kgat.init_params(meta.n_nodes, meta.n_relations, cfg,
                              generator=gen, device=dev)
-    mesh = dp.make_mesh(P, dev)
-    parts = {key: halo.Partitioned(
-        mesh, shards, info, meta, cfg, exchange=key[0],
-        ring_buckets=buckets if key[0] == "ring" else None,
-        ring_transport=key[1]) for key in EXCHANGES}
+    half = P // 2
+    sh2, info2, bk2, _, _ = layouts(g_host, meta, half)
+    lay = {P: (shards, info, buckets, halos),
+           half: ([s.to(dev) for s in sh2], info2,
+                  [[b.to(dev) for b in row] for row in bk2], None)}
+    parts = {}
+    for key in MESHES:
+        ex, tr, rows = key
+        sh, inf, bk, hl = lay[P // rows]
+        parts[key] = halo.Partitioned(
+            dp.make_mesh(P // rows, dev, rows), sh, inf, meta, cfg,
+            exchange=ex, ring_buckets=bk if ex == "ring" else None,
+            halos=hl if ex == "a2a" else None, ring_transport=tr)
     with torch.no_grad():
         att_single = kgat.compute_attention(model, g, cfg)
         model64 = copy.deepcopy(model).double()
@@ -1776,34 +1932,36 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
         del model64
     staged, lines = {}, []
     for key, part in parts.items():
+        p_row = part.n_parts
         build.launch_counts.clear()
         atts, staged[key] = part.attention(model)
         att_launches = dict(build.launch_counts)
-        expect_exact(dev, att_launches, {"sddmm_transr": P,
-                                         "segment_softmax_csr": P},
+        expect_exact(dev, att_launches, {"sddmm_transr": p_row,
+                                         "segment_softmax_csr": p_row},
                      f"{key} attention")
         att_err = max(check("partitioned attention", f"{key} p={p}", a,
                             att_single[s.edge_ids.to(dev)], atol=1e-6)
-                      for p, (a, s) in enumerate(zip(atts, shards)))
+                      for p, (a, s) in enumerate(zip(atts, part.shards[0])))
         build.launch_counts.clear()
         got = part.propagate_eval(model, staged[key])
         timer.sync()
         fwd_launches = dict(build.launch_counts)
         expect_exact(dev, fwd_launches, partitioned_launches(
-            *key, L, P, backward=False), f"{key} eval forward")
-        err = check("partitioned all_embed", "/".join(key), got, want)
+            key[0], key[1], L, p_row, backward=False), f"{key} eval forward")
+        err = check("partitioned all_embed", mesh_label(key), got, want)
         ms = timer.host_ms(lambda: part.propagate_eval(model, staged[key]),
                            3)
-        lines.append(f"{'/'.join(key)}: attention max abs err {att_err:.2e}"
-                     f" vs single-device kernels (launches {att_launches}), "
-                     f"all_embed {err:.2e} vs float64 plain, eval forward "
-                     f"{ms:.2f} ms (launches {fwd_launches})")
+        lines.append(f"{mesh_label(key)}: attention max abs err "
+                     f"{att_err:.2e} vs single-device kernels (launches "
+                     f"{att_launches}), all_embed {err:.2e} vs float64 "
+                     f"plain, eval forward {ms:.2f} ms (launches "
+                     f"{fwd_launches})")
     del want, att_single
     print(f"[8/9] partitioned forward against single-device ("
           f"{smi_line}): " + "; ".join(lines), flush=True)
 
-    # The first CF step of every exchange (dropout 0): the loss against
-    # the single-device kernel path's, the gradients against float64.
+    # The first CF step of every mesh (dropout 0): the loss against the
+    # single-device kernel path's, the gradients against float64.
     cf_table = CFSampleTable.build(ds.cf_train, meta.n_users, meta.n_items,
                                    device=dev)
     samp = torch.Generator(device=dev).manual_seed(0)
@@ -1834,24 +1992,25 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
         loss_k, grads_k = cf_grads(part, staged[key])
         timer.sync()
         step_launches = dict(build.launch_counts)
-        expect_exact(dev, step_launches, partitioned_launches(*key, L, P),
-                     f"{key} CF step")
+        expect_exact(dev, step_launches, partitioned_launches(
+            key[0], key[1], L, part.n_parts, rows=key[2]), f"{key} CF step")
         if abs(loss_k - loss_single) > LOSS_RTOL * abs(loss_single):
             raise AssertionError(f"{key} CF loss {loss_k} vs single-device "
                                  f"kernel path {loss_single}")
-        errs = compare_step(f"CF {'/'.join(key)}", loss_k, loss_p, names,
+        errs = compare_step(f"CF {mesh_label(key)}", loss_k, loss_p, names,
                             grads_k, grads_p, terms, check, length)
         del grads_k
         ms = timer.host_ms(lambda: cf_grads(part, staged[key]), 3)
-        lines.append(f"{'/'.join(key)}: {errs}; forward + backward {ms:.2f}"
-                     f" ms (launches {step_launches})")
+        lines.append(f"{mesh_label(key)}: {errs}; forward + backward "
+                     f"{ms:.2f} ms (launches {step_launches})")
     del grads_p, terms
     print(f"[8/9] first CF step (batch {u.numel()}, dropout 0) against the "
           f"single-device kernel path ({loss_single:.6f}) and the float64 "
           f"plain path ({smi_line}): " + "; ".join(lines), flush=True)
 
     # The KG step: the same TransR step on the global batch for every
-    # exchange (the data-parallel loss in one process).
+    # mesh (the data-parallel loss in one process).
+    src, dst = g_host.src.numpy(), g_host.dst.numpy()
     kg_table = KGSampleTable.build(
         np.stack([dst, g_host.etype.numpy(), src], axis=1),
         n_entities=meta.n_nodes, n_relations=meta.n_relations, device=dev)
@@ -1867,11 +2026,19 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                            grads_p, terms, check, length)
     print(f"[8/9] KG step (batch {kg_batch[0].numel()}) against the float64 "
           f"plain path: {kg_errs}", flush=True)
-    del grads_p, terms, kg_grads, parts, staged, model
+    del grads_p, terms, kg_grads, parts, staged, model, lay, halos
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    # The trainer CLI, one epoch, ring exchange with the fused transport.
+    # Captured partitioned steps against eager ones: the preset's
+    # exchange, and a2a.
+    for ex, tr in (("ring", "fused"), ("a2a", "ppermute")):
+        line = replay_against_eager(tmp, ds, sizes, dev, timer, ex, tr)
+        print(f"[8/9] replayed partitioned steps against eager steps from "
+              f"the same generator states ({smi_line}): {line}", flush=True)
+
+    # The trainer CLI, one epoch, ring exchange with the fused transport:
+    # replayed steps on the one card.
     log_dir = os.path.join(tmp, "runs_partitioned")
     argv = ["--dataset", "yelp2018", "--data-root", tmp, "--epochs", "1",
             "--eval-every", "1", "--device", str(dev), "--log-dir", log_dir,
@@ -1881,15 +2048,24 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
             "--ring-transport", "fused"]
     build.launch_counts.clear()
     t0 = time.perf_counter()
-    train.main(argv)
+    # What train.main runs, keeping the trainer for its graphs.
+    cli = train.Trainer(train.parse_args(argv))
+    cli.train()
     timer.sync()
     cli_s = time.perf_counter() - t0
-    launches = dict(build.launch_counts)
+    launches, graph_nodes = replayed_launches(
+        dict(build.launch_counts), (cli.cf_steps, cli.kg_steps),
+        partitioned_nodes(cli.part, L))
+    del cli
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     with open(os.path.join(log_dir, "part.jsonl")) as f:
         events = [json.loads(ln) for ln in f]
-    check_events(events)
+    check_events(events, partitioned=True)
     epoch = next(e for e in events if e["event"] == "epoch")
     ev = next(e for e in events if e["event"] == "eval")
+    if epoch["captured"] != (dev.type == "cuda"):
+        raise AssertionError(f"partitioned CLI epoch: {epoch}")
     n_cf = next(e for e in events if e["event"] == "start")["cf_batches"]
     step = partitioned_launches("ring", "fused", L, P)
     evalf = partitioned_launches("ring", "fused", L, P, backward=False)
@@ -1900,13 +2076,16 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
     want_launches.update(sddmm_transr=2 * P, segment_softmax_csr=2 * P)
     expect_exact(dev, launches, want_launches, "partitioned trainer CLI")
     print(f"[8/9] partitioned trainer CLI (python -m kgat_tpu_torch.train "
-          f"{' '.join(argv[argv.index('--n-devices'):])}): 1 epoch in "
+          f"{' '.join(argv[argv.index('--n-devices'):])}): 1 epoch of "
+          f"{'replayed' if epoch['captured'] else 'eager'} steps "
+          f"({epoch['why']}) in "
           f"{epoch['secs']:.1f} s ({cli_s:.1f} s with data load, partition, "
           f"eval and checkpoints), cf_loss {epoch['cf_loss']:.4f}, kg_loss "
           f"{epoch['kg_loss']:.4f}, recall@20 {ev['recall']:.4f}, ndcg@20 "
           f"{ev['ndcg']:.4f}; events {[e['event'] for e in events]}; "
           f"launches {launches} ({n_cf} CF steps; predicted per step "
-          f"{step}) ({smi_line})", flush=True)
+          f"{step}); CUDA kernel nodes per replayed step {graph_nodes} "
+          f"({smi_line})", flush=True)
     return launches
 
 

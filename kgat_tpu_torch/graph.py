@@ -160,6 +160,41 @@ class EdgeWeights:
         return EdgeWeights(fwd=w, rev=w[graph.rev_perm.long()].contiguous())
 
 
+def _weight_leaves(staged) -> list:
+    """The tensors of :class:`EdgeWeights` or nested lists of them, in
+    order."""
+    if isinstance(staged, EdgeWeights):
+        return [staged.fwd, staged.rev]
+    return [t for w in staged for t in _weight_leaves(w)]
+
+
+def clone_weights(staged):
+    """A copy of staged weights (:class:`EdgeWeights`, or nested lists of
+    them as the partitioned attention stages them) in new buffers; a
+    tensor that appears twice (dp rows sharing a card) is cloned once."""
+    memo = {}
+
+    def clone(w):
+        if isinstance(w, EdgeWeights):
+            return EdgeWeights(fwd=clone(w.fwd), rev=clone(w.rev))
+        if isinstance(w, torch.Tensor):
+            if id(w) not in memo:
+                memo[id(w)] = w.clone()
+            return memo[id(w)]
+        return [clone(x) for x in w]
+    return clone(staged)
+
+
+def copy_weights_(dst, src) -> None:
+    """Copies staged weights into the buffers of :func:`clone_weights`,
+    in place: a captured step keeps reading them at their addresses."""
+    done = set()
+    for d, s in zip(_weight_leaves(dst), _weight_leaves(src), strict=True):
+        if id(d) not in done:
+            d.copy_(s)
+            done.add(id(d))
+
+
 @dataclasses.dataclass(frozen=True)
 class CKGMeta:
     """Static description of a collaborative knowledge graph's id spaces."""

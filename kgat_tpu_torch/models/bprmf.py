@@ -84,7 +84,7 @@ def train_bprmf(cf_train: np.ndarray, n_users: int, n_items: int, *,
         opt.step()
         return loss.detach()
 
-    steps = StepGraph(step, gen, dev)
+    steps = StepGraph(step, [gen], dev)
     n_batches = max(len(cf_train) // batch_size + 1, 1)
     for epoch in range(1, epochs + 1):
         mean = float(steps.run(n_batches)) / n_batches

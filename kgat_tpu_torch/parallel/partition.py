@@ -1,16 +1,19 @@
 """Edge partitioning of the CKG into destination blocks.
 
-Port of ``kgat_tpu/parallel/partition.py``'s ``partition_graph`` and
-``build_ring_buckets``. Partition p owns the destination rows [p R,
-(p + 1) R) and every edge that points into them, so the attention (SDDMM
-and the per-dst softmax) needs no communication, and the SpMM's output
-rows are owned; only the source rows of the features are exchanged (an
-all-gather per layer, or a ring of chunks). R is a multiple of 128 as in
-the JAX package, so both split the rows the same way.
+Port of ``kgat_tpu/parallel/partition.py``'s ``partition_graph``,
+``build_ring_buckets`` and ``build_selective_halo``. Partition p owns the
+destination rows [p R, (p + 1) R) and every edge that points into them,
+so the attention (SDDMM and the per-dst softmax) needs no communication,
+and the SpMM's output rows are owned; only the source rows of the
+features are exchanged (an all-gather per layer, a ring of chunks, or
+the selective halo all-to-all of exactly the rows a peer's edges read).
+R is a multiple of 128 as in the JAX package, so both split the rows the
+same way.
 
 The TPU layouts (aligned chunks, block bounds, forced shard-uniform
-shapes) are not carried over: a shard and a ring bucket are plain CSRs of
-their real edges, of whatever length they have.
+shapes, halo blocks rounded to 128 rows) are not carried over: a shard, a
+ring bucket and a halo's edges are plain CSRs of their real edges, of
+whatever length they have.
 """
 
 from __future__ import annotations
@@ -188,4 +191,77 @@ def build_ring_buckets(src: np.ndarray, dst: np.ndarray,
                 rev_gather=torch.from_numpy(slots[rev]),
                 split=build_row_split(ro), rev_split=build_row_split(rev_ro)))
         out.append(steps)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class SelectiveHalo:
+    """Partition p's data for the selective halo all-to-all
+    (``partition.py:176-207``): its activations live in a local table of
+    T = R + P H rows, ``[own R rows | H halo rows from each peer q]``,
+    never in the replicated (n_pad, d) one.
+
+    * ``graph``: the shard's :class:`Graph` (canonical edge order, forward
+      CSR over the R local dst rows, its row split) with ``src`` remapped
+      to local-table slots, and the reverse CSR (``rev_perm``,
+      ``rev_row_offsets``, ``rev_dst``, ``rev_split``) over the T table
+      rows: the shard's attention stages onto it with
+      ``EdgeWeights.stage``, and K1 runs on it both ways.
+    * ``send_idx``: (P, H) int64, row q the own (local) rows that peer q's
+      edges read, padded with 0 (no edge reads a padded slot); row p is
+      all padding.
+    * ``local_ids``: (T,) int64, the global row of each table slot; the
+      unfilled halo slots hold ``n_nodes_global``, a sentinel.
+    """
+
+    graph: Graph
+    send_idx: torch.Tensor
+    local_ids: torch.Tensor
+    halo_rows: int       # H: the most rows one partition needs of one peer
+    table_rows: int      # T = R + P H
+
+    def to(self, device) -> "SelectiveHalo":
+        return _tensors_to(self, device)
+
+
+def build_selective_halo(shards: List[Shard],
+                         info: PartitionInfo) -> List[SelectiveHalo]:
+    """One :class:`SelectiveHalo` per partition, on the CPU, from the
+    shards of :func:`partition_graph` (``partition.py:210-301``, without
+    its padding: H is the largest need, unrounded, and the edges keep the
+    shard's order)."""
+    P, R, N = info.n_parts, info.rows_per_part, info.n_nodes_global
+    srcs = [s.graph.src.numpy().astype(np.int64) for s in shards]
+    # need[p][q]: the sorted global rows of peer q that p's edges read.
+    need = [[np.unique(s[s // R == q]) if q != p else np.zeros(0, np.int64)
+             for q in range(P)] for p, s in enumerate(srcs)]
+    H = max(len(rows) for per in need for rows in per)
+    T = R + P * H
+    out = []
+    for p, (shard, s_src) in enumerate(zip(shards, srcs)):
+        slots = s_src - p * R               # own rows: their local row
+        local_ids = np.full(T, N, np.int64)
+        local_ids[:R] = np.arange(p * R, (p + 1) * R)
+        send_idx = np.zeros((P, H), np.int64)
+        for q in range(P):
+            rows = need[p][q]
+            local_ids[R + q * H:R + q * H + len(rows)] = rows
+            m = s_src // R == q
+            if q != p:
+                slots[m] = R + q * H + np.searchsorted(rows, s_src[m])
+            sent = need[q][p]               # p's rows that q reads
+            send_idx[q, :len(sent)] = sent - p * R
+        rev = np.argsort(slots, kind="stable")
+        rev_ro = torch.from_numpy(np.searchsorted(
+            slots[rev], np.arange(T + 1)).astype(np.int32))
+        g = dataclasses.replace(
+            shard.graph, src=torch.from_numpy(slots.astype(np.int32)),
+            rev_perm=torch.from_numpy(rev.astype(np.int32)),
+            rev_row_offsets=rev_ro,
+            rev_dst=shard.graph.dst[torch.from_numpy(rev)].contiguous(),
+            rev_split=build_row_split(rev_ro))
+        out.append(SelectiveHalo(
+            graph=g, send_idx=torch.from_numpy(send_idx),
+            local_ids=torch.from_numpy(local_ids), halo_rows=H,
+            table_rows=T))
     return out

@@ -15,23 +15,28 @@ The default is ``--device cuda --ops-backend hopper``: the CF step runs
 the SpMM kernel forward and on the reverse CSR backward, the attention
 recompute the SDDMM and softmax kernels, and it fails if there is no GPU.
 
-``--n-devices P`` (P > 1) trains edge-partitioned, as ``kgat_tpu``'s
-BASELINE config 5 does: P destination-block partitions, partition p on
+``--n-devices N`` (N > 1) trains edge-partitioned, as ``kgat_tpu``'s
+BASELINE config 5 does: N destination-block partitions, partition p on
 ``cuda:(p % device_count)`` (so four partitions share one card), the CF
-phase through ``parallel.halo`` with ``--halo-exchange allgather|ring``
-and ``--ring-transport ppermute|dma|fused``, the KG phase the same TransR
-step on a global batch, batch sizes rounded up to a multiple of P:
+phase through ``parallel.halo`` with ``--halo-exchange
+allgather|ring|a2a`` and ``--ring-transport ppermute|dma|fused``, the KG
+phase the same TransR step on a global batch, batch sizes rounded up to a
+multiple of N. ``--dp-replicas D`` makes it a 2D (dp, ep) mesh of D rows
+of N / D partitions, each row taking its own block of the CF batch:
 
     python -m kgat_tpu_torch.train --dataset yelp2018 --n-devices 4 \\
         --halo-exchange ring --ring-transport fused
 
-On CUDA the single-device trainer's device-sampled epoch replays two
-CUDA graphs, one CF step and one KG step each captured once
-(:class:`StepGraph`, where ``kgat_tpu`` runs chunked ``lax.scan``s): one
-host call a step, where an eager step makes some 400 launches. The CPU,
-the partitioned trainer and ``--sampler host`` (numpy batches from
-``kgat_tpu``'s host samplers, one step per batch) run eagerly. The losses
-stay on the device through an epoch and are read once at its end.
+On CUDA the device-sampled epoch replays two CUDA graphs, one CF step
+and one KG step each captured once (:class:`StepGraph`, where
+``kgat_tpu`` runs chunked ``lax.scan``s): one host call a step, where an
+eager step makes some 400 launches (1,600 for the partitioned ring). The
+partitioned trainer's steps are captured when all its partitions lie on
+one card; partitions spread over several cards run eager steps, one CUDA
+graph holding one card's work, and its ``epoch`` events say which
+(``captured``, ``why``). The CPU and ``--sampler host`` (numpy batches
+from ``kgat_tpu``'s host samplers, one step per batch) run eagerly. The
+losses stay on the device through an epoch and are read once at its end.
 
 One ``torch.optim.Adam`` with optax's defaults spans every parameter in
 both phases (``optim.make_optimizer``), and every parameter gets a
@@ -57,13 +62,14 @@ import torch
 
 from kgat_tpu_torch import eval as evaluation
 from kgat_tpu_torch.data import Dataset, load_dataset, synthetic_dataset
-from kgat_tpu_torch.graph import EdgeWeights
+from kgat_tpu_torch.graph import clone_weights, copy_weights_
 from kgat_tpu_torch.models import kgat
 from kgat_tpu_torch.ops.hopper import build
 from kgat_tpu_torch.optim import (adam_count, make_optimizer, set_adam_count,
                                   sparse_kg_step)
 from kgat_tpu_torch.parallel import dp, halo
 from kgat_tpu_torch.parallel.partition import (build_ring_buckets,
+                                               build_selective_halo,
                                                partition_graph)
 from kgat_tpu_torch.recommend import disable_tf32
 from kgat_tpu_torch.sampler import (CFSampleTable, HostCFSampler,
@@ -92,11 +98,13 @@ class StepGraph:
     its loss on the device; :meth:`run` runs n steps and returns the sum
     of their losses, still on the device. On CUDA the first step is run
     eagerly on a side stream, as a warm-up (it is a real step, the run's
-    first), then one step is captured into a CUDA graph with
-    ``generator`` registered, so that each replay draws fresh numbers
-    from it; every later step is a replay, one host call. A capture that
-    fails raises, and nothing runs the step eagerly in its place. On the
-    CPU, which cannot capture, every step runs ``body()``.
+    first), then one step is captured into a CUDA graph with each of
+    ``generators`` registered, so that each replay draws fresh numbers
+    from them; every later step is a replay, one host call. A capture
+    that fails raises, and nothing runs the step eagerly in its place. On
+    the CPU, which cannot capture, and where the caller asks for no
+    capture (``capture=False``: a step whose work spans several cards),
+    every step runs ``body()``.
 
     What the body reads must keep its address between replays: the
     parameters, their ``.grad``, Adam's state, and staged inputs that the
@@ -107,10 +115,12 @@ class StepGraph:
     """
 
     def __init__(self, body: Callable[[], torch.Tensor],
-                 generator: torch.Generator, device: torch.device):
+                 generators: Sequence[torch.Generator],
+                 device: torch.device, capture: bool = True):
         self.body = body
-        self.generator = generator
+        self.generators = list(generators)
         self.device = device
+        self.eager = device.type != "cuda" or not capture
         self.loss_sum = torch.zeros((), device=device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.replays = 0
@@ -132,7 +142,8 @@ class StepGraph:
             self._step()
         stream.wait_stream(side)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        graph.register_generator_state(self.generator)
+        for g in self.generators:
+            graph.register_generator_state(g)
         before = dict(build.launch_counts)
         with torch.cuda.graph(graph):
             self._step()
@@ -149,7 +160,7 @@ class StepGraph:
     def run(self, n: int) -> torch.Tensor:
         """n steps; the sum of their losses on the device."""
         self.loss_sum.zero_()
-        if self.device.type != "cuda":
+        if self.eager:
             for _ in range(n):
                 self._step()
             return self.loss_sum
@@ -215,18 +226,23 @@ class Trainer:
             generator=torch.Generator().manual_seed(cfg.seed), device=dev,
             pretrain=pretrain)
         self.generator = torch.Generator(device=dev).manual_seed(cfg.seed)
-        self.n_parts = dp.n_parts_for(cfg.n_devices, dev)
-        self.partitioned = self.n_parts > 1
+        # N devices in all, D dp rows of P partitions (D = 1: a 1D mesh).
+        self.n_devices = dp.n_devices_for(cfg.n_devices, dev)
+        self.dp_replicas = max(1, cfg.dp_replicas)
+        self.n_parts = dp.split_devices(self.n_devices, self.dp_replicas)
+        self.partitioned = self.n_devices > 1
+        self.mesh = (dp.make_mesh(self.n_parts, dev, self.dp_replicas)
+                     if self.partitioned else None)
+        self.captured, self.capture_why = self._capture_mode()
         # Adam is capturable where the steps are captured, and only there:
         # its device-side bias corrections add 38 launches to an eager
         # step, which gains nothing from them.
-        self.opt = make_optimizer(
-            self.model.parameters(), cfg.lr,
-            capturable=(dev.type == "cuda" and not self.partitioned
-                        and cfg.sampler == "device"))
+        self.opt = make_optimizer(self.model.parameters(), cfg.lr,
+                                  capturable=self.captured)
         self.cf_batch_size, self.kg_batch_size = (cfg.cf_batch_size,
                                                   cfg.kg_batch_size)
         self.part: Optional[halo.Partitioned] = None
+        self.part_generators = []
         if self.partitioned:
             self._build_partitioned(graph)
         elif cfg.sampler == "host":
@@ -234,13 +250,19 @@ class Trainer:
                                           self.meta.n_items, cfg.seed)
             self._host_kg = HostKGSampler(ckg_triples, self.meta.n_nodes,
                                           cfg.seed)
-        # The device-sampled steps, captured on CUDA; the batch and dropout
-        # masks each one drew (cf_drawn, kg_drawn) and the attention its
-        # CF steps read (_step_att, refreshed with copy_ every epoch).
-        self.cf_steps = StepGraph(self._cf_body, self.generator, dev)
-        self.kg_steps = StepGraph(self._kg_body, self.generator, dev)
+        # The device-sampled steps, captured on CUDA where the mesh allows
+        # it; the batch and dropout masks each one drew (cf_drawn,
+        # kg_drawn; a partitioned step's masks stay inside it) and the
+        # attention its CF steps read (_step_att, refreshed with copy_
+        # every epoch). Every generator a CF step draws from is registered
+        # with its graph: the trainer's and each partition's.
+        self.cf_steps = StepGraph(self._cf_body,
+                                  [self.generator, *self.part_generators],
+                                  dev, capture=self.captured)
+        self.kg_steps = StepGraph(self._kg_body, [self.generator], dev,
+                                  capture=self.captured)
         self.cf_drawn = self.kg_drawn = None
-        self._step_att: Optional[EdgeWeights] = None
+        self._step_att = None
         self.epoch = 0
         self.best_metric = -1.0
         self.bad_evals = 0
@@ -249,35 +271,56 @@ class Trainer:
         self._att = None
         self._prof = None
 
+    def _capture_mode(self) -> Tuple[bool, str]:
+        """Whether the device-sampled steps are captured in CUDA graphs,
+        and why: decided once, from the device and the mesh."""
+        if self.device.type != "cuda":
+            return False, "the CPU runs eager steps"
+        if not self.partitioned:
+            if self.cfg.sampler == "host":
+                return False, "--sampler host runs eager steps"
+            return True, f"one device, {self.device}"
+        cards = sorted({str(d) for d in self.mesh.devices})
+        if len(cards) > 1:
+            return False, (f"the partitions span {len(cards)} cards "
+                           f"({', '.join(cards)}): a CUDA graph holds one "
+                           f"card's work, so the steps run eagerly")
+        return True, (f"all {self.n_devices} partitions on {cards[0]}")
+
     def _build_partitioned(self, graph) -> None:
         """The edge-partitioned CF phase (``kgat_tpu/train.py:264-340``):
-        the CKG cut into P destination blocks, the ring buckets when the
-        exchange is the ring, one dropout generator per partition, and
-        both batch sizes rounded up to a multiple of P. The KG phase is
-        ``kg_step`` on the global batch: in one process it is the
-        data-parallel TransR loss (``parallel/dp.py``)."""
+        the CKG cut into P destination blocks, the ring buckets or the
+        selective halos the exchange needs, the same shards on each of
+        the D dp rows, one dropout generator per (row, partition), and
+        both batch sizes rounded up to a multiple of the N = D P devices.
+        The KG phase is ``kg_step`` on the global batch: in one process it
+        is the data-parallel TransR loss (``parallel/dp.py``)."""
         cfg, P = self.cfg, self.n_parts
         if cfg.sparse_adam:
             raise ValueError(
                 "--sparse-adam is single-device only: the data-parallel "
                 "KG step updates DENSE gradient trees (parallel/dp.py); "
                 "drop the flag or --n-devices")
-        mesh = dp.make_mesh(P, self.device)
         src, dst = graph.src.numpy(), graph.dst.numpy()
         shards, self.pinfo = partition_graph(
             src, dst, graph.etype.numpy(), self.meta.n_nodes,
             self.meta.n_relations, P)
-        ring = cfg.halo_exchange == "ring"
+        ex = cfg.halo_exchange
         self.part = halo.Partitioned(
-            mesh, shards, self.pinfo, self.meta, cfg.model,
-            exchange=cfg.halo_exchange,
+            self.mesh, shards, self.pinfo, self.meta, cfg.model, exchange=ex,
             ring_buckets=build_ring_buckets(src, dst, self.pinfo)
-            if ring else None, ring_transport=cfg.ring_transport)
+            if ex == "ring" else None,
+            halos=build_selective_halo(shards, self.pinfo)
+            if ex == "a2a" else None, ring_transport=cfg.ring_transport)
+        # Row d's partition p draws from seed + 1 + p + P d, as JAX folds
+        # p + nP d into its dropout key (halo.py:411-413).
         self.part_generators = [
-            torch.Generator(device=d).manual_seed(cfg.seed + 1 + p)
-            for p, d in enumerate(mesh.devices)]
-        self.cf_batch_size = dp.round_batch(cfg.cf_batch_size, P)
-        self.kg_batch_size = dp.round_batch(cfg.kg_batch_size, P)
+            torch.Generator(device=dv).manual_seed(cfg.seed + 1 + i)
+            for i, dv in enumerate(self.mesh.devices)]
+        self.cf_batch_size = dp.round_batch(cfg.cf_batch_size,
+                                            self.n_devices)
+        self.kg_batch_size = dp.round_batch(cfg.kg_batch_size,
+                                            self.n_devices)
 
     # ------------------------------------------------------------------
     def attention(self):
@@ -306,7 +349,7 @@ class Trainer:
         parameter's ``.grad`` (zeros for ``w_rel`` and ``rel_embed``).
         Dropout applies ``masks`` (``kgat.dropout_masks``) or draws its
         masks from ``generator`` (default: the trainer's), or when
-        partitioned from one generator per partition (default:
+        partitioned from one generator per (dp row, partition) (default:
         ``part_generators``)."""
         self.opt.zero_grad(set_to_none=False)
         if self.partitioned:
@@ -353,8 +396,13 @@ class Trainer:
     def _cf_body(self) -> torch.Tensor:
         """One device-sampled CF step on the staged attention: the batch,
         then the dropout masks, drawn from the trainer's generator (the
-        draws :meth:`cf_step` makes given the batch alone)."""
+        draws :meth:`cf_step` makes given the batch alone); when
+        partitioned, the masks from the partitions' generators inside the
+        step."""
         u, i_pos, i_neg, weight = self.sample_cf()
+        if self.partitioned:
+            self.cf_drawn = (u, i_pos, i_neg, weight, None)
+            return self.cf_step(self._step_att, u, i_pos, i_neg, weight)
         masks = kgat.dropout_masks(self.cfg.model, self.meta.n_nodes,
                                    self.generator, self.device)
         self.cf_drawn = (u, i_pos, i_neg, weight, masks)
@@ -366,22 +414,21 @@ class Trainer:
         self.kg_drawn = self.sample_kg()
         return self.kg_step(*self.kg_drawn)
 
-    def stage(self, att: EdgeWeights) -> None:
-        """Copies the epoch's attention into the buffers the CF steps read,
-        which keep their addresses, as a captured step needs."""
+    def stage(self, att) -> None:
+        """Copies the epoch's attention (:class:`EdgeWeights`, or every dp
+        row's partitions' and ring buckets' when partitioned) into the
+        buffers the CF steps read, which keep their addresses, as a
+        captured step needs."""
         if self._step_att is None:
-            self._step_att = EdgeWeights(att.fwd.clone(), att.rev.clone())
+            self._step_att = clone_weights(att)
         else:
-            self._step_att.fwd.copy_(att.fwd)
-            self._step_att.rev.copy_(att.rev)
+            copy_weights_(self._step_att, att)
 
     def train_one_epoch(self) -> Tuple[float, float]:
         att = self._att if self._att is not None else self.attention()
         self._att = None  # params are about to change
         try:
-            if self.partitioned:
-                return self._partitioned_epoch(att)
-            if self.cfg.sampler == "host":
+            if not self.partitioned and self.cfg.sampler == "host":
                 return self._host_sampled_epoch(att)
             self.stage(att)
             cf = float(self.cf_steps.run(self.n_cf_batches))
@@ -391,16 +438,6 @@ class Trainer:
             # Reference order (SURVEY.md §3.1): attention recomputed after
             # the KG phase, reused by evaluate() and the next epoch.
             self._att = self.attention()
-
-    def _partitioned_epoch(self, att) -> Tuple[float, float]:
-        cf_sum = torch.zeros((), device=self.device)
-        for _ in range(self.n_cf_batches):
-            cf_sum += self.cf_step(att, *self.sample_cf())
-        kg_sum = torch.zeros((), device=self.device)
-        for _ in range(self.n_kg_batches):
-            kg_sum += self.kg_step(*self.sample_kg())
-        return (float(cf_sum) / self.n_cf_batches,
-                float(kg_sum) / self.n_kg_batches)
 
     def _host_sampled_epoch(self, att) -> Tuple[float, float]:
         """One eager step per batch of the host samplers, weight None
@@ -551,9 +588,13 @@ class Trainer:
             # Propagation touches every edge per layer, fwd + bwd, per batch.
             edges = (self.n_cf_batches * len(cfg.model.conv_dims)
                      * self.graph.n_edges * 3)  # fwd + 2 bwd segment passes
+            # kgat_tpu's keys, and for the partitioned trainer whether its
+            # steps replayed CUDA graphs and why.
+            mode = (dict(captured=self.captured, why=self.capture_why)
+                    if self.partitioned else {})
             self.logger.log("epoch", epoch=self.epoch, cf_loss=cf_l,
                             kg_loss=kg_l, secs=round(dt, 3),
-                            edges_per_s=round(edges / dt))
+                            edges_per_s=round(edges / dt), **mode)
             if self.epoch % cfg.eval_every == 0 or self.epoch == cfg.epochs:
                 m = self.evaluate()
                 self.logger.log("eval", epoch=self.epoch, **m)

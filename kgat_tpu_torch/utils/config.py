@@ -4,12 +4,16 @@ Port of ``kgat_tpu/utils/config.py`` with the same flags. The defaults are
 the reference recipe (SURVEY.md §2.9) on one GPU: ``--device cuda
 --ops-backend hopper``. Flags whose module is not ported yet are refused
 with the ROADMAP.md item that will bring them, never accepted and ignored.
-On CUDA the single-device trainer's device-sampled epoch replays CUDA
-graphs of its steps (``train.StepGraph``); no flag turns that off.
+On CUDA the device-sampled epoch replays CUDA graphs of its steps
+(``train.StepGraph``), the partitioned trainer's too when its partitions
+share one card; no flag turns that off.
 
-``--n-devices P`` trains edge-partitioned over P partitions placed
+``--n-devices N`` trains edge-partitioned over N partitions placed
 round-robin over the visible GPUs (``parallel/dp.py``); more partitions
 than GPUs share a GPU, as ``kgat_tpu``'s tests share virtual CPU devices.
+``--dp-replicas D`` arranges them as a 2D (dp, ep) mesh of D rows of N / D
+partitions, and ``--halo-exchange a2a`` exchanges only the rows a peer's
+edges read.
 """
 
 from __future__ import annotations
@@ -56,7 +60,9 @@ class TrainConfig:
     # edge partitioning (BASELINE config 5): > 1 partitions the CF phase;
     # 0 = one partition per visible GPU
     n_devices: int = 1
-    halo_exchange: str = "allgather"    # allgather | ring
+    dp_replicas: int = 1                # >1: 2D (dp, ep) mesh, n_devices
+                                        # split into dp_replicas rows
+    halo_exchange: str = "allgather"    # allgather | ring | a2a
     ring_transport: str = "ppermute"    # ppermute | dma | fused (ring only)
     # synthetic dataset scale (used when dataset == synthetic)
     syn_users: int = 300
@@ -96,17 +102,14 @@ PRESETS = {
                                               ops_backend="hopper")),
 }
 
-_ITEM_13 = "(ROADMAP.md queue 1, item 13, multi-GPU: what is left of it)"
+_ITEM_13 = ("(ROADMAP.md queue 1, item 13, multi-host over "
+            "torch.distributed: the next slice)")
 
 # (flag as named to the user, test on the parsed args, why it is refused)
 _UNPORTED = (
-    ("--halo-exchange a2a", lambda a: a.halo_exchange == "a2a",
-     f"the selective halo all-to-all is not ported yet {_ITEM_13}"),
-    ("--dp-replicas", lambda a: a.dp_replicas not in (None, 1),
-     f"the 2D (dp, ep) mesh is not ported yet {_ITEM_13}"),
     ("NUM_PROCESSES > 1", lambda a: int(os.environ.get("NUM_PROCESSES", 1))
-     > 1, f"multi-host training over torch.distributed is not ported yet "
-     f"{_ITEM_13}"),
+     > 1, f"multi-host training is not ported yet: the port runs its "
+     f"partitions in one process {_ITEM_13}"),
     ("--graph-cache", lambda a: a.graph_cache is not None,
      "the npz graph cache is not ported yet (ROADMAP.md queue 1, item 2)"),
     ("--att-impl dense", lambda a: a.att_impl == "dense",
@@ -179,13 +182,16 @@ def parse_args(argv=None) -> TrainConfig:
                         "round-robin over the visible GPUs (several may "
                         "share one); 0 = one per GPU; 1 = one device")
     p.add_argument("--dp-replicas", type=int, default=None,
-                   help="1 only: the 2D (dp, ep) mesh is ROADMAP.md queue "
-                        "1, item 13")
+                   help="2D (dp, ep) mesh: the --n-devices partitions as "
+                        "this many rows, each holding every shard and "
+                        "taking its own block of the CF batch (must divide "
+                        "--n-devices)")
     p.add_argument("--halo-exchange", default=None,
                    choices=["allgather", "ring", "a2a"],
-                   help="partitioned exchange: per-layer all-gather, or "
-                        "the ring of bucket reduces (a2a: ROADMAP.md queue "
-                        "1, item 13)")
+                   help="partitioned exchange: per-layer all-gather, the "
+                        "ring of bucket reduces, or a2a, the selective "
+                        "halo all-to-all of the rows each peer's edges "
+                        "read")
     p.add_argument("--ring-transport", default=None,
                    choices=["ppermute", "dma", "fused"],
                    help="ring chunk transport: a plain tensor copy, the "
@@ -214,7 +220,8 @@ def parse_args(argv=None) -> TrainConfig:
                   "kg_batch_size", "epochs", "eval_every", "stopping_steps",
                   "k", "seed", "sampler", "sparse_adam", "pretrain_path",
                   "resume", "device", "log_dir", "run_name",
-                  "profile_epochs", "n_devices", "halo_exchange",
+                  "profile_epochs", "n_devices", "dp_replicas",
+                  "halo_exchange",
                   "ring_transport", "syn_users", "syn_items", "syn_entities",
                   "syn_relations", "syn_interactions", "syn_triples"):
         v = getattr(a, field)
@@ -250,6 +257,8 @@ def parse_args(argv=None) -> TrainConfig:
         cfg.model = dataclasses.replace(cfg.model, **m)
     if cfg.n_devices < 0:
         p.error(f"--n-devices must be >= 0, got {cfg.n_devices}")
+    if cfg.dp_replicas < 1:
+        p.error(f"--dp-replicas must be >= 1, got {cfg.dp_replicas}")
     if len(cfg.model.conv_dims) != len(cfg.model.mess_dropout):
         p.error(f"--conv-dims has {len(cfg.model.conv_dims)} layers but "
                 f"--mess-dropout has {len(cfg.model.mess_dropout)} rates; "

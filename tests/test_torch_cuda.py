@@ -540,14 +540,15 @@ def test_forward_kernel_path_matches_plain_path(dev):
 # ---------------------------------------------------------------------------
 
 def _trainer(**kw):
-    cfg = TrainConfig(
-        dataset="synthetic", device="cuda", log_dir=None, seed=3,
-        cf_batch_size=128, kg_batch_size=256, syn_users=300, syn_items=200,
-        syn_entities=500, syn_relations=6, syn_interactions=6000,
-        syn_triples=4000,
-        model=kgat.KGATConfig(embed_dim=32, relation_dim=32,
-                              conv_dims=(32, 16), mess_dropout=(0.1, 0.1),
-                              ops_backend="hopper"), **kw)
+    cfg = TrainConfig(**{
+        **dict(dataset="synthetic", device="cuda", log_dir=None, seed=3,
+               cf_batch_size=128, kg_batch_size=256, syn_users=300,
+               syn_items=200, syn_entities=500, syn_relations=6,
+               syn_interactions=6000, syn_triples=4000,
+               model=kgat.KGATConfig(embed_dim=32, relation_dim=32,
+                                     conv_dims=(32, 16),
+                                     mess_dropout=(0.1, 0.1),
+                                     ops_backend="hopper")), **kw})
     tr = train.Trainer(cfg)
     tr.stage(tr.attention())
     return tr
@@ -665,8 +666,87 @@ def test_capture_with_a_host_sync_raises(dev):
     capture raises, and nothing runs the step eagerly in its place."""
     x = torch.ones(4, device=dev)
     steps = train.StepGraph(lambda: x.sum() * float(x.sum()),
-                            torch.Generator(device=dev).manual_seed(0), dev)
+                            [torch.Generator(device=dev).manual_seed(0)], dev)
     with pytest.raises(RuntimeError):
         steps.run(3)
     assert steps.graph is None and steps.replays == 0
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The partitioned trainer's captured steps.
+# ---------------------------------------------------------------------------
+
+PARTITIONED = [
+    dict(halo_exchange="allgather"),
+    dict(halo_exchange="ring", ring_transport="ppermute"),
+    dict(halo_exchange="ring", ring_transport="dma"),
+    dict(halo_exchange="ring", ring_transport="fused"),
+    dict(halo_exchange="a2a"),
+    dict(dp_replicas=2, halo_exchange="ring", ring_transport="fused")]
+
+
+@pytest.mark.parametrize("mesh", PARTITIONED,
+                         ids=lambda m: "-".join(map(str, m.values())))
+def test_replayed_partitioned_steps_match_eager_steps(dev, mesh):
+    """Four partitions on one card (or a (2, 2) mesh): one replay of each
+    captured step against the same step run eagerly from the same
+    parameters, Adam state and generator states (the trainer's and every
+    partition's): the same batch, equal losses (rtol 1e-5), gradients
+    within rtol 1e-4, the same step counts."""
+    tr = _trainer(n_devices=4, **mesh)
+    if not tr.captured:
+        pytest.skip(f"not captured: {tr.capture_why}")
+    assert len(tr.cf_steps.generators) == 5
+    tr.cf_steps.capture()
+    tr.kg_steps.capture()
+    for steps, body, drawn in ((tr.cf_steps, tr._cf_body, "cf_drawn"),
+                               (tr.kg_steps, tr._kg_body, "kg_drawn")):
+        snap = _snapshot(tr)
+        states = [g.get_state() for g in steps.generators]
+        steps.loss_sum.zero_()
+        steps.replay()
+        loss = float(steps.loss_sum)
+        batch = [t.clone() for t in getattr(tr, drawn)[:4]]
+        grads = [p.grad.clone() for p in tr.model.parameters()]
+        counts = [tr.opt.state[p]["step"].clone()
+                  for p in tr.model.parameters()]
+        _restore(tr, snap)
+        for g, s in zip(steps.generators, states):
+            g.set_state(s)
+        eager = float(body())
+        for a, b in zip(batch, getattr(tr, drawn)[:4]):
+            assert torch.equal(a, b)
+        assert abs(eager - loss) <= 1e-5 * abs(loss)
+        for p, g, n in zip(tr.model.parameters(), grads, counts):
+            torch.testing.assert_close(p.grad, g, rtol=1e-4, atol=1e-8)
+            assert torch.equal(tr.opt.state[p]["step"], n)
+
+
+@pytest.mark.parametrize("mesh", PARTITIONED,
+                         ids=lambda m: "-".join(map(str, m.values())))
+def test_partitioned_steps_across_cards(dev, mesh):
+    """Four partitions spread over the visible cards (two or more): the
+    trainer runs eager steps by the mesh's mode, says why, and one CF
+    step (dropout 0) gives the single-device loss (rtol 1e-5) and
+    gradients (rtol 1e-4); an eager epoch runs to finite losses."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more GPUs")
+    model = kgat.KGATConfig(embed_dim=32, relation_dim=32,
+                            conv_dims=(32, 16), mess_dropout=(0.0, 0.0),
+                            ops_backend="hopper")
+    single, tr = (_trainer(model=model, n_devices=n,
+                           **(mesh if n > 1 else {})) for n in (1, 4))
+    assert not tr.captured and "cards" in tr.capture_why
+    assert len({str(d) for d in tr.mesh.devices}) > 1
+    users = torch.arange(128, device=dev) % single.meta.n_users
+    batch = (users, users % single.meta.n_items,
+             (users + 7) % single.meta.n_items)
+    losses, grads = [], []
+    for t in (single, tr):
+        losses.append(float(t.cf_grad(t.attention(), *batch)))
+        grads.append([p.grad.clone() for p in t.model.parameters()])
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-7)
+    assert all(math.isfinite(x) for x in tr.train_one_epoch())

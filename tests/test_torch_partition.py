@@ -257,9 +257,11 @@ def test_unknown_exchange_and_missing_buckets_are_refused(setup):
     cfg = KGATConfig(mess_dropout=(0.1, 0.1), **MODEL)
     args = (mesh, setup["shards"], setup["info"], setup["meta"], cfg)
     with pytest.raises(ValueError, match="unknown exchange"):
-        halo.Partitioned(*args, exchange="a2a")
+        halo.Partitioned(*args, exchange="all-to-all")
     with pytest.raises(ValueError, match="requires ring_buckets"):
         halo.Partitioned(*args, exchange="ring")
+    with pytest.raises(ValueError, match="requires halos"):
+        halo.Partitioned(*args, exchange="a2a")
     with pytest.raises(ValueError, match="generator per partition"):
         part = halo.Partitioned(*args)
         model = kgat.params_from_jax(setup["np_params"], cfg)

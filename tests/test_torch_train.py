@@ -165,10 +165,7 @@ def test_default_device_needs_cuda():
         train.main(["--dataset", "synthetic", "--log-dir", "", *SYN_FLAGS])
 
 
-@pytest.mark.parametrize("flags", [
-    ["--halo-exchange", "a2a"], ["--graph-cache", "cache"],
-    ["--n-devices", "4", "--dp-replicas", "2"],
-    ["--preset", "yelp-partitioned", "--halo-exchange", "a2a"]])
+@pytest.mark.parametrize("flags", [["--graph-cache", "cache"]])
 def test_unported_flags_are_refused(flags, capsys):
     """Flags whose module is not ported yet fail with the ROADMAP item
     that will bring them; none is accepted and then ignored."""
@@ -177,15 +174,22 @@ def test_unported_flags_are_refused(flags, capsys):
     assert "ROADMAP.md" in capsys.readouterr().err
 
 
+PARTITIONED_MODES = ["--n-devices 4 --halo-exchange a2a",
+                     "--n-devices 4 --dp-replicas 2",
+                     "--n-devices 4 --dp-replicas 2 --halo-exchange a2a"]
+
+
 @pytest.mark.parametrize("mode", ["--sparse-adam", "--use-pretrain",
-                                  "--sampler host", "--resume"])
+                                  "--sampler host", "--resume",
+                                  *PARTITIONED_MODES])
 def test_ported_flags_reach_the_trainer(mode, tmp_path):
-    """The four flags that were refused until their modules were ported:
-    each is accepted, and a CLI epoch on the CPU (what ``main`` runs)
-    shows it took effect: the log names the sampler, the pretrain npz or
-    the resume; under --sparse-adam the KG phase leaves the CF phase's
+    """The flags that were refused until their modules were ported: each
+    is accepted, and a CLI epoch on the CPU (what ``main`` runs) shows it
+    took effect: the log names the sampler, the pretrain npz or the
+    resume; under --sparse-adam the KG phase leaves the CF phase's
     gradients of the conv weights in place (the dense KG step zeroes
-    them)."""
+    them); the a2a exchange and the (dp, ep) mesh build their partitions
+    and say in the epoch event that the CPU runs eager steps."""
     flags = mode.split()
     if mode == "--use-pretrain":
         rs = np.random.default_rng(0)
@@ -214,6 +218,16 @@ def test_ported_flags_reach_the_trainer(mode, tmp_path):
     assert (names[0] == "resume_missing") == (mode == "--resume")
     conv = tr.model.layers[0]["w1"].grad
     assert bool(conv.any()) == (mode == "--sparse-adam")
+    epoch = events[names.index("epoch")]
+    if mode in PARTITIONED_MODES:
+        dp_rows = 2 if "--dp-replicas" in flags else 1
+        assert (tr.dp_replicas, tr.n_parts) == (dp_rows, 4 // dp_rows)
+        assert tr.part.exchange == ("a2a" if "a2a" in flags
+                                    else "allgather")
+        assert (epoch["captured"], epoch["why"]) == (
+            False, "the CPU runs eager steps")
+    else:
+        assert "captured" not in epoch and not tr.partitioned
 
 
 def test_multi_host_is_refused(monkeypatch, capsys):

@@ -2,18 +2,20 @@
 """Profile the PyTorch port's training steps on a GPU with torch.profiler.
 
     python tools/profile_train_step.py [--steps 3] [--trace DIR] [--epoch] \
-        [--sparse-adam] [--n-devices P --halo-exchange allgather|ring \
-         --ring-transport ppermute|dma|fused]
+        [--sparse-adam] [--n-devices N --halo-exchange allgather|ring|a2a \
+         --ring-transport ppermute|dma|fused --dp-replicas D]
 
 Builds the yelp2018-scale synthetic dataset (the repo's `make datasets`
 numbers) and a Trainer at the reference recipe (d = k = 64, layers 64/32/16,
 bi-interaction, CF batch 1024, KG batch 2048) on the kernel path, warms up,
 then traces ``--steps`` eager CF steps and ``--steps`` eager KG steps, the
-same steps replayed from the trainer's CUDA graphs (``train.StepGraph``,
-single device), and one attention recompute. ``--n-devices P`` profiles
-the edge-partitioned trainer (P partitions placed round-robin over the
-visible GPUs, so P = 4 share one card) with the exchange and transport
-given; it runs eagerly. For each window it prints the wall time per step
+same steps replayed from the trainer's CUDA graphs (``train.StepGraph``),
+and one attention recompute. ``--n-devices N`` profiles the
+edge-partitioned trainer (N partitions placed round-robin over the
+visible GPUs, so N = 4 share one card; ``--dp-replicas D`` as D rows of
+N / D) with the exchange and transport given; its steps replay CUDA
+graphs when its partitions share one card, and run eagerly only
+otherwise. For each window it prints the wall time per step
 (host clock around work ending in a synchronize, without the profiler,
 and traced), the device time per step summed over kernels, the device
 idle share against the untraced wall, the launches (for a replay, the
@@ -107,8 +109,9 @@ def main(argv=None) -> int:
     p.add_argument("--sparse-adam", action="store_true",
                    help="the lazy row-sparse Adam KG step")
     p.add_argument("--n-devices", type=int, default=1)
+    p.add_argument("--dp-replicas", type=int, default=1)
     p.add_argument("--halo-exchange", default="allgather",
-                   choices=["allgather", "ring"])
+                   choices=["allgather", "ring", "a2a"])
     p.add_argument("--ring-transport", default="ppermute",
                    choices=["ppermute", "dma", "fused"])
     a = p.parse_args(argv)
@@ -122,11 +125,13 @@ def main(argv=None) -> int:
     ds = synthetic_dataset(seed=0, name="yelp2018", **YELP2018)
     trainer = train.Trainer(TrainConfig(
         dataset="yelp2018", log_dir=None, seed=0, n_devices=a.n_devices,
-        halo_exchange=a.halo_exchange, ring_transport=a.ring_transport,
-        sparse_adam=a.sparse_adam),
+        dp_replicas=a.dp_replicas, halo_exchange=a.halo_exchange,
+        ring_transport=a.ring_transport, sparse_adam=a.sparse_adam),
         dataset=ds)
-    print(f"partitions {trainer.n_parts}, exchange {a.halo_exchange}, "
-          f"transport {a.ring_transport}, sparse Adam {a.sparse_adam}")
+    print(f"dp rows {trainer.dp_replicas} of {trainer.n_parts} partitions, "
+          f"exchange {a.halo_exchange}, transport {a.ring_transport}, "
+          f"sparse Adam {a.sparse_adam}; steps captured {trainer.captured} "
+          f"({trainer.capture_why})")
     att = trainer.attention()
     cf = lambda: trainer.cf_step(att, *trainer.sample_cf())  # noqa: E731
     kg = lambda: trainer.kg_step(*trainer.sample_kg())  # noqa: E731
@@ -135,7 +140,7 @@ def main(argv=None) -> int:
         kg()
     profile("cf_step", cf, a.steps, a.trace)
     profile("kg_step", kg, a.steps, a.trace)
-    if not trainer.partitioned:
+    if trainer.captured:
         trainer.stage(att)
         for steps in (trainer.cf_steps, trainer.kg_steps):
             steps.capture()
@@ -146,7 +151,7 @@ def main(argv=None) -> int:
         profile("kg_step_replayed", trainer.kg_steps.replay, a.steps,
                 a.trace, trainer.kg_steps)
     profile("attention_recompute", trainer.attention, a.steps, a.trace)
-    if a.epoch and not trainer.partitioned:
+    if a.epoch and trainer.captured:
         def eager_epoch():
             att = trainer.attention()
             for _ in range(trainer.n_cf_batches):
