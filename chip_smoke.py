@@ -6,7 +6,7 @@ an H100, sm_90a):
 
     python3 chip_smoke.py
 
-Phases, each announced by a line ``[n/9] ...``:
+Phases, each announced by a line ``[n/10] ...``:
   1. device   — requires CUDA; prints nvidia-smi's name and power limit.
   2. build    — compiles the kernels from kgat_tpu_torch/ops/hopper/csrc.
   3. forward kernels (K1 SpMM, K2 SDDMM, K3 softmax) against their plain
@@ -62,6 +62,29 @@ Phases, each announced by a line ``[n/9] ...``:
                replayed ``--sparse-adam`` epoch, its first KG step held
                against the float64 dense-state oracle; host-sampled CF and
                KG steps (``--sampler host``).
+ 10. one process per card (``parallel/multihost.py``): a process group of
+               one rank (NCCL) holding phase 8's P = 4 slots, its
+               ring/fused steps captured with the gradient all-reduce
+               inside the graphs, replayed against eager steps and held
+               to phase 8's replayed losses. With two or more cards, W =
+               min(4, cards) worker processes of this script
+               (``--process-worker``), one per card on NCCL, P = W,
+               running allgather, ring/dma, ring/fused and a2a in turn
+               (each trainer closed before the next, so ring/fused
+               registers its ring buffers after ring/dma's are freed):
+               the first CF step of each and a KG step against the
+               one-process engine's; K7
+               and K8 storing into the neighbour process's registered
+               buffer against their plain versions (sends bit-exact);
+               10 replayed ring/fused steps against 10 eager ones; each
+               process's replayed CF and KG step (50 and 100 replays
+               from a barrier), wall and device busy, K7's and K8's
+               device time a launch, and the replays' cross-process
+               launches, checked against the graph's kernel nodes; one
+               epoch of the trainer CLI's ring/fused path on W
+               processes. On one card it says that these need two or
+               more. ``chip_smoke.py --across-processes`` runs phases 1,
+               2 and this multi-process part alone.
 Then a JSON line of per-kernel results (each kernel's launches on its
 path, error, time beside its plain version, the library call that
 computes the same function where there is one, and the bound: the least
@@ -98,6 +121,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from kgat_tpu_torch import recommend as rec
 from kgat_tpu_torch import optim, train
@@ -109,6 +133,7 @@ from kgat_tpu_torch.models.kgat import KGATConfig
 from kgat_tpu_torch.ops import ref
 from kgat_tpu_torch.ops.hopper import build
 from kgat_tpu_torch.ops.row_split import CHUNK, build_row_split
+from kgat_tpu_torch.ops.hopper import remote_ring
 from kgat_tpu_torch.ops.hopper.remote_ring import reduce_send, ring_shift
 from kgat_tpu_torch.ops.hopper import sddmm
 from kgat_tpu_torch.ops.hopper.sddmm import (sddmm_transr, sddmm_transr_bwd,
@@ -121,7 +146,7 @@ from kgat_tpu_torch.ops.hopper.softmax import (segment_softmax_csr,
                                                segment_softmax_csr_bwd,
                                                segment_softmax_csr_bwd_plain,
                                                segment_softmax_csr_plain)
-from kgat_tpu_torch.parallel import dp, halo
+from kgat_tpu_torch.parallel import dp, halo, multihost
 from kgat_tpu_torch.parallel.partition import (build_ring_buckets,
                                                build_selective_halo,
                                                partition_graph)
@@ -403,7 +428,7 @@ class CudaTimer:
 
 class Progress:
     """The phase being run, for the failure line, and each phase's wall
-    seconds, printed as ``[n/9] took ... s`` when it ends: a run cut at a
+    seconds, printed as ``[n/10] took ... s`` when it ends: a run cut at a
     time limit shows which phase ran long."""
 
     def __init__(self):
@@ -413,13 +438,13 @@ class Progress:
     def phase(self, n: int, what: str):
         self.end()
         self.n = n
-        print(f"[{n}/9] {what} ...", flush=True)
+        print(f"[{n}/10] {what} ...", flush=True)
 
     def end(self):
         """Ends the phase being run."""
         now = time.perf_counter()
         if self.n:
-            print(f"[{self.n}/9] took {now - self.t0:.1f} s", flush=True)
+            print(f"[{self.n}/10] took {now - self.t0:.1f} s", flush=True)
         self.t0 = now
 
 
@@ -563,7 +588,7 @@ def check_kernels(g, label, check, gen, dev, timer, times=None):
         if times is not None:
             ms = timer.device_ms(lambda: spmm_csr(*a1, g.split), 20)
             plain_ms = timer.device_ms(lambda: spmm_csr_plain(*a1), 5)
-            print(f"[3/9] spmm_csr per call at d={dd} {dt}: kernel "
+            print(f"[3/10] spmm_csr per call at d={dd} {dt}: kernel "
                   f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
             if dt == torch.float32:
                 # A forward runs K1 at d = 64, 64, 32.
@@ -849,7 +874,7 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     line = smi.stdout.strip().splitlines()[0]
-    print(f"[1/9] device: torch {torch.__version__}, CUDA "
+    print(f"[1/10] device: torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
     print(line, flush=True)
     return line
@@ -860,12 +885,13 @@ def phase_build():
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))
     build.library()
-    print(f"[2/9] build: nvcc sm_90a {seconds:.1f} s (one nvcc per source, "
+    print(f"[2/10] build: nvcc sm_90a {seconds:.1f} s (one nvcc per source, "
           f"in parallel), {len(regs)} kernels, max {max(regs, default=0)} "
           f"registers, {spills} spill-store bytes", flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this needs an NVIDIA GPU",
               file=sys.stderr)
@@ -878,8 +904,12 @@ def main() -> int:
         progress.phase(2, "build")
         phase_build()
         with tempfile.TemporaryDirectory() as tmp:
-            rc = run(tmp, torch.device("cuda"), torch.Generator().manual_seed(0),
-                     smi_line, progress=progress)
+            if argv == ["--across-processes"]:
+                rc = across_only(tmp, smi_line, progress)
+            else:
+                rc = run(tmp, torch.device("cuda"),
+                         torch.Generator().manual_seed(0), smi_line,
+                         progress=progress)
     except Exception as e:
         print(f"chip_smoke: FAILED in phase {progress.n}: "
               f"{type(e).__name__}: {e}", flush=True)
@@ -888,6 +918,23 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return rc
+
+
+def across_only(tmp, smi_line, progress) -> int:
+    """Phase 10's multi-process part alone, at yelp2018 scale on W =
+    min(4, cards) processes; prints K7's and K8's cross-process numbers."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise RuntimeError(f"--across-processes needs two or more cards, "
+                           f"and {n} is visible")
+    progress.phase(10, "one process per card")
+    save_dataset(synthetic_dataset(seed=0, name="yelp2018",
+                                   **YELP_SIZES.dataset), tmp)
+    got = across_processes(tmp, load_dataset(tmp, "yelp2018"), YELP_SIZES,
+                           torch.device("cuda"), min(4, n), smi_line)
+    progress.end()
+    print(json.dumps({"across_processes": got}), flush=True)
+    return 0
 
 
 def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
@@ -908,7 +955,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     g_host, meta = ds.build()
     gen_s = time.perf_counter() - t0
     deg = (g_host.row_offsets[1:] - g_host.row_offsets[:-1])
-    print(f"[3/9] yelp2018-scale graph: {g_host.n_edges} edges, "
+    print(f"[3/10] yelp2018-scale graph: {g_host.n_edges} edges, "
           f"{g_host.n_nodes} nodes, {g_host.n_relations} relations, "
           f"max in-degree {int(deg.max())}, {int((deg == 0).sum())} empty "
           f"rows, {g_host.tiles.shape[0]} tiles (generated, written, read "
@@ -916,7 +963,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     hand = handmade_graph(gen, sizes.hub, sizes.chunk).to(dev)
     e2, e3, e1, hand_att = check_kernels(hand, "hand-made", check, gen, dev,
                                          timer)
-    print(f"[3/9] hand-made rows (empty, one edge, hub of {sizes.hub}, "
+    print(f"[3/10] hand-made rows (empty, one edge, hub of {sizes.hub}, "
           f"{boundary_rows(sizes.chunk)} at the chunk boundaries): "
           f"max abs err sddmm {k2_errs(e2)}, softmax {e3:.2e}, spmm "
           f"{', '.join(f'{e:.2e}' for e in e1)} (d64, d32, d64 bf16)",
@@ -935,19 +982,19 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                      f"{host:.1f} ms on the host ({card:.1f} ms on the "
                      f"card), {sp.cuda_launches} CUDA launches per K1 call by "
                      f"the split")
-    print(f"[3/9] row split (chunk {CHUNK} edges), once per CSR at "
+    print(f"[3/10] row split (chunk {CHUNK} edges), once per CSR at "
           f"start-up: " + "; ".join(lines), flush=True)
     times = Times()
     e2, e3, e1, att = check_kernels(g, "yelp2018", check, gen, dev, timer,
                                     times)
-    print(f"[3/9] yelp2018 shapes: max abs err sddmm {k2_errs(e2)}, softmax "
+    print(f"[3/10] yelp2018 shapes: max abs err sddmm {k2_errs(e2)}, softmax "
           f"{e3:.2e}, spmm {', '.join(f'{e:.2e}' for e in e1)} "
           f"(d64, d32, d64 bf16)", flush=True)
     for name in ("spmm_csr", "sddmm_transr", "segment_softmax_csr"):
-        print(f"[3/9] time per {'forward' if name == 'spmm_csr' else 'call'}"
+        print(f"[3/10] time per {'forward' if name == 'spmm_csr' else 'call'}"
               f" ({smi_line}): {times.line(name)}", flush=True)
     fma_ms = g.n_edges * 4 * 64 * 64 / F32_FLOPS * 1e3
-    print(f"[3/9] sddmm_transr's bound on the float32 FMA units, for the "
+    print(f"[3/10] sddmm_transr's bound on the float32 FMA units, for the "
           f"same products without tensor cores: {fma_ms:.4f} ms", flush=True)
 
     # --- 4. serving at full width ------------------------------------------
@@ -980,7 +1027,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                                     "segment_softmax_csr": 1, "spmm_csr": 3},
                     "serving")
     check_lists(lines, users.tolist(), ds.train_user_dict, "serving CLI")
-    print(f"[4/9] serving CLI: {len(lines)} users x top-{TOP_K} valid in "
+    print(f"[4/10] serving CLI: {len(lines)} users x top-{TOP_K} valid in "
           f"{cli_s:.1f} s (load, build, forward, score); launches {launches}",
           flush=True)
 
@@ -1033,14 +1080,14 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     server = rec.Recommender(model, g, meta, cfg,
                              train_user_dict=ds.train_user_dict)
     serve_ms = timer.host_ms(lambda: server.recommend(users, k=TOP_K), 5)
-    print(f"[4/9] kernel path vs plain path on the card: all_embed max abs "
+    print(f"[4/10] kernel path vs plain path on the card: all_embed max abs "
           f"err {err:.2e}; top-{TOP_K} scores within rtol {RTOL}; item sets "
           f"equal for {int(clear.sum())}/{len(users)} users with a "
           f"20th/21st gap > 1e-4, same order for {int(ordered.sum())} with "
           f"every gap > 1e-4; CLI lists in the same order for "
           f"{same_order}/{len(users)} users; a second kernel forward is "
           f"{'bit-identical' if repeat else 'NOT bit-identical'}", flush=True)
-    print(f"[4/9] forward {fwd_ms:.2f} ms (plain path {fwd_plain_ms:.2f} "
+    print(f"[4/10] forward {fwd_ms:.2f} ms (plain path {fwd_plain_ms:.2f} "
           f"ms); serve {len(users)} users top-{TOP_K} from the cached "
           f"forward {serve_ms:.2f} ms ({smi_line})", flush=True)
     del emb_k, emb_p, server
@@ -1051,7 +1098,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                                ("yelp2018", g, att, times)):
         shares, k4_errs = check_backward_kernels(graph, w, label, check,
                                                  gen, dev, timer, t)
-        print(f"[5/9] {label}: max abs err, and the bound where the error "
+        print(f"[5/10] {label}: max abs err, and the bound where the error "
               f"is largest against it: "
               + ", ".join(f"{k} {e:.2e} (bound {b:.2e}, {s:.3f} of it)"
                           for k, (e, b, s) in shares.items())
@@ -1061,9 +1108,9 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                  "segment_softmax_csr_bwd"):
         per = "per CF-step backward (d = 64, 64, 32)" if name == \
             "spmm_csr_rev" else "per call"
-        print(f"[5/9] {per} ({smi_line}): {times.line(name)}", flush=True)
+        print(f"[5/10] {per} ({smi_line}): {times.line(name)}", flush=True)
     row_gb = 4 * g.n_edges * 64 * 4 / 1e9
-    print(f"[5/9] sddmm_transr_bwd: {times.per_call['sddmm_transr_bwd']} "
+    print(f"[5/10] sddmm_transr_bwd: {times.per_call['sddmm_transr_bwd']} "
           f"CUDA launches per call (counted); bound on the float32 FMA units, for the "
           f"same products without tensor cores, "
           f"{12 * 64 * 64 * g.n_edges / F32_FLOPS * 1e3:.4f} ms; its d_eh "
@@ -1095,7 +1142,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                           stat_bound(b, length))
             for name, a, b in zip(("d_entity_embed", "d_w_rel",
                                    "d_rel_embed"), *grads.values())]
-    print(f"[5/9] attention gradient through compute_attention, kernel path "
+    print(f"[5/10] attention gradient through compute_attention, kernel path "
           f"vs float64 plain path: "
           + ", ".join(f"{n} {e:.2e} (bound {b:.2e}, {s:.3f} of it)"
                       for n, (e, b, s) in zip(
@@ -1113,7 +1160,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     trainer = train.Trainer(tcfg, dataset=ds)
     build_s = time.perf_counter() - t0
     train_stats = phase_train_steps(trainer, sizes, check, timer, dev)
-    print(f"[6/9] trainer built in {build_s:.1f} s ({trainer.n_cf_batches} "
+    print(f"[6/10] trainer built in {build_s:.1f} s ({trainer.n_cf_batches} "
           f"CF and {trainer.n_kg_batches} KG batches an epoch); "
           + train_stats, flush=True)
     del trainer
@@ -1193,7 +1240,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
         raise AssertionError(f"recommend.main returned {rc}")
     check_lists(lines, users.tolist(), ds.train_user_dict,
                 "serving the trained checkpoint")
-    print(f"[7/9] trainer CLI: 1 epoch of replayed steps in "
+    print(f"[7/10] trainer CLI: 1 epoch of replayed steps in "
           f"{epoch['secs']:.1f} s ({cli_s:.1f} s with data load, build, "
           f"eval and checkpoints), cf_loss {epoch['cf_loss']:.4f}, kg_loss "
           f"{epoch['kg_loss']:.4f} (eager steps from the same seed: "
@@ -1208,13 +1255,19 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     # --- 8. the edge-partitioned trainer, P = 4 on the card -----------------
     progress.phase(8, f"edge-partitioned trainer, {P_PARTS} partitions on "
                       f"the card")
-    part_launches = phase_partitioned(tmp, ds, g_host, g, meta, sizes, check,
-                                      times, gen, dev, timer, smi_line)
+    part_launches, ring_losses = phase_partitioned(
+        tmp, ds, g_host, g, meta, sizes, check, times, gen, dev, timer,
+        smi_line)
 
     # --- 9. the rest of the trainer -----------------------------------------
     progress.phase(9, "the rest of the trainer: resume, pretrain, sparse "
                       "Adam, host samplers")
     phase_rest(tmp, ds, argv, check, dev, timer, smi_line)
+
+    # --- 10. one process per card --------------------------------------------
+    progress.phase(10, "one process per card")
+    across = phase_processes(tmp, ds, sizes, dev, timer, smi_line,
+                             ring_losses)
     progress.end()
 
     paths = {"sddmm_transr_bwd": ("attention gradient", att_launches),
@@ -1235,6 +1288,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": r["library_ms"],
                      "cuda_launches_per_call": times.per_call[name],
+                     **across.get(name, {}),
                      **({} if r["replay_ms"] is None
                         else {"replay_ms": r["replay_ms"]})})
     print(json.dumps({"kernels": rows}), flush=True)
@@ -1817,7 +1871,7 @@ def replay_against_eager(tmp, ds, sizes, dev, timer, exchange, transport):
         raise AssertionError(f"{exchange}/{transport}: captured calls "
                              f"{tr.cf_steps.calls}")
     params = list(tr.model.parameters())
-    out = []
+    out, losses = [], []
     for name, steps, body, drawn in (
             ("CF", tr.cf_steps, tr._cf_body, "cf_drawn"),
             ("KG", tr.kg_steps, tr._kg_body, "kg_drawn")):
@@ -1851,16 +1905,18 @@ def replay_against_eager(tmp, ds, sizes, dev, timer, exchange, transport):
             worst = max(worst, err / scale if scale else 0.0)
         out.append(f"{name} loss {loss_r:.6f} (eager {loss_e:.6f}), "
                    f"gradients within {worst:.2e} of their largest entry")
+        losses.append(loss_r)
     _, nodes = replayed_launches(dict(build.launch_counts),
                                  (tr.cf_steps, tr.kg_steps),
                                  partitioned_nodes(tr.part, L))
     calls = dict(tr.cf_steps.calls)
+    why = tr.capture_why
     del tr
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return (f"{exchange}/{transport}: " + "; ".join(out)
+    return (f"{exchange}/{transport} ({why}): " + "; ".join(out)
             + f"; CUDA kernel nodes per graph (all, the port's, replays) "
-            f"{nodes} for the CF graph's captured calls {calls}")
+            f"{nodes} for the CF graph's captured calls {calls}"), losses
 
 
 def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
@@ -1880,7 +1936,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
     b_edges = [[b.n_edges for b in row] for row in buckets]
     b_launches = [[(b.split.cuda_launches, b.rev_split.cuda_launches)
                    for b in row] for row in buckets]
-    print(f"[8/9] partitioned on the host in {host_s:.1f} s (row splits "
+    print(f"[8/10] partitioned on the host in {host_s:.1f} s (row splits "
           f"of the {len(csrs)} bucket CSRs included, {split_ms:.2f} ms per "
           f"CSR): R = {info.rows_per_part}, n_pad = {info.n_nodes_pad}, "
           f"shard edges {[s.n_edges for s in shards]}, ring bucket edges "
@@ -1891,7 +1947,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
     reads = [[int((h.local_ids[R + q * H:R + (q + 1) * H]
                    < info.n_nodes_global).sum()) for q in range(P)]
              for h in halos]
-    print(f"[8/9] selective halo (a2a): H = {H} rows a peer, T = {T} "
+    print(f"[8/10] selective halo (a2a): H = {H} rows a peer, T = {T} "
           f"table rows a partition (R + {P} H), built in {halo_s:.2f} s "
           f"on the host ({halo_s / P:.3f} s a partition; reverse CSR row "
           f"splits included); rows each partition reads of each peer "
@@ -1903,7 +1959,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
           f"float32", flush=True)
     summary = check_ring_kernels(buckets, info, sizes, check, times, gen,
                                  dev, timer)
-    print(f"[8/9] ring kernels ({smi_line}): {summary}", flush=True)
+    print(f"[8/10] ring kernels ({smi_line}): {summary}", flush=True)
 
     # Attention and all_embed of every mesh against the single-device
     # paths, on one random full-width model.
@@ -1957,7 +2013,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                      f"plain, eval forward {ms:.2f} ms (launches "
                      f"{fwd_launches})")
     del want, att_single
-    print(f"[8/9] partitioned forward against single-device ("
+    print(f"[8/10] partitioned forward against single-device ("
           f"{smi_line}): " + "; ".join(lines), flush=True)
 
     # The first CF step of every mesh (dropout 0): the loss against the
@@ -2004,7 +2060,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
         lines.append(f"{mesh_label(key)}: {errs}; forward + backward "
                      f"{ms:.2f} ms (launches {step_launches})")
     del grads_p, terms
-    print(f"[8/9] first CF step (batch {u.numel()}, dropout 0) against the "
+    print(f"[8/10] first CF step (batch {u.numel()}, dropout 0) against the "
           f"single-device kernel path ({loss_single:.6f}) and the float64 "
           f"plain path ({smi_line}): " + "; ".join(lines), flush=True)
 
@@ -2024,7 +2080,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                            names, [torch.zeros_like(p) if gp is None else gp
                                    for p, gp in zip(params, kg_grads)],
                            grads_p, terms, check, length)
-    print(f"[8/9] KG step (batch {kg_batch[0].numel()}) against the float64 "
+    print(f"[8/10] KG step (batch {kg_batch[0].numel()}) against the float64 "
           f"plain path: {kg_errs}", flush=True)
     del grads_p, terms, kg_grads, parts, staged, model, lay, halos
     if dev.type == "cuda":
@@ -2033,8 +2089,11 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
     # Captured partitioned steps against eager ones: the preset's
     # exchange, and a2a.
     for ex, tr in (("ring", "fused"), ("a2a", "ppermute")):
-        line = replay_against_eager(tmp, ds, sizes, dev, timer, ex, tr)
-        print(f"[8/9] replayed partitioned steps against eager steps from "
+        line, losses = replay_against_eager(tmp, ds, sizes, dev, timer, ex,
+                                            tr)
+        if ex == "ring":
+            ring_losses = losses[:2]
+        print(f"[8/10] replayed partitioned steps against eager steps from "
               f"the same generator states ({smi_line}): {line}", flush=True)
 
     # The trainer CLI, one epoch, ring exchange with the fused transport:
@@ -2075,7 +2134,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                      for k in {*step, *evalf}}
     want_launches.update(sddmm_transr=2 * P, segment_softmax_csr=2 * P)
     expect_exact(dev, launches, want_launches, "partitioned trainer CLI")
-    print(f"[8/9] partitioned trainer CLI (python -m kgat_tpu_torch.train "
+    print(f"[8/10] partitioned trainer CLI (python -m kgat_tpu_torch.train "
           f"{' '.join(argv[argv.index('--n-devices'):])}): 1 epoch of "
           f"{'replayed' if epoch['captured'] else 'eager'} steps "
           f"({epoch['why']}) in "
@@ -2086,7 +2145,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
           f"launches {launches} ({n_cf} CF steps; predicted per step "
           f"{step}); CUDA kernel nodes per replayed step {graph_nodes} "
           f"({smi_line})", flush=True)
-    return launches
+    return launches, ring_losses
 
 
 # ---------------------------------------------------------------------------
@@ -2202,7 +2261,7 @@ def phase_rest(tmp, ds, argv, check, dev, timer, smi_line) -> None:
     host_s = time.perf_counter() - t0
     if not (math.isfinite(cf) and math.isfinite(kg)):
         raise AssertionError(f"host-sampled losses {cf}, {kg}")
-    print(f"[9/9] {resume_line}; {pretrain_line}; {sparse_line}; "
+    print(f"[9/10] {resume_line}; {pretrain_line}; {sparse_line}; "
           f"--sampler host: trainer with the host samplers built in "
           f"{build_s:.1f} s, 3 CF and 3 KG steps (and a recompute) in "
           f"{host_s:.2f} s, cf_loss {cf:.4f}, kg_loss {kg:.4f} ({smi_line})",
@@ -2281,5 +2340,473 @@ def check_sparse_step(tr, before, after, loss, batch, check) -> str:
             f"conv weights unmoved, every step count + 1")
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 10: one process per card.
+# ---------------------------------------------------------------------------
+
+# The exchanges phase 10 runs across processes.
+PROCESS_MESHES = (("allgather", "ppermute"), ("ring", "dma"),
+                  ("ring", "fused"), ("a2a", "ppermute"))
+PROCESS_LIMIT = 420          # seconds, for one group of worker processes
+
+
+def device_busy_ms(fn, reps: int):
+    """Device milliseconds per call of ``fn`` summed over the kernels,
+    copies and fills that ``torch.profiler`` traced on the card (each
+    event's own device time, not its children's; None where the trace
+    holds no device time), and by kernel: name -> (ms, launches) per
+    call."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    host = {e.key for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    kernels = {e.key: (float(getattr(e, "self_device_time_total", 0.0))
+                       / 1e3 / reps, e.count / reps)
+               for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in host}
+    busy = sum(ms for ms, _ in kernels.values())
+    return (busy if busy > 0 else None), kernels
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def process_cfg(tmp, sizes, dev, n_parts, exchange, transport):
+    """Phase 10's trainer: yelp2018 scale at full width, dropout 0."""
+    return TrainConfig(
+        dataset="yelp2018", data_root=tmp, device=dev.type, log_dir=None,
+        cf_batch_size=sizes.cf_batch, kg_batch_size=sizes.kg_batch, seed=0,
+        n_devices=n_parts, halo_exchange=exchange, ring_transport=transport,
+        model=KGATConfig(ops_backend="hopper", mess_dropout=(0.0,) * 3))
+
+
+def phase_processes(tmp, ds, sizes, dev, timer, smi_line, ring_losses):
+    """Phase 10; returns the cross-process launches and times of K7 and
+    K8 for the kernels' JSON line ({} without two cards)."""
+    # A group of one rank holding P_PARTS slots: the trainer sums its
+    # gradients with an all-reduce, captured inside its graphs.
+    multihost.form_group(f"file://{tmp}/group_of_one", 1, 0, dev.type)
+    try:
+        line, losses = replay_against_eager(tmp, ds, sizes, dev, timer,
+                                            "ring", "fused")
+    finally:
+        dist.destroy_process_group()
+    for what, a, b in zip(("CF", "KG"), losses, ring_losses):
+        if abs(a - b) > LOSS_RTOL * abs(b):
+            raise AssertionError(f"group of one: replayed {what} loss {a} "
+                                 f"vs phase 8's {b}")
+    backend = multihost.backend_for(dev)
+    print(f"[10/10] a process group of one rank ({backend}) holding "
+          f"{P_PARTS} slots, ring/fused, the "
+          f"gradient all-reduce inside the captured steps: {line}; replayed "
+          f"losses against phase 8's {ring_losses[0]:.6f}, "
+          f"{ring_losses[1]:.6f} ({smi_line})", flush=True)
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n_cards < 2:
+        print(f"[10/10] the cross-process paths (NCCL between processes, K7 "
+              f"and K8 storing into another process's buffer, one process "
+              f"per card) need two or more cards, and {n_cards} is visible: "
+              f"NCCL takes one rank per card", flush=True)
+        return {}
+    return across_processes(tmp, ds, sizes, dev, min(4, n_cards), smi_line)
+
+
+def run_processes(cmds, env, limit, what) -> list:
+    """Runs the commands at once, from the repository's root; returns
+    their outputs. Every process is killed past ``limit`` seconds; a
+    process that failed or was killed raises, with the tail of each
+    output."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(cmd, cwd=here, env={**os.environ, **e},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd, e in zip(cmds, env)]
+    t0, outs = time.perf_counter(), []
+    try:
+        for proc in procs:
+            left = max(1.0, limit - (time.perf_counter() - t0))
+            try:
+                outs.append(proc.communicate(timeout=left)[0])
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                outs.append(proc.communicate()[0] + "\n<killed: time limit>")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                outs.append(proc.communicate()[0] + "\n<killed>")
+    if any(proc.returncode != 0 for proc in procs):
+        raise AssertionError(f"{what}: exit codes "
+                             f"{[proc.returncode for proc in procs]}\n"
+                             + "\n".join(f"--- process {r}:\n{o[-3000:]}"
+                                         for r, o in enumerate(outs)))
+    return outs
+
+
+def across_processes(tmp, ds, sizes, dev, world, smi_line) -> dict:
+    """Phase 10 on ``world`` worker processes, one per card (NCCL), or on
+    the CPU (gloo), where tests/test_torch_chip_smoke.py rehearses it at
+    a tiny size. The same workers run every exchange of
+    ``PROCESS_MESHES`` in turn, one trainer after the other (each closed
+    before the next); their first CF step and a KG step are held to the
+    one-process engine's. Then the trainer CLI for one ring/fused epoch on
+    ``world`` processes. Returns K7's and K8's cross-process launches (in
+    the workers' reported replayed steps) and times."""
+    # The one-process engine's first CF step (its partitions over the
+    # cards, all-gathered) and a KG step, on batches the workers read: the
+    # step every exchange computes (phase 8 holds the exchanges to each
+    # other).
+    ref_path = os.path.join(tmp, "process_refs.npz")
+    tr = train.Trainer(process_cfg(tmp, sizes, dev, world, "allgather",
+                                   "ppermute"), dataset=ds)
+    batch = [t.cpu().numpy() for t in tr.sample_cf()]
+    kg = [t.cpu().numpy() for t in tr.sample_kg()]
+    refs = {f"cf_batch/{i}": t for i, t in enumerate(batch)}
+    refs.update({f"kg_batch/{i}": t for i, t in enumerate(kg)})
+    refs["kg_loss"] = float(tr.kg_grad(*(torch.from_numpy(t).to(dev)
+                                         for t in kg)))
+    refs.update({f"kg/{k}": p.grad.cpu().numpy().copy()
+                 for k, p in tr.model.named_parameters()})
+    refs["cf_loss"] = float(tr.cf_grad(tr.attention(), *(
+        torch.from_numpy(t).to(dev) for t in batch)))
+    refs.update({f"cf/{k}": p.grad.cpu().numpy().copy()
+                 for k, p in tr.model.named_parameters()})
+    del tr
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    np.savez(ref_path, **refs)
+
+    outs = run_processes(
+        [[sys.executable, os.path.abspath(__file__), "--process-worker",
+          dev.type, str(rank), str(world), f"file://{tmp}/processes", tmp,
+          str(sizes.cf_batch), str(sizes.kg_batch)]
+         for rank in range(world)], [{}] * world, PROCESS_LIMIT,
+        "phase 10 workers")
+    results = []
+    for out in outs:
+        for ln in out.splitlines():
+            if ln.startswith("[10/10]"):
+                print(ln, flush=True)
+            if ln.startswith("PROCESS_RESULT "):
+                results.append(json.loads(ln[len("PROCESS_RESULT "):]))
+    if len(results) != world:
+        raise AssertionError(f"phase 10 workers: {len(results)} results "
+                             f"from {world} processes")
+    lines = []
+    for exchange, transport in PROCESS_MESHES:
+        name = f"{exchange}-{transport}"
+        # The steps against the one-process engine's, every process alike.
+        worst = 0.0
+        for rank in range(world):
+            with np.load(os.path.join(tmp, f"process_{name}.{rank}.npz")) \
+                    as z:
+                got = {k: z[k] for k in z.files}
+            for key in [f"{name}/cf_loss"] + (["kg_loss"] if "kg_loss" in got
+                                              else []):
+                a, b = float(got[key]), float(refs[key.split("/")[-1]])
+                if abs(a - b) > LOSS_RTOL * abs(b):
+                    raise AssertionError(f"process {rank} {key} {a} vs the "
+                                         f"one-process engine's {b}")
+            for key, want in refs.items():
+                mine = (f"{name}/{key}" if key.startswith("cf/") else key)
+                if not (key.startswith(("cf/", "kg/")) and mine in got):
+                    continue
+                scale = float(np.abs(want).max())
+                err = float(np.abs(got[mine] - want).max())
+                if err > 1e-4 * scale:
+                    raise AssertionError(f"process {rank} {mine}: {err:.3e} "
+                                         f"from the one-process engine, "
+                                         f"largest entry {scale:.3e}")
+                worst = max(worst, err / scale if scale else 0.0)
+        lines.append(f"{name}: gradients within {worst:.2e} of their "
+                     f"largest entry")
+    print(f"[10/10] {world} processes, one per card "
+          f"({multihost.backend_for(dev)}), P = {world}, every exchange in "
+          f"turn in the same processes: first CF step (batch "
+          f"{len(refs['cf_batch/0'])}, dropout 0, loss {refs['cf_loss']:.6f}"
+          f" on every process) and KG step (loss {refs['kg_loss']:.6f}, "
+          f"batch {len(refs['kg_batch/0'])}) against the one-process "
+          f"engine's: " + "; ".join(lines) + f" ({smi_line})",
+          flush=True)
+    if dev.type == "cuda":
+        slow = {k: max(r[k] for r in results)
+                for k in ("cf_wall_ms", "kg_wall_ms")}
+        print(f"[10/10] replayed ring/fused steps, the slowest process: CF "
+              f"{slow['cf_wall_ms']:.3f} ms, KG {slow['kg_wall_ms']:.3f} ms "
+              f"(each process: CF "
+              f"{[round(r['cf_wall_ms'], 3) for r in results]}, KG "
+              f"{[round(r['kg_wall_ms'], 3) for r in results]}) "
+              f"({smi_line})", flush=True)
+    cli_processes(tmp, sizes, dev, world)
+    launches = {k: sum(r["process_launches"][k] for r in results)
+                for k in ("ring_shift", "reduce_send")}
+    k7 = [r["k7_ms"] for r in results if r.get("k7_ms") is not None]
+    k8 = [r["k8_ms"] for r in results if r.get("k8_ms") is not None]
+    return {"ring_shift": {"process_launches": launches["ring_shift"],
+                           "process_ms": max(k7, default=None)},
+            "reduce_send": {"process_launches": launches["reduce_send"],
+                            "process_ms": max(k8, default=None)}}
+
+
+def cli_processes(tmp, sizes, dev, world) -> None:
+    """``python -m kgat_tpu_torch.train`` on ``world`` processes (the
+    environment of kgat_tpu's multi-host launch) for one ring/fused
+    epoch: process 0's event log, every process's checkpoint shard."""
+    log_dir = os.path.join(tmp, "runs_processes")
+    argv = ["--dataset", "yelp2018", "--data-root", tmp, "--epochs", "1",
+            "--eval-every", "1", "--device", dev.type, "--log-dir", log_dir,
+            "--run-name", "processes", "--seed", "0", "--cf-batch-size",
+            str(sizes.cf_batch), "--kg-batch-size", str(sizes.kg_batch),
+            "--n-devices", str(world), "--halo-exchange", "ring",
+            "--ring-transport", "fused"]
+    env = [{"COORDINATOR_ADDRESS": f"file://{tmp}/processes_cli",
+            "NUM_PROCESSES": str(world), "PROCESS_ID": str(rank)}
+           for rank in range(world)]
+    t0 = time.perf_counter()
+    run_processes([[sys.executable, "-m", "kgat_tpu_torch.train", *argv]]
+                  * world, env, PROCESS_LIMIT, "phase 10 trainer CLI")
+    cli_s = time.perf_counter() - t0
+    with open(os.path.join(log_dir, "processes.jsonl")) as f:
+        events = [json.loads(ln) for ln in f]
+    names = [e["event"] for e in events]
+    epoch = next(e for e in events if e["event"] == "epoch")
+    ev = next(e for e in events if e["event"] == "eval")
+    if not (names.count("start") == names.count("done") == 1
+            and epoch["captured"] == (dev.type == "cuda")
+            and epoch["processes"] == world and epoch["rank"] == 0
+            and math.isfinite(epoch["cf_loss"])
+            and math.isfinite(epoch["kg_loss"])):
+        raise AssertionError(f"phase 10 trainer CLI: events {events}")
+    shards = [os.path.join(log_dir, f"processes_best.shard{r}of{world}.npz")
+              for r in range(world)]
+    if not all(os.path.exists(p) for p in shards):
+        raise AssertionError(f"phase 10 trainer CLI: shards {shards}")
+    print(f"[10/10] trainer CLI on {world} processes (python -m "
+          f"kgat_tpu_torch.train {' '.join(argv[argv.index('--n-devices'):])}"
+          f", NUM_PROCESSES {world}): 1 epoch of "
+          f"{'replayed' if epoch['captured'] else 'eager'} steps "
+          f"({epoch['why']}) in {epoch['secs']:.1f} s ({cli_s:.1f} s with "
+          f"start-up, data load, partition, eval and checkpoints), cf_loss "
+          f"{epoch['cf_loss']:.4f}, kg_loss {epoch['kg_loss']:.4f}, "
+          f"recall@20 {ev['recall']:.4f}; events {names}; a checkpoint "
+          f"shard from every process", flush=True)
+
+
+def process_worker(argv) -> int:
+    """Phase 10's worker ``rank`` of ``world``, one process per card (or
+    on the CPU): ``chip_smoke.py --process-worker cuda|cpu rank world url
+    tmp cf_batch kg_batch``."""
+    device, rank, world = argv[0], int(argv[1]), int(argv[2])
+    url, tmp = argv[3], argv[4]
+    sizes = dataclasses.replace(YELP_SIZES, cf_batch=int(argv[5]),
+                                kg_batch=int(argv[6]))
+    if device == "cpu":
+        torch.set_num_threads(1)
+    rec.disable_tf32()
+    multihost.initialize_distributed(url, world, rank, device)
+    try:
+        return _process_work(rank, world, tmp, sizes,
+                             multihost.process_device(device, rank))
+    finally:
+        dist.destroy_process_group()
+
+
+def _process_work(rank, world, tmp, sizes, dev) -> int:
+    """Every exchange of ``PROCESS_MESHES`` in turn, one trainer each,
+    closed before the next: its first CF step on the parent's batch (and,
+    under the all-gather, a KG step), saved for the parent; under
+    ring/fused also K7 and K8 across processes and the replayed steps,
+    printed as this process's result."""
+    ds = load_dataset(tmp, "yelp2018")
+    with np.load(os.path.join(tmp, "process_refs.npz")) as z:
+        batch = [torch.from_numpy(z[f"cf_batch/{i}"]).to(dev)
+                 for i in range(4)]
+        kg = [torch.from_numpy(z[f"kg_batch/{i}"]).to(dev)
+              for i in range(5)]
+    out = {}
+    for exchange, transport in PROCESS_MESHES:
+        name = f"{exchange}-{transport}"
+        tr = train.Trainer(process_cfg(tmp, sizes, dev, world, exchange,
+                                       transport), dataset=ds)
+        if not tr.sync or tr.captured != (dev.type == "cuda"):
+            raise AssertionError(f"{name}: sync {tr.sync}, captured "
+                                 f"{tr.captured} ({tr.capture_why})")
+        got = {f"{name}/cf_loss": float(tr.cf_grad(tr.attention(), *batch))}
+        got.update({f"{name}/cf/{k}": p.grad.cpu().numpy().copy()
+                    for k, p in tr.model.named_parameters()})
+        if exchange == "allgather":
+            got["kg_loss"] = float(tr.kg_grad(*kg))
+            got.update({f"kg/{k}": p.grad.cpu().numpy().copy()
+                        for k, p in tr.model.named_parameters()})
+        np.savez(os.path.join(tmp, f"process_{name}.{rank}.npz"), **got)
+        if transport == "fused":
+            _ring_across_processes(tr, rank, world, dev)
+            out = _replayed_steps(tr, rank, world, dev)
+        tr.close()
+        del tr
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        multihost.barrier(dev)
+    print("PROCESS_RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def _ring_across_processes(tr, rank, world, dev) -> None:
+    """K7 and K8 storing into the neighbour process's registered buffer
+    on the trainer's real shapes: every received chunk bit-exact (the
+    chunks drawn from a generator seeded by the sender's rank), K8's sums
+    on this process's step-0 bucket within the float32 bound; each round
+    ends on every process before the next stores."""
+    link = tr.part.links[0]
+    p = tr.part.mesh.local_parts(0)[0]
+    bucket = tr.part.buckets[0][p][0]
+    R, d = tr.part.info.rows_per_part, tr.cfg.model.embed_dim
+    prev, nxt = (rank - 1) % world, (rank + 1) % world
+
+    def chunk(r, k):
+        g = torch.Generator().manual_seed(100 * r + k)
+        return torch.randn(R, d, generator=g)
+
+    att = torch.rand(bucket.n_edges, generator=torch.Generator().manual_seed(
+        rank)).to(dev)
+    vals = (chunk(rank, 50).to(dev)[bucket.src.long()] * att[:, None])
+    want = ref.segment_sum_csr(bucket.row_offsets, vals.double())
+    bound = sum_bound(want, ref.segment_sum_csr(
+        bucket.row_offsets, vals.double().abs()),
+        csr_lengths(bucket.row_offsets)[:, None])
+    for k in range(3):
+        got_f = link.shift((0, 0, 1), chunk(rank, k).to(dev))
+        got_b = link.shift((0, 0, -1), chunk(rank, 10 + k).to(dev))
+        # Layer 1's buffer (layer 0's width too): P = 2 has one ring step.
+        sums, got_8 = link.reduce_send((1, 0, 1), bucket.row_offsets, vals,
+                                       bucket.split, chunk(rank, 20 + k).to(
+                                           dev))
+        sync(dev)
+        for got, want_chunk, what in ((got_f, chunk(prev, k), "K7 forward"),
+                                      (got_b, chunk(nxt, 10 + k),
+                                       "K7 backward"),
+                                      (got_8, chunk(prev, 20 + k), "K8")):
+            if not torch.equal(got.cpu(), want_chunk):
+                raise AssertionError(f"process {rank}: {what} round {k}: "
+                                     f"the received chunk differs")
+        err = (sums.double() - want).abs()
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"process {rank}: K8 sums beyond the "
+                                 f"float32 bound: {float(err.max()):.3e}")
+        multihost.barrier(dev)
+    print(f"[10/10] process {rank} on {dev}: K7 and K8 into process "
+          f"{nxt}'s registered buffers (K7 backward into process {prev}'s), "
+          f"3 rounds bit-exact, K8's sums on its step-0 bucket "
+          f"({bucket.n_edges} edges) within the float32 bound", flush=True)
+
+
+def _replayed_steps(tr, rank, world, dev) -> dict:
+    """The steps captured (on the card), then 10 replayed CF and KG steps
+    against 10 eager ones from the same state and generators (loss sums
+    within 1e-4). Then the reported run: from a barrier, 50 replayed CF
+    steps and 100 replayed KG steps, each timed on the host clock to a
+    synchronize (this process's wall per step), and 5 of each traced for
+    the device busy (torch.profiler) and K7's and K8's device ms a launch
+    in the CF step, where each stores into the next process. The run's
+    cross-process launches are the CF graph's captured cross-process calls
+    times its replays in the run, checked against the graph's kernel
+    nodes; no wrapper is called in the run."""
+    tr.stage(tr.attention())
+    if dev.type == "cuda":
+        for steps in (tr.cf_steps, tr.kg_steps):
+            steps.capture()
+        _check_process_nodes(tr.cf_steps)
+    snap = snapshot(tr)
+    states = [g.get_state() for g in tr.cf_steps.generators]
+    replayed = [float(tr.cf_steps.run(10)), float(tr.kg_steps.run(10))]
+    restore(tr, snap)
+    for g, st in zip(tr.cf_steps.generators, states):
+        g.set_state(st)
+    eager = []
+    for body in (tr._cf_body, tr._kg_body):
+        total = torch.zeros((), device=dev)
+        for _ in range(10):
+            total += body()
+        eager.append(float(total))
+    for what, a, b in zip(("CF", "KG"), replayed, eager):
+        if abs(a - b) > 1e-4 * abs(b):
+            raise AssertionError(f"process {rank}: 10 replayed {what} steps "
+                                 f"{a} vs 10 eager {b}")
+    res, kernels = {}, {}
+    remote_ring.process_launches.clear()
+    cf_replays = tr.cf_steps.replays
+    for what, steps, n in (("cf", tr.cf_steps, 50), ("kg", tr.kg_steps, 100)):
+        step = steps.replay if dev.type == "cuda" else steps.body
+        multihost.barrier(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        sync(dev)
+        res[f"{what}_wall_ms"] = (time.perf_counter() - t0) * 1e3 / n
+        busy, per_kernel = (device_busy_ms(step, 5) if dev.type == "cuda"
+                            else (None, {}))
+        res[f"{what}_busy_ms"] = busy
+        if what == "cf":
+            kernels = per_kernel
+    for name, key in (("ring_shift_kernel", "k7_ms"),
+                      ("reduce_send_kernel", "k8_ms")):
+        rows = [(ms, n) for k, (ms, n) in kernels.items() if name in k]
+        n = sum(c for _, c in rows)
+        res[key] = sum(ms for ms, _ in rows) / n if n else None
+    if remote_ring.process_launches:
+        raise AssertionError(f"process {rank}: a wrapper stored into another "
+                             f"process in the replayed run: "
+                             f"{dict(remote_ring.process_launches)}")
+    replays = tr.cf_steps.replays - cf_replays
+    res["process_launches"] = {
+        k: tr.cf_steps.process_calls.get(k, 0) * replays
+        for k in ("ring_shift", "reduce_send")}
+    busy = {k: ("not measured" if res[k] is None else f"{res[k]:.3f} ms")
+            for k in ("cf_busy_ms", "kg_busy_ms")}
+    k78 = ("not measured" if res["k7_ms"] is None else
+           f"{res['k7_ms']:.4f} and {res['k8_ms']:.4f} ms a launch")
+    print(f"[10/10] process {rank} on {dev}: 10 replayed ring/fused steps "
+          f"against 10 eager ones, loss sums CF {replayed[0]:.5f} "
+          f"({eager[0]:.5f}), KG {replayed[1]:.5f} ({eager[1]:.5f}); "
+          f"replayed CF step wall {res['cf_wall_ms']:.3f} ms (50 from a "
+          f"barrier), device busy {busy['cf_busy_ms']}; KG step wall "
+          f"{res['kg_wall_ms']:.3f} ms (100), device busy "
+          f"{busy['kg_busy_ms']}; K7 and K8 into the next process in the "
+          f"replayed CF step: {k78}; cross-process launches in {replays} "
+          f"CF replays {res['process_launches']}", flush=True)
+    return res
+
+
+def _check_process_nodes(steps) -> None:
+    """The captured CF step's kernel nodes of K7, K8 and the ring's flag
+    wait against its captured calls: one node each per K7 and K8 call
+    (K8's second launch, for long rows, is the fixup's), and one wait per
+    call that stored into another process, every K7 and K8 call here."""
+    names = graph_kernel_names(steps.graph.raw_cuda_graph())
+    count = {k: sum(k in n for n in names)
+             for k in ("ring_shift_kernel", "reduce_send_kernel",
+                       "wait_flag_kernel")}
+    want = {"ring_shift_kernel": steps.calls.get("ring_shift", 0),
+            "reduce_send_kernel": steps.calls.get("reduce_send", 0),
+            "wait_flag_kernel": sum(steps.process_calls.values())}
+    if count != want or steps.process_calls != {
+            k: steps.calls[k] for k in ("ring_shift", "reduce_send")
+            if k in steps.calls}:
+        raise AssertionError(f"CF step graph: kernel nodes {count}, from its "
+                             f"captured calls {want} (cross-process "
+                             f"{steps.process_calls} of {steps.calls})")
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--process-worker"]:
+        sys.exit(process_worker(sys.argv[2:]))
     sys.exit(main())

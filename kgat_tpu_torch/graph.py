@@ -162,7 +162,9 @@ class EdgeWeights:
 
 def _weight_leaves(staged) -> list:
     """The tensors of :class:`EdgeWeights` or nested lists of them, in
-    order."""
+    order (None, another process's partition, holds none)."""
+    if staged is None:
+        return []
     if isinstance(staged, EdgeWeights):
         return [staged.fwd, staged.rev]
     return [t for w in staged for t in _weight_leaves(w)]
@@ -175,6 +177,8 @@ def clone_weights(staged):
     memo = {}
 
     def clone(w):
+        if w is None:
+            return None
         if isinstance(w, EdgeWeights):
             return EdgeWeights(fwd=clone(w.fwd), rev=clone(w.rev))
         if isinstance(w, torch.Tensor):

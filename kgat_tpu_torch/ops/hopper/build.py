@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libkgat_hopper.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-ldl")
 
 # Kernel launches per wrapper, counted where each wrapper launches its
 # kernel. Callers clear it to see which kernels a run went through.
@@ -52,6 +52,17 @@ _SIGNATURES = {
     "kgat_reduce_send": _SPLIT + (_P, _P, _P, _I, _I, _P, _P, _S, _P),
     # device, peer
     "kgat_enable_peer_access": (_I, _I),
+    # Across processes: nbytes, ptr (out); ptr
+    "kgat_ipc_alloc": (_S, ctypes.POINTER(_P)),
+    "kgat_ipc_free": (_P,),
+    # ptr, handle (64 bytes out)
+    "kgat_ipc_export": (_P, _P),
+    # handle, base (out); base
+    "kgat_ipc_open": (_P, ctypes.POINTER(_P)),
+    "kgat_ipc_close": (_P,),
+    # flag, stream; flag, timeout in ns, stream
+    "kgat_signal": (_P, _P),
+    "kgat_wait": (_P, ctypes.c_ulonglong, _P),
     # rel_perm, tiles, src, dst, emb, w_rel, rel_embed, out, n_tiles, d, k, stream
     "kgat_sddmm_transr": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # ..., n_slots, chunk, row_offsets, logits, out, partials, stream
@@ -136,7 +147,14 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+# Codes from this one up carry a libcuda result (CUresult), less it.
+CU_ERROR = 10000
+
+
 def check_launch(lib: ctypes.CDLL, code: int, name: str) -> None:
+    if code >= CU_ERROR:
+        raise RuntimeError(f"{name}: libcuda error {code - CU_ERROR} "
+                           f"(CUresult)")
     if code != 0:
         msg = lib.kgat_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} ({msg})")

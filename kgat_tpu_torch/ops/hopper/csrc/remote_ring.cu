@@ -31,12 +31,41 @@
 // reduce (remote_ring.py:106-113). Where the bucket has a row longer than
 // CHUNK, a second launch sums that row's partials; the send stays in the
 // first.
+//
+// Across processes (one process per card, kgat_tpu_torch.parallel.
+// multihost), the kernels store into a receive buffer of the neighbour
+// PROCESS. Each process allocates its receive buffers and their flags in
+// one cudaMalloc of its own (kgat_ipc_alloc), outside PyTorch's caching
+// allocator, exports it once with cudaIpcGetMemHandle (kgat_ipc_export),
+// and its neighbours open it with cudaIpcOpenMemHandle (kgat_ipc_open);
+// the kernels then store through that pointer as through a peer pointer.
+// The allocation lives until every peer has closed its mapping
+// (kgat_ipc_close, then kgat_ipc_free). The TPU kernel's send and receive
+// semaphores become a flag in the receiver's memory, one per buffer:
+// after the store the sender's stream writes 1 into it (kgat_signal,
+// cuStreamWriteValue32, which fences the stream's earlier writes
+// system-wide first), and a one-thread kernel on the receiver's stream
+// waits until it reads 1 and writes 0 back (kgat_wait) before anything
+// reads the buffer. The wait is bounded: past its timeout the kernel
+// traps, which fails the process's context, so a peer that never stores
+// ends the run instead of hanging it. A wait on an interprocess event
+// would bind to the latest record that the waiting host has seen, which
+// may be the previous step's when the receiver's host runs ahead; the
+// flag binds each wait to its own store, in eager steps and in CUDA
+// graphs alike (the write and the wait kernel are captured as graph
+// nodes). The barrier of the TPU kernel is the caller's: every buffer is
+// stored into once a step, and the gradient all-reduce that ends a step
+// orders one step's reads before the next step's stores.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 
 #include <cstddef>
+#include <cstdio>
 #include <cstdint>
+#include <cstring>
 
 #include "row_reduce.cuh"
 
@@ -208,4 +237,115 @@ extern "C" int kgat_enable_peer_access(int device, int peer) {
   }
   const cudaError_t back = cudaSetDevice(prev);
   return e != cudaSuccess ? e : back;
+}
+
+// --- across processes -------------------------------------------------------
+
+namespace {
+
+// kgat codes from 10000 up carry a CUresult (code - kCuError).
+constexpr int kCuError = 10000;
+static_assert(sizeof(cudaIpcMemHandle_t) == 64, "kgat_ipc_* move 64 bytes");
+
+// The libcuda entry point the signal needs, looked up in the libcuda that
+// the CUDA runtime has loaded (the library is linked against the runtime
+// only).
+using WriteValue32 = CUresult (*)(CUstream, CUdeviceptr, cuuint32_t,
+                                  unsigned int);
+
+WriteValue32 write_value32() {
+  static const WriteValue32 fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr : reinterpret_cast<WriteValue32>(
+                                          dlsym(lib, "cuStreamWriteValue32_v2"));
+  }();
+  return fn;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ unsigned int load_acquire_sys(
+    const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.sys.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// One thread: waits until the flag reads 1 (a peer's signal), then writes
+// 0 back for the buffer's next store. Past timeout_ns it traps: the
+// stream's context fails, and the process's next synchronisation raises,
+// so a peer that never stores ends the run instead of hanging it (inside
+// a replayed CUDA graph too, where no watchdog sees the wait).
+__global__ void wait_flag_kernel(unsigned int* flag,
+                                 unsigned long long timeout_ns) {
+  const unsigned long long start = global_ns();
+  while (load_acquire_sys(flag) != 1u) {
+    if (global_ns() - start > timeout_ns) {
+      printf("kgat_wait: no peer store reached flag %p in %llu ns\n",
+             static_cast<void*>(flag), timeout_ns);
+      __trap();
+    }
+    __nanosleep(1000);
+  }
+  *flag = 0u;
+}
+
+}  // namespace
+
+// A device allocation of its own for a process's receive buffers and
+// flags (zeroed), apart from PyTorch's caching allocator: its IPC handle
+// names it alone, and it lives until kgat_ipc_free.
+extern "C" int kgat_ipc_alloc(size_t nbytes, void** ptr) {
+  cudaError_t e = cudaMalloc(ptr, nbytes);
+  if (e == cudaSuccess) e = cudaMemset(*ptr, 0, nbytes);
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  return e;
+}
+
+extern "C" int kgat_ipc_free(void* ptr) { return cudaFree(ptr); }
+
+// The IPC handle (64 bytes into `handle`) of a kgat_ipc_alloc allocation.
+extern "C" int kgat_ipc_export(const void* ptr, void* handle) {
+  cudaIpcMemHandle_t h;
+  const cudaError_t e = cudaIpcGetMemHandle(&h, const_cast<void*>(ptr));
+  if (e == cudaSuccess) std::memcpy(handle, &h, sizeof h);
+  return e;
+}
+
+// Maps another process's exported allocation into this one, on the
+// current device (peer access enabled as needed); *base is its start.
+extern "C" int kgat_ipc_open(const void* handle, void** base) {
+  cudaIpcMemHandle_t h;
+  std::memcpy(&h, handle, sizeof h);
+  return cudaIpcOpenMemHandle(base, h, cudaIpcMemLazyEnablePeerAccess);
+}
+
+extern "C" int kgat_ipc_close(void* base) {
+  return cudaIpcCloseMemHandle(base);
+}
+
+// After the stream's earlier work: 1 into the flag (a peer's, through an
+// opened handle), behind a system-wide fence of the stream's writes.
+extern "C" int kgat_signal(void* flag, void* stream) {
+  const WriteValue32 write = write_value32();
+  if (write == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  const CUresult r = write(static_cast<CUstream>(stream),
+                           reinterpret_cast<CUdeviceptr>(flag), 1,
+                           CU_STREAM_WRITE_VALUE_DEFAULT);
+  return r == CUDA_SUCCESS ? 0 : kCuError + static_cast<int>(r);
+}
+
+// The stream's later work waits until the flag reads 1, for at most
+// timeout_ns (wait_flag_kernel); 0 then goes back into it.
+extern "C" int kgat_wait(void* flag, unsigned long long timeout_ns,
+                         void* stream) {
+  wait_flag_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned int*>(flag), timeout_ns);
+  return cudaGetLastError();
 }

@@ -1,2 +1,4 @@
-"""Edge-partitioned training: P destination-block partitions in one process
-(``kgat_tpu_torch.parallel.partition``, ``dp`` and ``halo``)."""
+"""Edge-partitioned training: P destination-block partitions, in one
+process or one process per card over ``torch.distributed``
+(``kgat_tpu_torch.parallel.partition``, ``dp``, ``halo`` and
+``multihost``)."""

@@ -48,26 +48,41 @@ lazily over the rows the batch touches (``optim.sparse_kg_step``).
 Checkpoints hold the full state in ``kgat_tpu``'s format (params, Adam's
 moments and count, the counters, and the port's generator states), and
 ``--resume`` continues from the newer of the best and last ones, a
-``kgat_tpu`` checkpoint too. ``--use-pretrain mf.npz`` starts the user and
+``kgat_tpu`` checkpoint too.
+
+Launched as several processes (one per card, ``parallel/multihost.py``,
+the environment of ``kgat_tpu``'s multi-host launch), the trainer forms
+the process group first; each process owns N / W of the N partitions,
+on its card, and draws the same global batches from identically seeded
+generators. After each CF and KG backward the gradients of the
+replicated parameters and the step's loss are summed over the processes
+in one all-reduce of one flat buffer, so every process takes the same
+Adam step. The captured steps hold the NCCL calls. Process 0 alone logs;
+evaluation runs on every process and gives the same metrics, hence the
+same early stop; each process writes its shard of each checkpoint.
+With ``--n-devices 1`` every process trains the same single-device
+replica, as ``kgat_tpu`` does. ``--use-pretrain mf.npz`` starts the user and
 item rows from BPR-MF embeddings (``python -m kgat_tpu_torch.models.bprmf``).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from kgat_tpu_torch import eval as evaluation
 from kgat_tpu_torch.data import Dataset, load_dataset, synthetic_dataset
 from kgat_tpu_torch.graph import clone_weights, copy_weights_
 from kgat_tpu_torch.models import kgat
-from kgat_tpu_torch.ops.hopper import build
+from kgat_tpu_torch.ops.hopper import build, remote_ring
 from kgat_tpu_torch.optim import (adam_count, make_optimizer, set_adam_count,
                                   sparse_kg_step)
-from kgat_tpu_torch.parallel import dp, halo
+from kgat_tpu_torch.parallel import dp, halo, multihost
 from kgat_tpu_torch.parallel.partition import (build_ring_buckets,
                                                build_selective_halo,
                                                partition_graph)
@@ -75,7 +90,9 @@ from kgat_tpu_torch.recommend import disable_tf32
 from kgat_tpu_torch.sampler import (CFSampleTable, HostCFSampler,
                                     HostKGSampler, KGSampleTable,
                                     sample_cf_batch, sample_kg_batch)
-from kgat_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from kgat_tpu_torch.utils.checkpoint import (load_checkpoint_sharded,
+                                             save_checkpoint,
+                                             save_checkpoint_sharded)
 from kgat_tpu_torch.utils.config import TrainConfig, parse_args
 from kgat_tpu_torch.utils.logging import RunLogger
 
@@ -124,14 +141,22 @@ class StepGraph:
         self.loss_sum = torch.zeros((), device=device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.replays = 0
-        # Wrapper calls the capture recorded (each launches at a replay).
+        # Wrapper calls the capture recorded (each launches at a replay),
+        # and those of them that stored into another process (K7, K8).
         self.calls: Dict[str, int] = {}
+        self.process_calls: Dict[str, int] = {}
+        # Under a process group, replays end within the group's timeout or
+        # raise (multihost.Watch): no watchdog sees a collective in a graph.
+        self._watch: Optional[multihost.Watch] = None
 
     def _step(self) -> None:
         self.loss_sum += self.body()
 
     def capture(self) -> None:
-        """The warm-up step on a side stream, then the capture."""
+        """The warm-up step on a side stream, then the capture. Under a
+        process group the warm-up creates the NCCL communicators the
+        capture records; the capture waits for the warm-up to end, and
+        other threads (NCCL's watchdog) may call CUDA during it."""
         if self.device.type != "cuda":
             raise RuntimeError(f"CUDA graphs need a CUDA device, not "
                                f"{self.device}")
@@ -141,21 +166,28 @@ class StepGraph:
         with torch.cuda.stream(side):
             self._step()
         stream.wait_stream(side)
+        grouped = dist.is_available() and dist.is_initialized()
+        if grouped:
+            torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         for g in self.generators:
             graph.register_generator_state(g)
         before = dict(build.launch_counts)
-        with torch.cuda.graph(graph):
+        before_p = dict(remote_ring.process_launches)
+        with torch.cuda.graph(graph, capture_error_mode=(
+                "thread_local" if grouped else "global")):
             self._step()
         graph.instantiate()
-        self.calls = {k: n - before.get(k, 0)
-                      for k, n in build.launch_counts.items()
-                      if n != before.get(k, 0)}
+        self.calls = _counted(build.launch_counts, before)
+        self.process_calls = _counted(remote_ring.process_launches, before_p)
         self.graph = graph
+        self._watch = multihost.Watch(self.device) if grouped else None
 
     def replay(self) -> None:
         self.graph.replay()
         self.replays += 1
+        if self._watch is not None:
+            self._watch.mark()
 
     def run(self, n: int) -> torch.Tensor:
         """n steps; the sum of their losses on the device."""
@@ -170,7 +202,14 @@ class StepGraph:
             done = 1
         for _ in range(n - done):
             self.replay()
+        if self._watch is not None:
+            self._watch.drain()
         return self.loss_sum
+
+
+def _counted(counts, before) -> Dict[str, int]:
+    return {k: n - before.get(k, 0) for k, n in counts.items()
+            if n != before.get(k, 0)}
 
 
 def reseed(seed: int, epoch: int, stream: int = 0) -> int:
@@ -183,15 +222,26 @@ def reseed(seed: int, epoch: int, stream: int = 0) -> int:
 class Trainer:
     def __init__(self, cfg: TrainConfig, dataset: Optional[Dataset] = None):
         self.cfg = cfg
-        self.device = dev = torch.device(cfg.device)
+        dev = torch.device(cfg.device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available: train on a GPU, or "
                                "pass --device cpu for the plain PyTorch path")
+        # The process group first (kgat_tpu/train.py:98-102): a no-op for
+        # one process, and once only (main() may have formed it).
+        multihost.initialize_distributed(device=dev)
+        self.grouped = dist.is_available() and dist.is_initialized()
+        self.rank, self.n_procs = multihost.world()
+        self.device = dev = (multihost.process_device(dev, self.rank)
+                             if self.grouped else dev)
         disable_tf32()
         self.ds = dataset if dataset is not None else load_any_dataset(cfg)
         graph, self.meta = self.ds.build()
         self.graph = graph.to(dev)
-        self.logger = RunLogger(cfg.log_dir, cfg.run_name, resume=cfg.resume)
+        # Process 0 alone writes the event log and prints
+        # (kgat_tpu/train.py:106-109).
+        p0 = self.rank == 0
+        self.logger = RunLogger(cfg.log_dir if p0 else None, cfg.run_name,
+                                quiet=not p0, resume=cfg.resume)
 
         # Samplers: CF over train interactions; KG over all CKG triples.
         self.cf_table = CFSampleTable.build(
@@ -233,12 +283,22 @@ class Trainer:
         self.partitioned = self.n_devices > 1
         self.mesh = (dp.make_mesh(self.n_parts, dev, self.dp_replicas)
                      if self.partitioned else None)
+        # Partitions under a process group each hold a share of a step's
+        # loss and gradients, which one all-reduce sums.
+        self.sync = self.grouped and self.partitioned
         self.captured, self.capture_why = self._capture_mode()
         # Adam is capturable where the steps are captured, and only there:
         # its device-side bias corrections add 38 launches to an eager
         # step, which gains nothing from them.
         self.opt = make_optimizer(self.model.parameters(), cfg.lr,
                                   capturable=self.captured)
+        # After each backward under a process group, the gradients and the
+        # loss (this process's shares) are summed over the processes in one
+        # all-reduce, the psum of kgat_tpu's steps. It also ends the step on
+        # every process together: no process's next step stores into a
+        # peer's ring buffer (K7, K8) before every peer read this step's.
+        self._grad_sum = (multihost.GradSum(self.model.parameters(), dev)
+                          if self.sync else None)
         self.cf_batch_size, self.kg_batch_size = (cfg.cf_batch_size,
                                                   cfg.kg_batch_size)
         self.part: Optional[halo.Partitioned] = None
@@ -257,7 +317,7 @@ class Trainer:
         # every epoch). Every generator a CF step draws from is registered
         # with its graph: the trainer's and each partition's.
         self.cf_steps = StepGraph(self._cf_body,
-                                  [self.generator, *self.part_generators],
+                                  [self.generator, *self._own_generators()],
                                   dev, capture=self.captured)
         self.kg_steps = StepGraph(self._kg_body, [self.generator], dev,
                                   capture=self.captured)
@@ -273,19 +333,38 @@ class Trainer:
 
     def _capture_mode(self) -> Tuple[bool, str]:
         """Whether the device-sampled steps are captured in CUDA graphs,
-        and why: decided once, from the device and the mesh."""
+        and why: decided once, from the device, the mesh and the process
+        group."""
         if self.device.type != "cuda":
             return False, "the CPU runs eager steps"
         if not self.partitioned:
             if self.cfg.sampler == "host":
                 return False, "--sampler host runs eager steps"
             return True, f"one device, {self.device}"
+        if self.mesh.owners:       # partitions under a process group
+            if os.environ.get("KGAT_DP_CHECK_BATCH") == "1":
+                return False, ("KGAT_DP_CHECK_BATCH=1 reads every step's "
+                               "batch checksum back to the host")
+            return True, (f"{len(self.mesh.local_slots())} of "
+                          f"{self.n_devices} partitions on {self.device} "
+                          f"in process {self.mesh.rank} of "
+                          f"{self.mesh.n_procs}, the NCCL calls inside "
+                          f"the graphs")
         cards = sorted({str(d) for d in self.mesh.devices})
         if len(cards) > 1:
             return False, (f"the partitions span {len(cards)} cards "
                            f"({', '.join(cards)}): a CUDA graph holds one "
                            f"card's work, so the steps run eagerly")
         return True, (f"all {self.n_devices} partitions on {cards[0]}")
+
+    def _own_generators(self) -> list:
+        """This process's partitions' dropout generators, in slot order."""
+        return [g for g in self.part_generators if g is not None]
+
+    def _kg_block(self, batch: int) -> slice:
+        """This process's block of a global KG batch."""
+        b = batch // self.n_procs
+        return slice(self.rank * b, (self.rank + 1) * b)
 
     def _build_partitioned(self, graph) -> None:
         """The edge-partitioned CF phase (``kgat_tpu/train.py:264-340``):
@@ -313,9 +392,11 @@ class Trainer:
             halos=build_selective_halo(shards, self.pinfo)
             if ex == "a2a" else None, ring_transport=cfg.ring_transport)
         # Row d's partition p draws from seed + 1 + p + P d, as JAX folds
-        # p + nP d into its dropout key (halo.py:411-413).
+        # p + nP d into its dropout key (halo.py:411-413); under a process
+        # group on the process that owns it (None elsewhere).
         self.part_generators = [
-            torch.Generator(device=dv).manual_seed(cfg.seed + 1 + i)
+            None if dv is None
+            else torch.Generator(device=dv).manual_seed(cfg.seed + 1 + i)
             for i, dv in enumerate(self.mesh.devices)]
         self.cf_batch_size = dp.round_batch(cfg.cf_batch_size,
                                             self.n_devices)
@@ -350,7 +431,8 @@ class Trainer:
         Dropout applies ``masks`` (``kgat.dropout_masks``) or draws its
         masks from ``generator`` (default: the trainer's), or when
         partitioned from one generator per (dp row, partition) (default:
-        ``part_generators``)."""
+        ``part_generators``). Under a process group the loss is the global
+        batch's and the gradients are summed over the processes."""
         self.opt.zero_grad(set_to_none=False)
         if self.partitioned:
             loss = self.part.cf_loss(
@@ -362,6 +444,8 @@ class Trainer:
                                 generator=generator or self.generator,
                                 train=True, weight=weight, masks=masks)
         loss.backward()
+        if self.sync:
+            return self._grad_sum(loss)
         return loss.detach()
 
     def cf_step(self, att, u, i_pos, i_neg, weight=None, *,
@@ -375,8 +459,16 @@ class Trainer:
 
     def kg_grad(self, h, r, t_pos, t_neg, weight=None) -> torch.Tensor:
         """The TransR loss of one batch, with its gradient in every
-        parameter's ``.grad`` (zeros for the layer weights)."""
+        parameter's ``.grad`` (zeros for the layer weights). Under a
+        process group each process takes its block of the global batch
+        (``dp.kg_block_loss``) and the all-reduce sums the blocks."""
         self.opt.zero_grad(set_to_none=False)
+        if self.sync:
+            loss = dp.kg_block_loss(self.model, h, r, t_pos, t_neg,
+                                    self.cfg.model, weight,
+                                    self._kg_block(h.shape[0]))
+            loss.backward()
+            return self._grad_sum(loss)
         loss = kgat.kg_loss(self.model, h, r, t_pos, t_neg, self.cfg.model,
                             weight=weight)
         loss.backward()
@@ -401,6 +493,8 @@ class Trainer:
         step."""
         u, i_pos, i_neg, weight = self.sample_cf()
         if self.partitioned:
+            if self.sync:
+                dp.check_batch((u, i_pos, i_neg, weight))
             self.cf_drawn = (u, i_pos, i_neg, weight, None)
             return self.cf_step(self._step_att, u, i_pos, i_neg, weight)
         masks = kgat.dropout_masks(self.cfg.model, self.meta.n_nodes,
@@ -412,6 +506,8 @@ class Trainer:
     def _kg_body(self) -> torch.Tensor:
         """One device-sampled KG step."""
         self.kg_drawn = self.sample_kg()
+        if self.sync:
+            dp.check_batch(self.kg_drawn)
         return self.kg_step(*self.kg_drawn)
 
     def stage(self, att) -> None:
@@ -481,13 +577,16 @@ class Trainer:
         moments = {key: kgat.numpy_params(self.model,
                                           lambda p, key=key: state[p][key])
                    for key in ("exp_avg", "exp_avg_sq")}
-        own = {"generator": self.generator.get_state().numpy()}
+        own = ({"generator": self.generator.get_state().numpy()}
+               if self.rank == 0 else {})
         if self.partitioned:
             own.update({f"part_generator/{p}": g.get_state().numpy()
-                        for p, g in enumerate(self.part_generators)})
-        save_checkpoint(
-            path, kgat.numpy_params(self.model), moments["exp_avg"],
-            moments["exp_avg_sq"], adam_count(self.opt), epoch=self.epoch,
+                        for p, g in enumerate(self.part_generators)
+                        if g is not None})
+        state = dict(
+            path=path, params=kgat.numpy_params(self.model),
+            mu=moments["exp_avg"], nu=moments["exp_avg_sq"],
+            count=adam_count(self.opt), epoch=self.epoch,
             rng=np.array([self.cfg.seed % 2 ** 32, self.epoch], np.uint32),
             best_metric=self.best_metric, bad_evals=self.bad_evals, own=own,
             extra={"model": {"embed_dim": mc.embed_dim,
@@ -496,6 +595,14 @@ class Trainer:
                              "aggregator": mc.aggregator,
                              "mess_dropout": list(mc.mess_dropout)},
                    "dataset": self.cfg.dataset})
+        if self.n_procs == 1:
+            save_checkpoint(**state)
+            return
+        # Every process its shard (kgat_tpu/train.py:413-417); the
+        # barrier keeps a process from reading a shard a peer still writes.
+        save_checkpoint_sharded(**state, process_index=self.rank,
+                                process_count=self.n_procs)
+        multihost.barrier(self.device)
 
     def _resume(self) -> None:
         """Restore from the newer (by epoch) of the best and last
@@ -507,7 +614,7 @@ class Trainer:
         states = []
         for path in (self.ckpt_path(), self.last_ckpt_path()):
             try:
-                states.append((load_checkpoint(path), path))
+                states.append((load_checkpoint_sharded(path), path))
             except FileNotFoundError:
                 pass
         if not states:
@@ -526,10 +633,12 @@ class Trainer:
         self.best_metric = meta["best_metric"]
         self.bad_evals = meta["bad_evals"]
         self._att = None  # params changed; recomputed when needed
-        gens = [self.generator] + (self.part_generators
-                                   if self.partitioned else [])
-        keys = ["generator"] + [f"part_generator/{p}"
-                                for p in range(len(gens) - 1)]
+        gens, keys = [self.generator], ["generator"]
+        if self.partitioned:
+            for p, g in enumerate(self.part_generators):
+                if g is not None:
+                    gens.append(g)
+                    keys.append(f"part_generator/{p}")
         self.logger.log("resume", epoch=self.epoch, best=self.best_metric,
                         bad_evals=self.bad_evals, source=path)
         if all(k in state["own"] for k in keys):
@@ -552,7 +661,7 @@ class Trainer:
                         kg_batches=self.n_kg_batches,
                         aggregator=cfg.model.aggregator,
                         backend=cfg.model.ops_backend, sampler=cfg.sampler)
-        if cfg.profile_epochs > 0 and cfg.log_dir:
+        if cfg.profile_epochs > 0 and cfg.log_dir and self.rank == 0:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -565,6 +674,14 @@ class Trainer:
             self._stop_profile()
         self.logger.log("done", best_recall=self.best_metric)
         return final
+
+    def close(self) -> None:
+        """Drops the captured steps and frees the ring links' buffers
+        (``Partitioned.close``). Under a process group every process calls
+        it together, after its last step."""
+        self.cf_steps.graph = self.kg_steps.graph = None
+        if self.part is not None:
+            self.part.close()
 
     def _stop_profile(self) -> None:
         if self._prof is None:
@@ -592,6 +709,8 @@ class Trainer:
             # steps replayed CUDA graphs and why.
             mode = (dict(captured=self.captured, why=self.capture_why)
                     if self.partitioned else {})
+            if self.grouped:
+                mode.update(processes=self.n_procs, rank=self.rank)
             self.logger.log("epoch", epoch=self.epoch, cf_loss=cf_l,
                             kg_loss=kg_l, secs=round(dt, 3),
                             edges_per_s=round(edges / dt), **mode)
@@ -614,8 +733,19 @@ class Trainer:
 
 
 def main(argv=None) -> dict:
-    """Train from command-line flags; returns the last eval's metrics."""
-    return Trainer(parse_args(argv)).train()
+    """Train from command-line flags; returns the last eval's metrics.
+    Under NUM_PROCESSES > 1 the process group forms first
+    (``kgat_tpu/train.py:530-533``) and ends with the run."""
+    cfg = parse_args(argv)
+    multihost.initialize_distributed(device=cfg.device)
+    try:
+        trainer = Trainer(cfg)
+        final = trainer.train()
+        trainer.close()
+        return final
+    finally:
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

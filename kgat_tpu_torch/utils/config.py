@@ -11,6 +11,9 @@ share one card; no flag turns that off.
 ``--n-devices N`` trains edge-partitioned over N partitions placed
 round-robin over the visible GPUs (``parallel/dp.py``); more partitions
 than GPUs share a GPU, as ``kgat_tpu``'s tests share virtual CPU devices.
+Launched as several processes (COORDINATOR_ADDRESS, NUM_PROCESSES and
+PROCESS_ID, as ``kgat_tpu``'s multi-host launch), each owns N / W of
+them on its own card (``parallel/multihost.py``).
 ``--dp-replicas D`` arranges them as a 2D (dp, ep) mesh of D rows of N / D
 partitions, and ``--halo-exchange a2a`` exchanges only the rows a peer's
 edges read.
@@ -20,7 +23,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 from typing import Optional
 
 import torch
@@ -102,14 +104,8 @@ PRESETS = {
                                               ops_backend="hopper")),
 }
 
-_ITEM_13 = ("(ROADMAP.md queue 1, item 13, multi-host over "
-            "torch.distributed: the next slice)")
-
 # (flag as named to the user, test on the parsed args, why it is refused)
 _UNPORTED = (
-    ("NUM_PROCESSES > 1", lambda a: int(os.environ.get("NUM_PROCESSES", 1))
-     > 1, f"multi-host training is not ported yet: the port runs its "
-     f"partitions in one process {_ITEM_13}"),
     ("--graph-cache", lambda a: a.graph_cache is not None,
      "the npz graph cache is not ported yet (ROADMAP.md queue 1, item 2)"),
     ("--att-impl dense", lambda a: a.att_impl == "dense",
@@ -178,9 +174,14 @@ def parse_args(argv=None) -> TrainConfig:
                    help="restore the full state from the newer of the "
                         "best and last checkpoints, and append to the log")
     p.add_argument("--n-devices", type=int, default=None,
-                   help="partitions for edge-partitioned training, placed "
+                   help="partitions (mesh slots) for edge-partitioned "
+                        "training. In one process they are placed "
                         "round-robin over the visible GPUs (several may "
-                        "share one); 0 = one per GPU; 1 = one device")
+                        "share one); under NUM_PROCESSES > 1 processes, "
+                        "process i owns the i-th of equal consecutive "
+                        "blocks, all on its card. 0 = one per GPU, or "
+                        "one per process; 1 = one device (every process "
+                        "trains the same replica)")
     p.add_argument("--dp-replicas", type=int, default=None,
                    help="2D (dp, ep) mesh: the --n-devices partitions as "
                         "this many rows, each holding every shard and "

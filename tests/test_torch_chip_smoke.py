@@ -1,7 +1,7 @@
 """chip_smoke.py rehearsed on the CPU.
 
 Its phases run only on the GPU machine, where a Python fault would show
-for the first time. Here ``run()`` drives phases 3-9 at a tiny size with
+for the first time. Here ``run()`` drives phases 3-10 at a tiny size with
 the plain versions and a stub timer, in a subprocess where importing jax
 or the JAX package raises (the GPU machine has no jax). ``main()`` itself
 must refuse to run without CUDA, and the script must fail outside the
@@ -70,10 +70,11 @@ print("RC", rc, leaked)
 
 
 def test_phases_3_to_7_run_on_the_cpu_without_jax():
-    """Phases 3-7, phase 8 (the partitioned trainer) and phase 9 (resume,
-    pretrain, sparse Adam and the host samplers, eager here). Each
-    phase prints its wall seconds: a run cut at the time limit shows which
-    phase ran long."""
+    """Phases 3-7, phase 8 (the partitioned trainer), phase 9 (resume,
+    pretrain, sparse Adam and the host samplers, eager here) and phase 10
+    (a gloo group of one process holding four slots; the cross-process
+    paths need two cards). Each phase prints its wall seconds: a run cut
+    at the time limit shows which phase ran long."""
     try:
         proc = subprocess.run([sys.executable, "-I", "-c",
                                REHEARSAL.format(repo=REPO)],
@@ -86,8 +87,9 @@ def test_phases_3_to_7_run_on_the_cpu_without_jax():
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     assert lines[-1] == "RC 0 []", lines[-1]
-    for n in range(3, 10):
-        assert any(ln.startswith(f"[{n}/9] took ") for ln in lines), n
+    for n in range(3, 11):
+        assert any(ln.startswith(f"[{n}/10] took ") for ln in lines), n
+    assert any("need two or more cards" in ln for ln in lines)
     kernels = json.loads(lines[-2])["kernels"]
     assert [k["name"] for k in kernels] == [
         "spmm_csr", "spmm_csr_rev", "sddmm_transr", "segment_softmax_csr",
@@ -108,6 +110,55 @@ def test_phases_3_to_7_run_on_the_cpu_without_jax():
         # K5 is also timed by CUDA-graph replay (the stub timer's 0.0).
         assert ("replay_ms" in k) == (k["name"] == "segment_softmax_csr_bwd")
     assert "FAILED" not in proc.stdout
+
+
+ACROSS = """
+import json, sys, tempfile
+sys.modules["jax"] = None
+sys.modules["kgat_tpu"] = None
+sys.path.insert(0, {repo!r})
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+from kgat_tpu_torch.data import load_dataset, save_dataset, synthetic_dataset
+sizes = chip_smoke.Sizes(
+    dataset=dict(n_users=150, n_items=100, n_entities=250, n_relations_kg=4,
+                 n_interactions=1500, n_triples=1000),
+    hub=300, users=16, steps=3, cf_batch=64, kg_batch=128, chunk=16)
+with tempfile.TemporaryDirectory() as tmp:
+    save_dataset(synthetic_dataset(seed=0, name="yelp2018", **sizes.dataset),
+                 tmp)
+    got = chip_smoke.across_processes(tmp, load_dataset(tmp, "yelp2018"),
+                                      sizes, torch.device("cpu"), 2,
+                                      "CPU rehearsal")
+print("ACROSS " + json.dumps(got))
+"""
+
+
+def test_phase_10_across_processes_runs_on_the_cpu():
+    """Phase 10's multi-process part, which the card runs with two or more
+    cards, on two CPU processes over gloo at a tiny size: the workers'
+    first CF and KG steps against the one-process engine, K7's and K8's
+    sends across processes (gloo here) bit-exact, the steps and one CLI
+    epoch; no kernel launches on the CPU, so none is counted."""
+    try:
+        proc = subprocess.run([sys.executable, "-I", "-c",
+                               ACROSS.format(repo=REPO)],
+                              capture_output=True, text=True, timeout=180,
+                              env=torch_threads.one_thread_env())
+    except subprocess.TimeoutExpired as e:
+        out = e.stdout.decode() if isinstance(e.stdout, bytes) else e.stdout
+        pytest.fail(f"the rehearsal ran past 180 s; its output:\n"
+                    f"{(out or '')[-3000:]}")
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert any(ln.startswith("[10/10] 2 processes, one per card (gloo)")
+               for ln in lines), lines
+    assert sum("3 rounds bit-exact" in ln for ln in lines) == 2
+    assert any("trainer CLI on 2 processes" in ln for ln in lines)
+    got = json.loads(lines[-1][len("ACROSS "):])
+    for name in ("ring_shift", "reduce_send"):
+        assert got[name] == {"process_launches": 0, "process_ms": None}
 
 
 def test_main_refuses_without_cuda():

@@ -9,6 +9,8 @@ there without the suite's conftest:
 
 import dataclasses
 import math
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -33,7 +35,10 @@ from kgat_tpu_torch.ops.hopper.softmax import (segment_softmax_csr,
                                                segment_softmax_csr_plain)
 from kgat_tpu_torch.recommend import disable_tf32
 from kgat_tpu_torch import train
+from kgat_tpu_torch.parallel import multihost
 from kgat_tpu_torch.utils.config import TrainConfig
+
+import torch_cuda_mp_worker as mp_worker
 
 pytestmark = pytest.mark.cuda
 
@@ -750,3 +755,178 @@ def test_partitioned_steps_across_cards(dev, mesh):
     for a, b in zip(*grads):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-7)
     assert all(math.isfinite(x) for x in tr.train_one_epoch())
+
+
+# ---------------------------------------------------------------------------
+# Across processes (one process per card, parallel/multihost.py).
+# ---------------------------------------------------------------------------
+
+def _spawn(mode, world, tmp_path, *args, limit=600):
+    """``world`` processes of tests/torch_cuda_mp_worker.py in ``mode``;
+    their outputs, each process killed past ``limit`` seconds."""
+    url = f"file://{tmp_path}/rendezvous"
+    procs = [subprocess.Popen(
+        [sys.executable, mp_worker.__file__, mode, url, str(world), str(pid),
+         str(tmp_path), *args], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for pid in range(world)]
+    outs = []
+    for proc in procs:
+        try:
+            outs.append(proc.communicate(timeout=limit)[0])
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            outs.append(proc.communicate()[0] + "\n<killed: timeout>")
+    return [p.returncode for p in procs], outs
+
+
+def test_ring_kernels_across_processes(dev, tmp_path):
+    """K7 and K8 store into the next (K7 also the previous) process's
+    registered receive buffer through CUDA IPC, ordered by the flag
+    protocol: 30 rounds eagerly and 30 replays of a CUDA graph on new data,
+    every received chunk bit-exact, K8's sums within the float32 bound;
+    then the link is closed and a second one registered in the same
+    processes, and the 60 rounds run again. Two processes on one card
+    where there is one (gloo carries only the handles), else one per
+    card, up to four."""
+    n = torch.cuda.device_count()
+    world = 2 if n < 2 else min(4, n)
+    rcs, outs = _spawn("ring", world, tmp_path, limit=300)
+    for rc, out in zip(rcs, outs):
+        assert rc == 0, out[-4000:]
+    for pid, out in enumerate(outs):
+        assert (f"RESULT mode=ring pid={pid} device=cuda:{pid % n} "
+                f"rounds=120 process_launches={{'ring_shift': 124, "
+                f"'reduce_send': 62}}" in out), out[-2000:]
+
+
+def test_ring_wait_without_a_peer_store_fails(dev, tmp_path):
+    """A ring wait whose peer never stores ends: after the link's 2-second
+    timeout the wait kernel fails the process's CUDA context, and the next
+    synchronisation raises instead of hanging."""
+    rcs, outs = _spawn("timeout", 2, tmp_path, limit=120)
+    assert rcs[1] == 0, outs[1][-4000:]
+    line = next((ln for ln in outs[0].splitlines()
+                 if ln.startswith("RESULT mode=timeout")), None)
+    assert line is not None, outs[0][-4000:]
+    after = float(line.split("after=")[1].split()[0])
+    assert 2.0 <= after < 60.0, line
+    assert "error=None" not in line, line
+
+
+def test_two_ranks_on_one_card_are_refused(dev, tmp_path):
+    """One more NCCL process than cards: the two that would share cuda:0
+    are refused before NCCL would fail on them; the others form."""
+    n = torch.cuda.device_count()
+    rcs, outs = _spawn("refuse", n + 1, tmp_path, limit=120)
+    for rc, out in zip(rcs, outs):
+        assert rc == 0, out[-4000:]
+    for pid, out in enumerate(outs):
+        if pid in (0, n):
+            assert "would share one card" in out, out[-2000:]
+        else:
+            assert f"formed rank {pid}" in out, out[-2000:]
+
+
+def test_group_of_one_captures_the_gradient_all_reduce(dev, tmp_path):
+    """A group of one NCCL rank holding P = 4 slots: the trainer sums its
+    gradients with an all-reduce, captured inside its CUDA graphs; one
+    replay of each step against the eager step from the same state, and
+    the first CF step's loss and gradients against the trainer without a
+    group."""
+    model = kgat.KGATConfig(embed_dim=32, relation_dim=32,
+                            conv_dims=(32, 16), mess_dropout=(0.0, 0.0),
+                            ops_backend="hopper")
+    kw = dict(n_devices=4, halo_exchange="ring", ring_transport="fused",
+              model=model)
+    plain = _trainer(**kw)
+    users = torch.arange(128, device=dev) % plain.meta.n_users
+    batch = (users, users % plain.meta.n_items,
+             (users + 7) % plain.meta.n_items)
+    want = float(plain.cf_grad(plain.attention(), *batch))
+    want_grads = [p.grad.clone() for p in plain.model.parameters()]
+    del plain
+    multihost.form_group(f"file://{tmp_path}/rendezvous", 1, 0, "cuda")
+    try:
+        tr = _trainer(**kw)
+        assert tr.sync and tr.captured and "process 0 of 1" in \
+            tr.capture_why, tr.capture_why
+        assert float(tr.cf_grad(tr.attention(), *batch)) == pytest.approx(
+            want, rel=1e-5)
+        for p, g in zip(tr.model.parameters(), want_grads):
+            torch.testing.assert_close(p.grad, g, rtol=1e-4, atol=1e-8)
+        tr.stage(tr.attention())
+        tr.cf_steps.capture()
+        tr.kg_steps.capture()
+        for steps, body in ((tr.cf_steps, tr._cf_body),
+                            (tr.kg_steps, tr._kg_body)):
+            snap = _snapshot(tr)
+            states = [g.get_state() for g in steps.generators]
+            steps.loss_sum.zero_()
+            steps.replay()
+            loss = float(steps.loss_sum)
+            grads = [p.grad.clone() for p in tr.model.parameters()]
+            _restore(tr, snap)
+            for g, s in zip(steps.generators, states):
+                g.set_state(s)
+            assert abs(float(body()) - loss) <= 1e-5 * abs(loss)
+            for p, g in zip(tr.model.parameters(), grads):
+                torch.testing.assert_close(p.grad, g, rtol=1e-4, atol=1e-8)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def steps_across_processes(dev, tmp_path_factory):
+    """Every mesh of ``MESHES`` in turn in the same W = min(4, cards)
+    processes, one per card on NCCL (P = W): the workers' output
+    directory."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more GPUs: NCCL takes one rank per card")
+    out_dir = tmp_path_factory.mktemp("steps")
+    rcs, outs = _spawn("steps", min(4, n), out_dir, limit=600)
+    for rc, out in zip(rcs, outs):
+        assert rc == 0, out[-4000:]
+    return out_dir
+
+
+@pytest.mark.parametrize("name", [mp_worker.mesh_name(m)
+                                  for m in mp_worker.MESHES])
+def test_partitioned_steps_across_processes(dev, steps_across_processes,
+                                            name):
+    """One process per card (W = min(4, cards), P = W) on NCCL, each
+    exchange in turn in the same processes: the first CF step (dropout 0)
+    and a KG step, whose losses and gradients are summed over the
+    processes, against the single-device trainer (loss rtol 1e-5,
+    gradients rtol 1e-4); every process holds the same; 20 replays of
+    each captured step against 20 eager steps from the same state (loss
+    sums rtol 1e-4)."""
+    world = min(4, torch.cuda.device_count())
+    single = train.Trainer(mp_worker.trainer_cfg())
+    users = torch.arange(128, device=dev) % single.meta.n_users
+    batch = (users, users % single.meta.n_items,
+             (users + 7) % single.meta.n_items)
+    want_cf = float(single.cf_grad(single.attention(), *batch))
+    want_cf_grads = {k: p.grad.cpu().numpy()
+                     for k, p in single.model.named_parameters()}
+    files = []
+    for pid in range(world):
+        with np.load(steps_across_processes / f"{name}.{pid}.npz") as z:
+            files.append({k: z[k] for k in z.files})
+    f = files[0]
+    assert float(f["cf_loss"]) == pytest.approx(want_cf, rel=1e-5), name
+    for k, g in want_cf_grads.items():
+        np.testing.assert_allclose(f[f"cf/{k}"], g, rtol=1e-4, atol=1e-7,
+                                   err_msg=f"{name} {k}")
+    kg = [torch.from_numpy(f[f"kg_batch/{i}"]).to(dev) for i in range(5)]
+    assert float(f["kg_loss"]) == pytest.approx(
+        float(single.kg_grad(*kg)), rel=1e-5), name
+    for k, p in single.model.named_parameters():
+        np.testing.assert_allclose(f[f"kg/{k}"], p.grad.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-7,
+                                   err_msg=f"{name} {k}")
+    for other in files[1:]:
+        for k in f:
+            np.testing.assert_array_equal(other[k], f[k], err_msg=k)
+    np.testing.assert_allclose(f["replayed"], f["eager"], rtol=1e-4,
+                               err_msg=name)

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: importing every kgat_tpu_torch module,
-the partitioned trainer's (``parallel``) and the ring kernels' included,
-loads neither jax nor the JAX package (whose __init__ imports jax)."""
+the partitioned trainer's (``parallel``, its multi-process module too)
+and the ring kernels' included, and the multi-process test workers
+(``tests/torch_mp_worker.py``, ``tests/torch_cuda_mp_worker.py``), loads
+neither jax nor the JAX package (whose __init__ imports jax)."""
 
 import os
 import subprocess
@@ -18,10 +20,13 @@ names = [m.name for m in pkgutil.walk_packages(kgat_tpu_torch.__path__,
                                                "kgat_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+sys.path.insert(0, {tests!r})
+import torch_mp_worker, torch_cuda_mp_worker
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "kgat_tpu", "triton"))
 missing = {{"kgat_tpu_torch.parallel.partition", "kgat_tpu_torch.parallel.dp",
            "kgat_tpu_torch.parallel.halo",
+           "kgat_tpu_torch.parallel.multihost",
            "kgat_tpu_torch.ops.hopper.remote_ring"}} - set(names)
 print(len(names), sorted(missing), leaked)
 """
@@ -30,10 +35,12 @@ print(len(names), sorted(missing), leaked)
 def test_port_imports_without_jax():
     # -I: ignore PYTHONPATH and user site, so nothing preloads jax.
     proc = subprocess.run([sys.executable, "-I", "-c",
-                           PROBE.format(repo=REPO)],
+                           PROBE.format(repo=REPO,
+                                                        tests=os.path.join(
+                                                            REPO, "tests"))],
                           capture_output=True, text=True, timeout=120,
                           env=torch_threads.one_thread_env())
     assert proc.returncode == 0, proc.stderr
     n_modules, rest = proc.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 26, proc.stdout
+    assert int(n_modules) >= 27, proc.stdout
     assert rest.strip() == "[] []", proc.stdout

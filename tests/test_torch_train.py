@@ -27,6 +27,7 @@ from kgat_tpu_torch import data as tdata
 from kgat_tpu_torch import recommend as trec
 from kgat_tpu_torch import train
 from kgat_tpu_torch.models.kgat import KGATConfig
+from kgat_tpu_torch.parallel import dp
 from kgat_tpu_torch.utils.config import TrainConfig, parse_args
 
 import torch_threads  # one intra-op thread
@@ -231,12 +232,18 @@ def test_ported_flags_reach_the_trainer(mode, tmp_path):
 
 
 def test_multi_host_is_refused(monkeypatch, capsys):
-    """A multi-process launch (kgat_tpu's NUM_PROCESSES) is refused: the
-    port runs its partitions in one process."""
+    """A multi-process launch (kgat_tpu's NUM_PROCESSES) parses; what is
+    refused is a layout the processes cannot share: a process count that
+    does not divide --n-devices, and processes whose slots would straddle
+    two dp rows (``dp.process_layout``)."""
     monkeypatch.setenv("NUM_PROCESSES", "2")
-    with pytest.raises(SystemExit):
-        parse_args(["--n-devices", "4"])
-    assert "ROADMAP.md" in capsys.readouterr().err
+    assert parse_args(["--n-devices", "4"]).n_devices == 4
+    assert capsys.readouterr().err == ""
+    with pytest.raises(ValueError, match="must divide --n-devices"):
+        dp.process_layout(3, 3, 2)
+    with pytest.raises(ValueError, match="straddle two rows"):
+        dp.process_layout(6, 3, 3)
+    assert dp.process_layout(4, 2, 2) == (0, 0, 1, 1)
 
 
 @pytest.mark.parametrize("flags,want", [
