@@ -6,7 +6,7 @@ an H100, sm_90a):
 
     python3 chip_smoke.py
 
-Phases, each announced by a line ``[n/10] ...``:
+Phases, each announced by a line ``[n/11] ...``:
   1. device   — requires CUDA; prints nvidia-smi's name and power limit.
   2. build    — compiles the kernels from kgat_tpu_torch/ops/hopper/csrc.
   3. forward kernels (K1 SpMM, K2 SDDMM, K3 softmax) against their plain
@@ -85,6 +85,21 @@ Phases, each announced by a line ``[n/10] ...``:
                processes. On one card it says that these need two or
                more. ``chip_smoke.py --across-processes`` runs phases 1,
                2 and this multi-process part alone.
+  11. the last modules at yelp2018 scale: the graph cache
+               (``Dataset.build(cache_dir=...)``) built cold and loaded
+               warm, every array and both row splits equal to phase 3's
+               build, K3, K1 and K1 rev on the loaded graph bit-identical
+               to the built graph's, with the seconds and the file's
+               bytes; hopper ``gspmm`` (u_mul_e sum and mean, copy_u sum)
+               through K1 at d = 64, and the sum's gradients, against
+               float64 plain under the row bound, its max and ``gsddmm``'s
+               dot against CPU copies, with times beside the plain path
+               and ``torch.sparse.mm``; the explain CLI (``python -m
+               kgat_tpu_torch.explain``) on phase 7's best checkpoint,
+               with ``--item`` (cache cold, then warm) and without, each
+               hop an edge with the card's attention, strengths the
+               products of their hops', and the attention index's build
+               seconds.
 Then a JSON line of per-kernel results (each kernel's launches on its
 path, error, time beside its plain version, the library call that
 computes the same function where there is one, and the bound: the least
@@ -123,6 +138,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from kgat_tpu_torch import explain
 from kgat_tpu_torch import recommend as rec
 from kgat_tpu_torch import optim, train
 from kgat_tpu_torch.data import (load_dataset, save_dataset,
@@ -130,7 +146,7 @@ from kgat_tpu_torch.data import (load_dataset, save_dataset,
 from kgat_tpu_torch.graph import build_graph
 from kgat_tpu_torch.models import bprmf, kgat
 from kgat_tpu_torch.models.kgat import KGATConfig
-from kgat_tpu_torch.ops import ref
+from kgat_tpu_torch.ops import get_backend, ref
 from kgat_tpu_torch.ops.hopper import build
 from kgat_tpu_torch.ops.row_split import CHUNK, build_row_split
 from kgat_tpu_torch.ops.hopper import remote_ring
@@ -152,7 +168,8 @@ from kgat_tpu_torch.parallel.partition import (build_ring_buckets,
                                                partition_graph)
 from kgat_tpu_torch.sampler import (CFSampleTable, KGSampleTable,
                                     sample_cf_batch, sample_kg_batch)
-from kgat_tpu_torch.utils.checkpoint import load_checkpoint, save_params
+from kgat_tpu_torch.utils.checkpoint import (load_checkpoint, load_params,
+                                             save_params)
 from kgat_tpu_torch.utils.config import TrainConfig
 
 # yelp2018 at published scale, as the repo's `make datasets` generates it.
@@ -428,7 +445,7 @@ class CudaTimer:
 
 class Progress:
     """The phase being run, for the failure line, and each phase's wall
-    seconds, printed as ``[n/10] took ... s`` when it ends: a run cut at a
+    seconds, printed as ``[n/11] took ... s`` when it ends: a run cut at a
     time limit shows which phase ran long."""
 
     def __init__(self):
@@ -438,13 +455,13 @@ class Progress:
     def phase(self, n: int, what: str):
         self.end()
         self.n = n
-        print(f"[{n}/10] {what} ...", flush=True)
+        print(f"[{n}/11] {what} ...", flush=True)
 
     def end(self):
         """Ends the phase being run."""
         now = time.perf_counter()
         if self.n:
-            print(f"[{self.n}/10] took {now - self.t0:.1f} s", flush=True)
+            print(f"[{self.n}/11] took {now - self.t0:.1f} s", flush=True)
         self.t0 = now
 
 
@@ -588,7 +605,7 @@ def check_kernels(g, label, check, gen, dev, timer, times=None):
         if times is not None:
             ms = timer.device_ms(lambda: spmm_csr(*a1, g.split), 20)
             plain_ms = timer.device_ms(lambda: spmm_csr_plain(*a1), 5)
-            print(f"[3/10] spmm_csr per call at d={dd} {dt}: kernel "
+            print(f"[3/11] spmm_csr per call at d={dd} {dt}: kernel "
                   f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
             if dt == torch.float32:
                 # A forward runs K1 at d = 64, 64, 32.
@@ -874,7 +891,7 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     line = smi.stdout.strip().splitlines()[0]
-    print(f"[1/10] device: torch {torch.__version__}, CUDA "
+    print(f"[1/11] device: torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
     print(line, flush=True)
     return line
@@ -885,7 +902,7 @@ def phase_build():
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))
     build.library()
-    print(f"[2/10] build: nvcc sm_90a {seconds:.1f} s (one nvcc per source, "
+    print(f"[2/11] build: nvcc sm_90a {seconds:.1f} s (one nvcc per source, "
           f"in parallel), {len(regs)} kernels, max {max(regs, default=0)} "
           f"registers, {spills} spill-store bytes", flush=True)
 
@@ -939,7 +956,7 @@ def across_only(tmp, smi_line, progress) -> int:
 
 def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
         sizes: Sizes = YELP_SIZES, timer=None, progress=None) -> int:
-    """Phases 3-9 in ``tmp``, on ``dev``; prints the kernels' JSON line."""
+    """Phases 3-11 in ``tmp``, on ``dev``; prints the kernels' JSON line."""
     timer = timer or CudaTimer()
     progress = progress or Progress()
     check = Check(timer)
@@ -955,7 +972,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     g_host, meta = ds.build()
     gen_s = time.perf_counter() - t0
     deg = (g_host.row_offsets[1:] - g_host.row_offsets[:-1])
-    print(f"[3/10] yelp2018-scale graph: {g_host.n_edges} edges, "
+    print(f"[3/11] yelp2018-scale graph: {g_host.n_edges} edges, "
           f"{g_host.n_nodes} nodes, {g_host.n_relations} relations, "
           f"max in-degree {int(deg.max())}, {int((deg == 0).sum())} empty "
           f"rows, {g_host.tiles.shape[0]} tiles (generated, written, read "
@@ -963,7 +980,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     hand = handmade_graph(gen, sizes.hub, sizes.chunk).to(dev)
     e2, e3, e1, hand_att = check_kernels(hand, "hand-made", check, gen, dev,
                                          timer)
-    print(f"[3/10] hand-made rows (empty, one edge, hub of {sizes.hub}, "
+    print(f"[3/11] hand-made rows (empty, one edge, hub of {sizes.hub}, "
           f"{boundary_rows(sizes.chunk)} at the chunk boundaries): "
           f"max abs err sddmm {k2_errs(e2)}, softmax {e3:.2e}, spmm "
           f"{', '.join(f'{e:.2e}' for e in e1)} (d64, d32, d64 bf16)",
@@ -982,19 +999,19 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                      f"{host:.1f} ms on the host ({card:.1f} ms on the "
                      f"card), {sp.cuda_launches} CUDA launches per K1 call by "
                      f"the split")
-    print(f"[3/10] row split (chunk {CHUNK} edges), once per CSR at "
+    print(f"[3/11] row split (chunk {CHUNK} edges), once per CSR at "
           f"start-up: " + "; ".join(lines), flush=True)
     times = Times()
     e2, e3, e1, att = check_kernels(g, "yelp2018", check, gen, dev, timer,
                                     times)
-    print(f"[3/10] yelp2018 shapes: max abs err sddmm {k2_errs(e2)}, softmax "
+    print(f"[3/11] yelp2018 shapes: max abs err sddmm {k2_errs(e2)}, softmax "
           f"{e3:.2e}, spmm {', '.join(f'{e:.2e}' for e in e1)} "
           f"(d64, d32, d64 bf16)", flush=True)
     for name in ("spmm_csr", "sddmm_transr", "segment_softmax_csr"):
-        print(f"[3/10] time per {'forward' if name == 'spmm_csr' else 'call'}"
+        print(f"[3/11] time per {'forward' if name == 'spmm_csr' else 'call'}"
               f" ({smi_line}): {times.line(name)}", flush=True)
     fma_ms = g.n_edges * 4 * 64 * 64 / F32_FLOPS * 1e3
-    print(f"[3/10] sddmm_transr's bound on the float32 FMA units, for the "
+    print(f"[3/11] sddmm_transr's bound on the float32 FMA units, for the "
           f"same products without tensor cores: {fma_ms:.4f} ms", flush=True)
 
     # --- 4. serving at full width ------------------------------------------
@@ -1027,7 +1044,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                                     "segment_softmax_csr": 1, "spmm_csr": 3},
                     "serving")
     check_lists(lines, users.tolist(), ds.train_user_dict, "serving CLI")
-    print(f"[4/10] serving CLI: {len(lines)} users x top-{TOP_K} valid in "
+    print(f"[4/11] serving CLI: {len(lines)} users x top-{TOP_K} valid in "
           f"{cli_s:.1f} s (load, build, forward, score); launches {launches}",
           flush=True)
 
@@ -1080,14 +1097,14 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     server = rec.Recommender(model, g, meta, cfg,
                              train_user_dict=ds.train_user_dict)
     serve_ms = timer.host_ms(lambda: server.recommend(users, k=TOP_K), 5)
-    print(f"[4/10] kernel path vs plain path on the card: all_embed max abs "
+    print(f"[4/11] kernel path vs plain path on the card: all_embed max abs "
           f"err {err:.2e}; top-{TOP_K} scores within rtol {RTOL}; item sets "
           f"equal for {int(clear.sum())}/{len(users)} users with a "
           f"20th/21st gap > 1e-4, same order for {int(ordered.sum())} with "
           f"every gap > 1e-4; CLI lists in the same order for "
           f"{same_order}/{len(users)} users; a second kernel forward is "
           f"{'bit-identical' if repeat else 'NOT bit-identical'}", flush=True)
-    print(f"[4/10] forward {fwd_ms:.2f} ms (plain path {fwd_plain_ms:.2f} "
+    print(f"[4/11] forward {fwd_ms:.2f} ms (plain path {fwd_plain_ms:.2f} "
           f"ms); serve {len(users)} users top-{TOP_K} from the cached "
           f"forward {serve_ms:.2f} ms ({smi_line})", flush=True)
     del emb_k, emb_p, server
@@ -1098,7 +1115,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                                ("yelp2018", g, att, times)):
         shares, k4_errs = check_backward_kernels(graph, w, label, check,
                                                  gen, dev, timer, t)
-        print(f"[5/10] {label}: max abs err, and the bound where the error "
+        print(f"[5/11] {label}: max abs err, and the bound where the error "
               f"is largest against it: "
               + ", ".join(f"{k} {e:.2e} (bound {b:.2e}, {s:.3f} of it)"
                           for k, (e, b, s) in shares.items())
@@ -1108,9 +1125,9 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                  "segment_softmax_csr_bwd"):
         per = "per CF-step backward (d = 64, 64, 32)" if name == \
             "spmm_csr_rev" else "per call"
-        print(f"[5/10] {per} ({smi_line}): {times.line(name)}", flush=True)
+        print(f"[5/11] {per} ({smi_line}): {times.line(name)}", flush=True)
     row_gb = 4 * g.n_edges * 64 * 4 / 1e9
-    print(f"[5/10] sddmm_transr_bwd: {times.per_call['sddmm_transr_bwd']} "
+    print(f"[5/11] sddmm_transr_bwd: {times.per_call['sddmm_transr_bwd']} "
           f"CUDA launches per call (counted); bound on the float32 FMA units, for the "
           f"same products without tensor cores, "
           f"{12 * 64 * 64 * g.n_edges / F32_FLOPS * 1e3:.4f} ms; its d_eh "
@@ -1142,7 +1159,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                           stat_bound(b, length))
             for name, a, b in zip(("d_entity_embed", "d_w_rel",
                                    "d_rel_embed"), *grads.values())]
-    print(f"[5/10] attention gradient through compute_attention, kernel path "
+    print(f"[5/11] attention gradient through compute_attention, kernel path "
           f"vs float64 plain path: "
           + ", ".join(f"{n} {e:.2e} (bound {b:.2e}, {s:.3f} of it)"
                       for n, (e, b, s) in zip(
@@ -1160,7 +1177,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     trainer = train.Trainer(tcfg, dataset=ds)
     build_s = time.perf_counter() - t0
     train_stats = phase_train_steps(trainer, sizes, check, timer, dev)
-    print(f"[6/10] trainer built in {build_s:.1f} s ({trainer.n_cf_batches} "
+    print(f"[6/11] trainer built in {build_s:.1f} s ({trainer.n_cf_batches} "
           f"CF and {trainer.n_kg_batches} KG batches an epoch); "
           + train_stats, flush=True)
     del trainer
@@ -1240,7 +1257,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
         raise AssertionError(f"recommend.main returned {rc}")
     check_lists(lines, users.tolist(), ds.train_user_dict,
                 "serving the trained checkpoint")
-    print(f"[7/10] trainer CLI: 1 epoch of replayed steps in "
+    print(f"[7/11] trainer CLI: 1 epoch of replayed steps in "
           f"{epoch['secs']:.1f} s ({cli_s:.1f} s with data load, build, "
           f"eval and checkpoints), cf_loss {epoch['cf_loss']:.4f}, kg_loss "
           f"{epoch['kg_loss']:.4f} (eager steps from the same seed: "
@@ -1268,6 +1285,12 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     progress.phase(10, "one process per card")
     across = phase_processes(tmp, ds, sizes, dev, timer, smi_line,
                              ring_losses)
+
+    # --- 11. the graph cache, the op surface and explain --------------------
+    progress.phase(11, "the graph cache, DGL's op surface and the explain "
+                       "CLI")
+    gspmm_launches = phase_modules(tmp, ds, g_host, g, meta, users, check,
+                                   gen, dev, timer, smi_line)
     progress.end()
 
     paths = {"sddmm_transr_bwd": ("attention gradient", att_launches),
@@ -1289,6 +1312,8 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                      "library_ms": r["library_ms"],
                      "cuda_launches_per_call": times.per_call[name],
                      **across.get(name, {}),
+                     **({"gspmm_launches": gspmm_launches.get(name, 0)}
+                        if name.startswith("spmm_csr") else {}),
                      **({} if r["replay_ms"] is None
                         else {"replay_ms": r["replay_ms"]})})
     print(json.dumps({"kernels": rows}), flush=True)
@@ -1936,7 +1961,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
     b_edges = [[b.n_edges for b in row] for row in buckets]
     b_launches = [[(b.split.cuda_launches, b.rev_split.cuda_launches)
                    for b in row] for row in buckets]
-    print(f"[8/10] partitioned on the host in {host_s:.1f} s (row splits "
+    print(f"[8/11] partitioned on the host in {host_s:.1f} s (row splits "
           f"of the {len(csrs)} bucket CSRs included, {split_ms:.2f} ms per "
           f"CSR): R = {info.rows_per_part}, n_pad = {info.n_nodes_pad}, "
           f"shard edges {[s.n_edges for s in shards]}, ring bucket edges "
@@ -1947,7 +1972,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
     reads = [[int((h.local_ids[R + q * H:R + (q + 1) * H]
                    < info.n_nodes_global).sum()) for q in range(P)]
              for h in halos]
-    print(f"[8/10] selective halo (a2a): H = {H} rows a peer, T = {T} "
+    print(f"[8/11] selective halo (a2a): H = {H} rows a peer, T = {T} "
           f"table rows a partition (R + {P} H), built in {halo_s:.2f} s "
           f"on the host ({halo_s / P:.3f} s a partition; reverse CSR row "
           f"splits included); rows each partition reads of each peer "
@@ -1959,7 +1984,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
           f"float32", flush=True)
     summary = check_ring_kernels(buckets, info, sizes, check, times, gen,
                                  dev, timer)
-    print(f"[8/10] ring kernels ({smi_line}): {summary}", flush=True)
+    print(f"[8/11] ring kernels ({smi_line}): {summary}", flush=True)
 
     # Attention and all_embed of every mesh against the single-device
     # paths, on one random full-width model.
@@ -2013,7 +2038,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                      f"plain, eval forward {ms:.2f} ms (launches "
                      f"{fwd_launches})")
     del want, att_single
-    print(f"[8/10] partitioned forward against single-device ("
+    print(f"[8/11] partitioned forward against single-device ("
           f"{smi_line}): " + "; ".join(lines), flush=True)
 
     # The first CF step of every mesh (dropout 0): the loss against the
@@ -2060,7 +2085,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
         lines.append(f"{mesh_label(key)}: {errs}; forward + backward "
                      f"{ms:.2f} ms (launches {step_launches})")
     del grads_p, terms
-    print(f"[8/10] first CF step (batch {u.numel()}, dropout 0) against the "
+    print(f"[8/11] first CF step (batch {u.numel()}, dropout 0) against the "
           f"single-device kernel path ({loss_single:.6f}) and the float64 "
           f"plain path ({smi_line}): " + "; ".join(lines), flush=True)
 
@@ -2080,7 +2105,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                            names, [torch.zeros_like(p) if gp is None else gp
                                    for p, gp in zip(params, kg_grads)],
                            grads_p, terms, check, length)
-    print(f"[8/10] KG step (batch {kg_batch[0].numel()}) against the float64 "
+    print(f"[8/11] KG step (batch {kg_batch[0].numel()}) against the float64 "
           f"plain path: {kg_errs}", flush=True)
     del grads_p, terms, kg_grads, parts, staged, model, lay, halos
     if dev.type == "cuda":
@@ -2093,7 +2118,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                                             tr)
         if ex == "ring":
             ring_losses = losses[:2]
-        print(f"[8/10] replayed partitioned steps against eager steps from "
+        print(f"[8/11] replayed partitioned steps against eager steps from "
               f"the same generator states ({smi_line}): {line}", flush=True)
 
     # The trainer CLI, one epoch, ring exchange with the fused transport:
@@ -2134,7 +2159,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                      for k in {*step, *evalf}}
     want_launches.update(sddmm_transr=2 * P, segment_softmax_csr=2 * P)
     expect_exact(dev, launches, want_launches, "partitioned trainer CLI")
-    print(f"[8/10] partitioned trainer CLI (python -m kgat_tpu_torch.train "
+    print(f"[8/11] partitioned trainer CLI (python -m kgat_tpu_torch.train "
           f"{' '.join(argv[argv.index('--n-devices'):])}): 1 epoch of "
           f"{'replayed' if epoch['captured'] else 'eager'} steps "
           f"({epoch['why']}) in "
@@ -2261,7 +2286,7 @@ def phase_rest(tmp, ds, argv, check, dev, timer, smi_line) -> None:
     host_s = time.perf_counter() - t0
     if not (math.isfinite(cf) and math.isfinite(kg)):
         raise AssertionError(f"host-sampled losses {cf}, {kg}")
-    print(f"[9/10] {resume_line}; {pretrain_line}; {sparse_line}; "
+    print(f"[9/11] {resume_line}; {pretrain_line}; {sparse_line}; "
           f"--sampler host: trainer with the host samplers built in "
           f"{build_s:.1f} s, 3 CF and 3 KG steps (and a recompute) in "
           f"{host_s:.2f} s, cf_loss {cf:.4f}, kg_loss {kg:.4f} ({smi_line})",
@@ -2406,14 +2431,14 @@ def phase_processes(tmp, ds, sizes, dev, timer, smi_line, ring_losses):
             raise AssertionError(f"group of one: replayed {what} loss {a} "
                                  f"vs phase 8's {b}")
     backend = multihost.backend_for(dev)
-    print(f"[10/10] a process group of one rank ({backend}) holding "
+    print(f"[10/11] a process group of one rank ({backend}) holding "
           f"{P_PARTS} slots, ring/fused, the "
           f"gradient all-reduce inside the captured steps: {line}; replayed "
           f"losses against phase 8's {ring_losses[0]:.6f}, "
           f"{ring_losses[1]:.6f} ({smi_line})", flush=True)
     n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     if n_cards < 2:
-        print(f"[10/10] the cross-process paths (NCCL between processes, K7 "
+        print(f"[10/11] the cross-process paths (NCCL between processes, K7 "
               f"and K8 storing into another process's buffer, one process "
               f"per card) need two or more cards, and {n_cards} is visible: "
               f"NCCL takes one rank per card", flush=True)
@@ -2494,7 +2519,7 @@ def across_processes(tmp, ds, sizes, dev, world, smi_line) -> dict:
     results = []
     for out in outs:
         for ln in out.splitlines():
-            if ln.startswith("[10/10]"):
+            if ln.startswith("[10/11]"):
                 print(ln, flush=True)
             if ln.startswith("PROCESS_RESULT "):
                 results.append(json.loads(ln[len("PROCESS_RESULT "):]))
@@ -2529,7 +2554,7 @@ def across_processes(tmp, ds, sizes, dev, world, smi_line) -> dict:
                 worst = max(worst, err / scale if scale else 0.0)
         lines.append(f"{name}: gradients within {worst:.2e} of their "
                      f"largest entry")
-    print(f"[10/10] {world} processes, one per card "
+    print(f"[10/11] {world} processes, one per card "
           f"({multihost.backend_for(dev)}), P = {world}, every exchange in "
           f"turn in the same processes: first CF step (batch "
           f"{len(refs['cf_batch/0'])}, dropout 0, loss {refs['cf_loss']:.6f}"
@@ -2540,7 +2565,7 @@ def across_processes(tmp, ds, sizes, dev, world, smi_line) -> dict:
     if dev.type == "cuda":
         slow = {k: max(r[k] for r in results)
                 for k in ("cf_wall_ms", "kg_wall_ms")}
-        print(f"[10/10] replayed ring/fused steps, the slowest process: CF "
+        print(f"[10/11] replayed ring/fused steps, the slowest process: CF "
               f"{slow['cf_wall_ms']:.3f} ms, KG {slow['kg_wall_ms']:.3f} ms "
               f"(each process: CF "
               f"{[round(r['cf_wall_ms'], 3) for r in results]}, KG "
@@ -2590,7 +2615,7 @@ def cli_processes(tmp, sizes, dev, world) -> None:
               for r in range(world)]
     if not all(os.path.exists(p) for p in shards):
         raise AssertionError(f"phase 10 trainer CLI: shards {shards}")
-    print(f"[10/10] trainer CLI on {world} processes (python -m "
+    print(f"[10/11] trainer CLI on {world} processes (python -m "
           f"kgat_tpu_torch.train {' '.join(argv[argv.index('--n-devices'):])}"
           f", NUM_PROCESSES {world}): 1 epoch of "
           f"{'replayed' if epoch['captured'] else 'eager'} steps "
@@ -2703,7 +2728,7 @@ def _ring_across_processes(tr, rank, world, dev) -> None:
             raise AssertionError(f"process {rank}: K8 sums beyond the "
                                  f"float32 bound: {float(err.max()):.3e}")
         multihost.barrier(dev)
-    print(f"[10/10] process {rank} on {dev}: K7 and K8 into process "
+    print(f"[10/11] process {rank} on {dev}: K7 and K8 into process "
           f"{nxt}'s registered buffers (K7 backward into process {prev}'s), "
           f"3 rounds bit-exact, K8's sums on its step-0 bucket "
           f"({bucket.n_edges} edges) within the float32 bound", flush=True)
@@ -2774,7 +2799,7 @@ def _replayed_steps(tr, rank, world, dev) -> dict:
             for k in ("cf_busy_ms", "kg_busy_ms")}
     k78 = ("not measured" if res["k7_ms"] is None else
            f"{res['k7_ms']:.4f} and {res['k8_ms']:.4f} ms a launch")
-    print(f"[10/10] process {rank} on {dev}: 10 replayed ring/fused steps "
+    print(f"[10/11] process {rank} on {dev}: 10 replayed ring/fused steps "
           f"against 10 eager ones, loss sums CF {replayed[0]:.5f} "
           f"({eager[0]:.5f}), KG {replayed[1]:.5f} ({eager[1]:.5f}); "
           f"replayed CF step wall {res['cf_wall_ms']:.3f} ms (50 from a "
@@ -2804,6 +2829,226 @@ def _check_process_nodes(steps) -> None:
         raise AssertionError(f"CF step graph: kernel nodes {count}, from its "
                              f"captured calls {want} (cross-process "
                              f"{steps.process_calls} of {steps.calls})")
+
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the graph cache, DGL's op surface and the explain CLI.
+# ---------------------------------------------------------------------------
+
+def same_graph(a, b) -> bool:
+    """Every field of two graphs equal: tensors bit-equal with their
+    dtype, both row splits' tensors and statics, the rest by ==."""
+    def same(x, y):
+        if isinstance(y, torch.Tensor):
+            return x.dtype == y.dtype and torch.equal(x, y)
+        if dataclasses.is_dataclass(y):
+            return all(same(getattr(x, f.name), getattr(y, f.name))
+                       for f in dataclasses.fields(y))
+        return x == y
+    return same(a, b)
+
+
+def phase_modules(tmp, ds, g_host, g, meta, users, check, gen, dev, timer,
+                  smi_line) -> dict:
+    """Phase 11 at yelp2018 scale and full width: the graph cache cold and
+    warm, hopper ``gspmm`` (K1) and the rest of DGL's op surface against
+    the plain path, and the explain CLI on phase 7's best checkpoint.
+    Returns the K1 launches of the op surface's calls."""
+    # --- the graph cache: cold, then warm, against phase 3's build.
+    cache = os.path.join(tmp, "graph_cache")
+    t0 = time.perf_counter()
+    cold = ds.build(cache_dir=cache)
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm, warm_meta = ds.build(cache_dir=cache)
+    warm_s = time.perf_counter() - t0
+    path = ds.graph_cache_path(cache)
+    if os.listdir(cache) != [os.path.basename(path)]:
+        raise AssertionError(f"graph cache: {os.listdir(cache)}")
+    if not (same_graph(cold[0], g_host) and same_graph(warm, g_host)
+            and cold[1] == warm_meta == meta):
+        raise AssertionError("graph cache: a cached graph differs from a "
+                             "fresh build")
+    # K3, K1 and K1 on the reverse CSR on the loaded graph, against the
+    # same calls on the built one: deterministic kernels, equal bits.
+    w_g = warm.to(dev)
+    logits = torch.randn(g.n_edges, generator=gen).to(dev)
+    x = (torch.randn(g.n_nodes, 64, generator=gen) * 0.1).to(dev)
+    cot = torch.randn(g.n_nodes, 64, generator=gen).to(dev)
+    outs = []
+    for gr in (g, w_g):
+        w = segment_softmax_csr(gr.row_offsets, logits, gr.split)
+        w_rev = w[gr.rev_perm.long()].contiguous()
+        outs.append((w, spmm_csr(gr.row_offsets, gr.src, w, x, gr.split),
+                     spmm_csr_rev(gr.rev_row_offsets, gr.rev_dst, w_rev, cot,
+                                  gr.rev_split)))
+    for name, a, b in zip(("segment_softmax_csr", "spmm_csr",
+                           "spmm_csr_rev"), *outs):
+        check_identical(f"{name} on the cached graph", a, b)
+    print(f"[11/11] graph cache (--graph-cache): built and saved cold in "
+          f"{cold_s:.2f} s, loaded warm in {warm_s:.2f} s, "
+          f"{os.path.getsize(path)} bytes ({os.path.basename(path)}); every "
+          f"array, both row splits and the meta equal to a fresh build; "
+          f"K3, K1 and K1 rev on the loaded graph bit-identical to the "
+          f"built graph's", flush=True)
+    del w_g, outs
+
+    # --- DGL's op surface: gspmm's sum and mean through K1.
+    hop = get_backend("hopper")
+    w = segment_softmax_csr(g.row_offsets, logits, g.split)
+    deg = ref.in_degree(g).double()[:, None]
+    x64, w64 = x.double(), w.double()
+    build.launch_counts.clear()
+    got = {case: hop.gspmm(g, msg, red, x, None if msg == "copy_u" else w)
+           for case, (msg, red) in (("u_mul_e sum", ("u_mul_e", "sum")),
+                                    ("u_mul_e mean", ("u_mul_e", "mean")),
+                                    ("copy_u sum", ("copy_u", "sum")))}
+    xg = x.clone().requires_grad_()
+    wg = w.clone().requires_grad_()
+    (hop.gspmm(g, "u_mul_e", "sum", xg, wg) * cot).sum().backward()
+    launches = dict(build.launch_counts)
+    expect_launches(dev, launches, {"spmm_csr": (4,), "spmm_csr_rev": (1,)},
+                    "gspmm")
+    one = torch.ones_like(w64)
+    terms = ref.gspmm(g, "u_mul_e", "sum", x64.abs(), w64.abs())
+    want = ref.gspmm(g, "u_mul_e", "sum", x64, w64)
+    lines = [check.bounded("spmm_csr", "gspmm u_mul_e sum",
+                           got["u_mul_e sum"], want,
+                           sum_bound(want, terms, deg))]
+    mean = want / deg.clamp(min=1)
+    lines.append(check.bounded(
+        "spmm_csr", "gspmm u_mul_e mean", got["u_mul_e mean"], mean,
+        sum_bound(mean, terms / deg.clamp(min=1), deg) + U * mean.abs()))
+    want = ref.gspmm(g, "u_mul_e", "sum", x64, one)
+    lines.append(check.bounded(
+        "spmm_csr", "gspmm copy_u sum", got["copy_u sum"], want,
+        sum_bound(want, ref.gspmm(g, "u_mul_e", "sum", x64.abs(), one),
+                  deg)))
+    # The sum's gradients against the float64 plain path: d_x is K1 on the
+    # reverse CSR, d_w the per-edge dot.
+    x64g, w64g = x64.clone().requires_grad_(), w64.clone().requires_grad_()
+    (ref.gspmm(g, "u_mul_e", "sum", x64g, w64g) * cot.double()).sum() \
+        .backward()
+    rev_len = (g.rev_row_offsets[1:] - g.rev_row_offsets[:-1]).double()[
+        :, None]
+    d_x_terms = spmm_csr_plain(g.rev_row_offsets, g.rev_dst,
+                               w64.abs()[g.rev_perm.long()],
+                               cot.double().abs())
+    lines.append(check.bounded("spmm_csr_rev", "gspmm sum d_x", xg.grad,
+                               x64g.grad, sum_bound(x64g.grad, d_x_terms,
+                                                    rev_len)))
+    d_w_terms = ref.sddmm_dot(g, x64.abs(), cot.double().abs())
+    lines.append(check.bounded("gspmm d_w", "gspmm sum d_w", wg.grad,
+                               w64g.grad, sum_bound(w64g.grad, d_w_terms,
+                                                    64)))
+    del xg, wg, x64g, w64g, d_x_terms, d_w_terms, terms, want, mean
+    # max and gsddmm's dot: plain torch on the card, against the same
+    # functions on CPU copies.
+    mx = hop.gspmm(g, "u_mul_e", "max", x, w)
+    if not torch.equal(mx.cpu(), ref.gspmm(g_host, "u_mul_e", "max", x.cpu(),
+                                           w.cpu())):
+        raise AssertionError("gspmm max on the card differs from the CPU's")
+    dot = hop.gsddmm(g, "dot", x, cot)
+    check("gsddmm", "dot on the card against the CPU", dot.cpu(),
+          ref.gsddmm(g_host, "dot", x.cpu(), cot.cpu()), rtol=1e-5,
+          atol=1e-6)
+    del mx, dot
+    gs_ms = timer.device_ms(lambda: hop.gspmm(g, "u_mul_e", "sum", x, w), 20)
+    gs_plain = timer.device_ms(lambda: ref.gspmm(g, "u_mul_e", "sum", x, w),
+                               5)
+    csr = torch.sparse_csr_tensor(g.row_offsets, g.src, w,
+                                  (g.n_nodes, g.n_nodes))
+    gs_lib = timer.device_ms(lambda: torch.sparse.mm(csr, x), 5)
+    print(f"[11/11] DGL op surface (hopper backend): gspmm u_mul_e sum, "
+          f"u_mul_e mean and copy_u sum through K1 at d = 64, and the sum's "
+          f"gradients (d_x by K1 on the reverse CSR), against float64 "
+          f"plain: " + ", ".join(f"{e:.2e} ({s:.3f} of its bound)"
+                                 for e, _, s in lines)
+          + f"; gspmm max equal and gsddmm dot within 1e-5 of CPU copies; "
+          f"launches {launches}; gspmm u_mul_e sum {gs_ms:.3f} ms, plain "
+          f"{gs_plain:.3f} ms, torch.sparse.mm {gs_lib:.3f} ms "
+          f"({smi_line})", flush=True)
+    del x, cot, w, csr
+
+    # --- the explain CLI on phase 7's best checkpoint.
+    best = os.path.join(tmp, "runs", "smoke_best")
+    params, meta_json = load_params(best)
+    cfg = rec._model_cfg_from_meta(meta_json, "hopper", {})
+    model = kgat.params_from_jax(params, cfg, device=dev)
+    with torch.no_grad():
+        att = kgat.compute_attention(model, g, cfg).cpu().numpy()
+    t0 = time.perf_counter()
+    index = explain.build_attention_index(g_host, att)
+    index_s = time.perf_counter() - t0
+    user = int(users[0])
+    u_node = meta.user_node(user)
+    nbr, rel, _ = index.row(u_node)
+    item = int(nbr[rel == meta.rel_interact][0])   # a path exists
+    top1 = int(rec.recommend(model, g, meta, cfg, [user], k=1,
+                             train_user_dict=ds.train_user_dict)[0][0, 0])
+    del model
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = [sys.executable, "-m", "kgat_tpu_torch.explain", "--ckpt", best,
+            "--dataset", "yelp2018", "--data-root", tmp, "--user", str(user),
+            "--hops", "2", "--device", dev.type]
+    runs = {}
+    for what, extra in (
+            ("--item, cache cold", ["--item", str(item), "--graph-cache",
+                                    os.path.join(tmp, "explain_cache")]),
+            ("--item, cache warm", ["--item", str(item), "--graph-cache",
+                                    os.path.join(tmp, "explain_cache")]),
+            ("no --item, cache warm", ["--graph-cache", cache])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([*base, *extra], cwd=here, capture_output=True,
+                              text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"explain CLI ({what}): exit "
+                                 f"{proc.returncode}\n{proc.stderr[-3000:]}")
+        runs[what] = (json.loads(proc.stdout.strip().splitlines()[-1]), wall)
+    out = [r for r, _ in runs.values()]
+    if out[0] != out[1]:
+        raise AssertionError("explain CLI: cold and warm cache outputs "
+                             "differ")
+    if (out[0]["item"], out[2]["item"]) != (item, top1) or not out[0][
+            "paths"]:
+        raise AssertionError(f"explain CLI: items {out[0]['item']}, "
+                             f"{out[2]['item']} (want {item}, the top "
+                             f"recommendation {top1}), paths {out[0]}")
+    ro = g_host.row_offsets.numpy()
+    src, ety = g_host.src.numpy(), g_host.etype.numpy()
+    n_hops = 0
+    for res in (out[0], out[2]):
+        strengths = [pth["strength"] for pth in res["paths"]]
+        if strengths != sorted(strengths, reverse=True):
+            raise AssertionError(f"explain CLI: strengths {strengths}")
+        for pth in res["paths"]:
+            prod = 1.0
+            for side in ("user_side", "item_side"):
+                for h in pth[side]:
+                    lo, hi = ro[h["from"]], ro[h["from"] + 1]
+                    e = lo + np.nonzero((src[lo:hi] == h["to"])
+                                        & (ety[lo:hi] == h["rel"]))[0]
+                    if len(e) != 1 or abs(h["att"] - att[e[0]]) > 1e-6:
+                        raise AssertionError(
+                            f"explain CLI: hop {h} is not one edge, or its "
+                            f"att is not the card's ({att[e]})")
+                    prod *= float(att[e[0]])
+                    n_hops += 1
+            if not math.isclose(pth["strength"], prod, rel_tol=1e-9):
+                raise AssertionError(f"explain CLI: strength "
+                                     f"{pth['strength']} != {prod}")
+    print(f"[11/11] explain CLI (python -m kgat_tpu_torch.explain --hops 2, "
+          f"on the card) for user {user} of phase 7's best checkpoint: "
+          + "; ".join(f"{what}: item {r['item']}, {len(r['paths'])} paths "
+                      f"in {wall:.1f} s" for what, (r, wall) in runs.items())
+          + f"; {n_hops} hops, each an edge with the card's attention "
+          f"within 1e-6, strengths descending and each the product of its "
+          f"hops'; the cold and warm runs equal; attention index of "
+          f"{g_host.n_edges} edges ({g_host.n_nodes} nodes, fanout 16) "
+          f"built in {index_s:.2f} s on the host ({smi_line})", flush=True)
+    return launches
 
 
 if __name__ == "__main__":

@@ -15,12 +15,16 @@ package's native parser gives the same arrays).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
-from typing import Dict, Tuple
+import zipfile
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from kgat_tpu_torch.graph import REL_TILE, CKGMeta, Graph, build_ckg
+from kgat_tpu_torch.graph import (GRAPH_CACHE_VERSION, REL_TILE, CKGMeta,
+                                  Graph, build_ckg, load_graph, save_graph)
+from kgat_tpu_torch.ops.row_split import CHUNK
 
 
 @dataclasses.dataclass
@@ -46,13 +50,51 @@ class Dataset:
         if not self.test_user_dict:
             self.test_user_dict = _group_by_user(self.cf_test)
 
-    def build(self, *, rel_tile: int = REL_TILE) -> Tuple[Graph, CKGMeta]:
-        """Construct the collaborative knowledge graph from train CF + KG."""
-        return build_ckg(
+    def build(self, *, rel_tile: int = REL_TILE,
+              cache_dir: Optional[str] = None) -> Tuple[Graph, CKGMeta]:
+        """Construct the collaborative knowledge graph from train CF + KG.
+
+        cache_dir: if set, the built graph, its row splits and its meta
+        round-trip through :meth:`graph_cache_path` (``graph.save_graph``),
+        so a later run on the same inputs loads them instead of building
+        (``kgat_tpu/data.py:68-128``). A file of another cache version, or
+        one that cannot be read, is rebuilt and written anew.
+        """
+        path = None
+        if cache_dir is not None:
+            path = self.graph_cache_path(cache_dir, rel_tile=rel_tile)
+            if os.path.exists(path):
+                try:
+                    g, meta = load_graph(path)
+                    if meta is not None:
+                        return g, meta
+                except (ValueError, KeyError, OSError, EOFError,
+                        zipfile.BadZipFile):
+                    pass  # stale or damaged: rebuilt below
+        g, meta = build_ckg(
             self.cf_train, self.kg_triples,
             n_users=self.n_users, n_entities=self.n_entities,
             n_items=self.n_items, n_relations_kg=self.n_relations_kg,
             rel_tile=rel_tile)
+        if path is not None:
+            os.makedirs(cache_dir, exist_ok=True)
+            save_graph(path, g, meta)
+        return g, meta
+
+    def graph_cache_path(self, cache_dir: str, *,
+                         rel_tile: int = REL_TILE) -> str:
+        """``<cache_dir>/ckg-torch-<hash>.npz``: a SHA-1 over the train
+        interactions, the triples, the sizes, ``rel_tile``, the row
+        split's unit size and :data:`GRAPH_CACHE_VERSION`. The prefix
+        keeps it apart from ``kgat_tpu``'s ``ckg-<hash>.npz``, so one
+        directory serves both packages."""
+        h = hashlib.sha1()
+        h.update(np.ascontiguousarray(self.cf_train, np.int64).tobytes())
+        h.update(np.ascontiguousarray(self.kg_triples, np.int64).tobytes())
+        h.update(repr((self.n_users, self.n_entities, self.n_items,
+                       self.n_relations_kg, rel_tile, CHUNK,
+                       GRAPH_CACHE_VERSION)).encode())
+        return os.path.join(cache_dir, f"ckg-torch-{h.hexdigest()[:16]}.npz")
 
 
 def _group_by_user(pairs: np.ndarray) -> Dict[int, np.ndarray]:

@@ -26,6 +26,11 @@ the real edges only, in the shape a Hopper kernel walks:
 * **Row splits**: the work units the row-reduction kernels walk, built
   once for each CSR (``split``, ``rev_split``; ``ops/row_split.py``).
 
+:func:`save_graph` and :func:`load_graph` round-trip a built graph, its
+row splits and its :class:`CKGMeta` through one ``.npz`` file, the
+port's counterpart of ``kgat_tpu.graph``'s graph cache
+(``Dataset.build(cache_dir=...)``).
+
 Edge orientation and relation numbering are those of ``kgat_tpu``: a
 triple (h, r, t) is the message edge t -> h; its inverse has relation
 r + R; user-item interactions add relations 2R (item -> user) and 2R + 1
@@ -35,7 +40,10 @@ r + R; user-item interactions add relations 2R (item -> user) and 2R + 1
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import json
+import os
+import tempfile
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +53,10 @@ from kgat_tpu_torch.ops.row_split import RowSplit, build_row_split
 # Edges per attention tile. One thread block of the SDDMM kernel handles
 # one tile, so this trades W_r staging per edge against the tail effect.
 REL_TILE = 256
+
+# The layout of a graph cache file (save_graph). A file of another version
+# is rebuilt, never read.
+GRAPH_CACHE_VERSION = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,3 +263,66 @@ def build_ckg(cf_pairs: np.ndarray, kg_triples: np.ndarray, n_users: int,
     g = build_graph(src, dst, ety, n_nodes=meta.n_nodes,
                     n_relations=meta.n_relations, rel_tile=rel_tile)
     return g, meta
+
+
+# Graph fields saved as arrays, besides the row splits' and rel_offsets.
+_CACHED = ("src", "dst", "etype", "row_offsets", "rel_perm", "tiles",
+           "rev_perm", "rev_row_offsets", "rev_dst")
+_SPLITS = ("split", "rev_split")
+_SPLIT_ARRAYS = ("units", "split_rows", "slot_offsets")
+_SPLIT_STATICS = ("n_rows", "n_edges", "n_slots", "chunk")
+
+
+def save_graph(path: str, g: Graph, meta: Optional[CKGMeta] = None) -> str:
+    """Write a built :class:`Graph` (on the CPU), both its row splits and
+    ``meta`` to one ``.npz`` file at ``path``, through a temporary file of
+    this writer's own and ``os.replace``: processes that build the same
+    graph at once each write a whole file, and the last one stays
+    (``kgat_tpu/graph.py:728-736``)."""
+    statics = {"version": GRAPH_CACHE_VERSION, "n_nodes": g.n_nodes,
+               "n_relations": g.n_relations,
+               "meta": None if meta is None else dataclasses.asdict(meta)}
+    arrays = {k: getattr(g, k).numpy() for k in _CACHED}
+    arrays["rel_offsets"] = np.asarray(g.rel_offsets, np.int64)
+    for name in _SPLITS:
+        split = getattr(g, name)
+        arrays.update({f"{name}/{k}": getattr(split, k).numpy()
+                       for k in _SPLIT_ARRAYS})
+        statics[name] = {k: getattr(split, k) for k in _SPLIT_STATICS}
+    arrays["statics_json"] = np.frombuffer(json.dumps(statics).encode(),
+                                           np.uint8)
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".",
+                               prefix=os.path.basename(path) + ".",
+                               suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
+
+
+def load_graph(path: str) -> Tuple[Graph, Optional[CKGMeta]]:
+    """The :class:`Graph` (on the CPU, with both row splits) and the
+    :class:`CKGMeta` that :func:`save_graph` wrote to ``path``. Raises
+    ValueError for a file of another :data:`GRAPH_CACHE_VERSION`, and
+    whatever ``np.load`` raises for a damaged one."""
+    with np.load(path) as z:
+        statics = json.loads(bytes(z["statics_json"]).decode())
+        if statics.get("version") != GRAPH_CACHE_VERSION:
+            raise ValueError(f"graph cache version {statics.get('version')}"
+                             f" != {GRAPH_CACHE_VERSION}")
+        fields = {k: torch.from_numpy(z[k]) for k in _CACHED}
+        for name in _SPLITS:
+            fields[name] = RowSplit(
+                **{k: torch.from_numpy(z[f"{name}/{k}"])
+                   for k in _SPLIT_ARRAYS},
+                **{k: int(v) for k, v in statics[name].items()})
+        rel_offsets = tuple(int(x) for x in z["rel_offsets"])
+    g = Graph(**fields, rel_offsets=rel_offsets,
+              n_nodes=int(statics["n_nodes"]),
+              n_relations=int(statics["n_relations"]))
+    meta = statics["meta"]
+    return g, (None if meta is None else CKGMeta(**meta))

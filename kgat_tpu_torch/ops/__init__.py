@@ -2,7 +2,8 @@
 
 Two interchangeable backends with one surface, ``spmm(graph, edge_w, x)``,
 ``segment_softmax(graph, logits)`` and ``attention_logits(graph, emb,
-w_rel, rel_embed)``:
+w_rel, rel_embed)``, and DGL's ``gspmm``, ``gsddmm``, ``sddmm_dot`` and
+``segment_sum`` / ``segment_max`` / ``segment_min`` / ``segment_mean``:
 
   * ``ref``    — plain PyTorch (``kgat_tpu_torch.ops.ref``): the oracle,
     on any device.

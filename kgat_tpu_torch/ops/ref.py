@@ -1,10 +1,13 @@
 """Plain PyTorch message-passing ops: the CPU path and the oracle.
 
-Port of ``kgat_tpu/ops/ref.py`` for the serving forward. Each op is
-written the straightforward way, with gathers and ``index_add_`` /
-``scatter_reduce_`` over the edges' destinations, on any device. The
-Hopper kernels (``ops/hopper``) are held against these functions; their
-wrappers call them for tensors that lie on the CPU.
+Port of ``kgat_tpu/ops/ref.py``. Each op is written the straightforward
+way, with gathers and ``index_add_`` / ``scatter_reduce`` over the
+edges' destinations, on any device. The Hopper kernels (``ops/hopper``)
+are held against these functions; their wrappers call them for tensors
+that lie on the CPU. Besides the model's ops it holds DGL's
+``update_all`` / ``apply_edges`` surface, as ``kgat_tpu.ops.ref`` does:
+``segment_max``, ``segment_min``, ``segment_mean``, :func:`gspmm`,
+:func:`gsddmm` and :func:`sddmm_dot`.
 
 The port's graph has no pad edges, so nothing here needs an edge mask.
 """
@@ -362,6 +365,114 @@ def bucket_spmm(bucket, edge_w: EdgeWeights,
 
 def segment_softmax(graph: Graph, logits: torch.Tensor) -> torch.Tensor:
     return segment_softmax_coo(graph.dst, logits, graph.n_nodes)
+
+
+# --- DGL's update_all / apply_edges surface (kgat_tpu/ops/ref.py) ----------
+
+MSG_OPS = ("copy_u", "copy_e", "u_mul_e", "u_add_e", "u_sub_e", "u_div_e")
+REDUCE_OPS = ("sum", "max", "min", "mean")
+SDDMM_TARGETS = ("u", "v", "e")
+
+_BINOPS = {
+    "add": torch.add,
+    "sub": torch.sub,
+    "mul": torch.mul,
+    "div": torch.div,
+    "dot": lambda a, b: (a * b).sum(-1),
+}
+
+
+def in_degree(graph: Graph) -> torch.Tensor:
+    """(n_nodes,) int32 number of in-edges of each node."""
+    return graph.row_offsets[1:] - graph.row_offsets[:-1]
+
+
+def _per_row(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A (n,) tensor shaped to broadcast against (n, ...) of ``ndim``."""
+    return t.reshape((-1,) + (1,) * (ndim - 1))
+
+
+def _segment_extreme(graph: Graph, vals: torch.Tensor, how: str,
+                     empty: float) -> torch.Tensor:
+    out = vals.new_full((graph.n_nodes,) + tuple(vals.shape[1:]), empty)
+    idx = _per_row(graph.dst.long(), vals.dim()).expand_as(vals)
+    # include_self=False: a row without edges keeps ``empty``.
+    return out.scatter_reduce(0, idx, vals, how, include_self=False)
+
+
+def segment_max(graph: Graph, edge_vals: torch.Tensor) -> torch.Tensor:
+    """Max of edge values per dst row (-inf for a row without edges, as
+    ``jax.ops.segment_max`` gives)."""
+    return _segment_extreme(graph, edge_vals, "amax", -torch.inf)
+
+
+def segment_min(graph: Graph, edge_vals: torch.Tensor) -> torch.Tensor:
+    """Min of edge values per dst row (+inf for a row without edges)."""
+    return _segment_extreme(graph, edge_vals, "amin", torch.inf)
+
+
+def segment_mean(graph: Graph, edge_vals: torch.Tensor) -> torch.Tensor:
+    """Mean of edge values per dst row (0 for a row without edges): the
+    sum over the in-degree, clamped at 1."""
+    deg = in_degree(graph).clamp(min=1).to(edge_vals.dtype)
+    return segment_sum(graph, edge_vals) / _per_row(deg, edge_vals.dim())
+
+
+def gspmm(graph: Graph, msg: str, reduce: str, x=None, edge_w=None
+          ) -> torch.Tensor:
+    """DGL's ``update_all(fn.<msg>, fn.<reduce>)``: per edge u -> v the
+    message ``msg`` of x[u] and the edge's data, reduced into v.
+
+    msg in :data:`MSG_OPS`, reduce in :data:`REDUCE_OPS`. x: (n_nodes, d)
+    node features (unless msg is copy_e); edge_w: (E,) or (E, d) edge
+    data (unless msg is copy_u). Returns (n_nodes, d), or (n_nodes,) for
+    scalar messages; a row without edges is 0 for sum and mean, -inf for
+    max and +inf for min.
+    """
+    if msg not in MSG_OPS:
+        raise ValueError(f"msg {msg!r} not in {MSG_OPS}")
+    if reduce not in REDUCE_OPS:
+        raise ValueError(f"reduce {reduce!r} not in {REDUCE_OPS}")
+    if msg == "copy_e":
+        m = edge_w
+    else:
+        m = x.index_select(0, graph.src)
+        if msg != "copy_u":
+            w = edge_w if edge_w.dim() == m.dim() else _per_row(edge_w,
+                                                                 m.dim())
+            m = _BINOPS[msg[2:-2]](m, w)
+    return {"sum": segment_sum, "mean": segment_mean, "max": segment_max,
+            "min": segment_min}[reduce](graph, m)
+
+
+def gsddmm(graph: Graph, op: str, lhs: torch.Tensor, rhs: torch.Tensor,
+           lhs_target: str = "u", rhs_target: str = "v") -> torch.Tensor:
+    """DGL's ``apply_edges(fn.<op>)``: per edge, ``op(lhs, rhs)`` where each
+    operand lives on the edge's source (``u``), its destination (``v``)
+    or the edge itself (``e``).
+
+    op in add, sub, mul, div, dot, copy_lhs, copy_rhs; node operands are
+    (n_nodes, ...), edge operands (E, ...). Returns (E, ...), or (E,) for
+    dot.
+    """
+    def fetch(val, target):
+        if target not in SDDMM_TARGETS:
+            raise ValueError(f"target {target!r} not in {SDDMM_TARGETS}")
+        if target == "e":
+            return val
+        return val.index_select(0, graph.src if target == "u" else graph.dst)
+    if op == "copy_lhs":
+        return fetch(lhs, lhs_target)
+    if op == "copy_rhs":
+        return fetch(rhs, rhs_target)
+    if op not in _BINOPS:
+        raise ValueError(f"op {op!r} not in {tuple(_BINOPS)} + copy_*")
+    return _BINOPS[op](fetch(lhs, lhs_target), fetch(rhs, rhs_target))
+
+
+def sddmm_dot(graph: Graph, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-edge dot product: out[e] = <a[src_e], b[dst_e]>. (E,)."""
+    return gsddmm(graph, "dot", a, b)
 
 
 def attention_logits(graph: Graph, emb: torch.Tensor, w_rel: torch.Tensor,

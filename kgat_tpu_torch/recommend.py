@@ -168,6 +168,9 @@ def main(argv=None) -> int:
                    help="dataset name (defaults to the one recorded in "
                         "the checkpoint)")
     p.add_argument("--data-root", default="datasets")
+    p.add_argument("--graph-cache", default=None, metavar="DIR",
+                   help="directory of the built-graph npz cache "
+                        "(Dataset.build(cache_dir=...))")
     p.add_argument("--users", default=None,
                    help="comma-separated user ids; default: all test users")
     p.add_argument("--k", type=int, default=20)
@@ -201,7 +204,7 @@ def main(argv=None) -> int:
                          "not reconstructible from a name alone)")
     from kgat_tpu_torch.data import load_dataset
     ds = load_dataset(a.data_root, dataset)
-    graph, meta = ds.build()
+    graph, meta = ds.build(cache_dir=a.graph_cache)
     overrides = {"embed_dim": a.embed_dim, "relation_dim": a.relation_dim,
                  "aggregator": a.aggregator,
                  "conv_dims": ([int(x) for x in a.conv_dims.split(",")]

@@ -235,7 +235,7 @@ class Trainer:
                              if self.grouped else dev)
         disable_tf32()
         self.ds = dataset if dataset is not None else load_any_dataset(cfg)
-        graph, self.meta = self.ds.build()
+        graph, self.meta = self.ds.build(cache_dir=cfg.graph_cache)
         self.graph = graph.to(dev)
         # Process 0 alone writes the event log and prints
         # (kgat_tpu/train.py:106-109).

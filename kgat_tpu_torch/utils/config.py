@@ -59,6 +59,7 @@ class TrainConfig:
     ckpt_path: Optional[str] = None     # defaults to <log_dir>/<run_name>_best
     resume: bool = False                # restore the newer of best and last
     profile_epochs: int = 0             # torch.profiler trace of the first N epochs
+    graph_cache: Optional[str] = None   # dir for the built-graph npz cache
     # edge partitioning (BASELINE config 5): > 1 partitions the CF phase;
     # 0 = one partition per visible GPU
     n_devices: int = 1
@@ -106,8 +107,6 @@ PRESETS = {
 
 # (flag as named to the user, test on the parsed args, why it is refused)
 _UNPORTED = (
-    ("--graph-cache", lambda a: a.graph_cache is not None,
-     "the npz graph cache is not ported yet (ROADMAP.md queue 1, item 2)"),
     ("--att-impl dense", lambda a: a.att_impl == "dense",
      "the dense-projection attention route is not ported (ROADMAP.md "
      "queue 1, 'Not to port'); the port always runs the relation-tile "
@@ -206,7 +205,9 @@ def parse_args(argv=None) -> TrainConfig:
                    help="write a torch.profiler trace of the first N "
                         "epochs into --log-dir")
     p.add_argument("--graph-cache", default=None, metavar="DIR",
-                   help="not ported yet (ROADMAP.md queue 1, item 2)")
+                   help="directory of the built-graph cache: the graph, "
+                        "its row splits and meta are loaded from an npz "
+                        "there when the data match, else built and saved")
     for f in ("users", "items", "entities", "relations", "interactions",
               "triples"):
         p.add_argument(f"--syn-{f}", type=int, default=None,
@@ -221,7 +222,8 @@ def parse_args(argv=None) -> TrainConfig:
                   "kg_batch_size", "epochs", "eval_every", "stopping_steps",
                   "k", "seed", "sampler", "sparse_adam", "pretrain_path",
                   "resume", "device", "log_dir", "run_name",
-                  "profile_epochs", "n_devices", "dp_replicas",
+                  "profile_epochs", "graph_cache", "n_devices",
+                  "dp_replicas",
                   "halo_exchange",
                   "ring_transport", "syn_users", "syn_items", "syn_entities",
                   "syn_relations", "syn_interactions", "syn_triples"):

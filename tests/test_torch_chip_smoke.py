@@ -73,7 +73,8 @@ def test_phases_3_to_7_run_on_the_cpu_without_jax():
     """Phases 3-7, phase 8 (the partitioned trainer), phase 9 (resume,
     pretrain, sparse Adam and the host samplers, eager here) and phase 10
     (a gloo group of one process holding four slots; the cross-process
-    paths need two cards). Each phase prints its wall seconds: a run cut
+    paths need two cards) and phase 11 (the graph cache, DGL's op surface
+    and the explain CLI). Each phase prints its wall seconds: a run cut
     at the time limit shows which phase ran long."""
     try:
         proc = subprocess.run([sys.executable, "-I", "-c",
@@ -87,8 +88,8 @@ def test_phases_3_to_7_run_on_the_cpu_without_jax():
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     assert lines[-1] == "RC 0 []", lines[-1]
-    for n in range(3, 11):
-        assert any(ln.startswith(f"[{n}/10] took ") for ln in lines), n
+    for n in range(3, 12):
+        assert any(ln.startswith(f"[{n}/11] took ") for ln in lines), n
     assert any("need two or more cards" in ln for ln in lines)
     kernels = json.loads(lines[-2])["kernels"]
     assert [k["name"] for k in kernels] == [
@@ -109,6 +110,12 @@ def test_phases_3_to_7_run_on_the_cpu_without_jax():
         assert k["cuda_launches_per_call"] is None, k
         # K5 is also timed by CUDA-graph replay (the stub timer's 0.0).
         assert ("replay_ms" in k) == (k["name"] == "segment_softmax_csr_bwd")
+        # Phase 11's gspmm calls of K1, counted apart (none on the CPU).
+        assert k.get("gspmm_launches", 0) == 0
+        assert ("gspmm_launches" in k) == k["name"].startswith("spmm_csr")
+    for what in ("graph cache (--graph-cache)", "DGL op surface",
+                 "explain CLI"):
+        assert any(ln.startswith(f"[11/11] {what}") for ln in lines), what
     assert "FAILED" not in proc.stdout
 
 
@@ -152,7 +159,7 @@ def test_phase_10_across_processes_runs_on_the_cpu():
                     f"{(out or '')[-3000:]}")
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
-    assert any(ln.startswith("[10/10] 2 processes, one per card (gloo)")
+    assert any(ln.startswith("[10/11] 2 processes, one per card (gloo)")
                for ln in lines), lines
     assert sum("3 rounds bit-exact" in ln for ln in lines) == 2
     assert any("trainer CLI on 2 processes" in ln for ln in lines)

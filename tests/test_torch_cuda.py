@@ -249,6 +249,52 @@ def test_spmm_backward_is_k1_on_the_reverse_csr(dev, hand_graph, d):
     torch.testing.assert_close(w2.grad, w3.grad, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("msg,reduce", [("u_mul_e", "sum"),
+                                        ("u_mul_e", "mean"),
+                                        ("copy_u", "sum"),
+                                        ("copy_u", "mean")])
+def test_gspmm_sum_and_mean_run_k1(dev, hand_graph, msg, reduce):
+    """The hopper backend's gspmm sends the weighted sum and mean, and
+    copy_u's, through K1 (one launch forward, one on the reverse CSR for
+    d_x), held to the float64 plain path under the row bound; d_w is the
+    plain path's."""
+    g, gen = hand_graph, torch.Generator().manual_seed(11)
+    w = (None if msg == "copy_u"
+         else torch.randn(g.n_edges, generator=gen).to(dev))
+    x = _rand(gen, g.n_nodes, 64, dev=dev).requires_grad_(True)
+    cot = _rand(gen, g.n_nodes, 64, dev=dev)
+    before = {k: build.launch_counts[k] for k in ("spmm_csr",
+                                                  "spmm_csr_rev")}
+    out = hopper_backend.gspmm(g, msg, reduce, x, w)
+    out.backward(cot)
+    torch.cuda.synchronize()
+    assert {k: build.launch_counts[k] - n for k, n in before.items()} == {
+        "spmm_csr": 1, "spmm_csr_rev": 1}
+    w64 = (torch.ones(g.n_edges, dtype=torch.float64, device=dev)
+           if w is None else w.double())
+    x64 = x.detach().double().requires_grad_(True)
+    want = ref.gspmm(g, "u_mul_e", reduce, x64, w64)
+    want.backward(cot.double())
+    # The terms' magnitudes: the same linear maps of |w|, |x| and |cot|.
+    xa = x64.detach().abs().requires_grad_(True)
+    terms = ref.gspmm(g, "u_mul_e", reduce, xa, w64.abs())
+    terms.backward(cot.double().abs())
+    rows = (g.row_offsets[1:] - g.row_offsets[:-1]).double()
+    extra = U * want.detach().abs() if reduce == "mean" else 0
+    _assert_within(out.detach(), want.detach(),
+                   _higham(want.detach(), terms.detach(), rows) + extra,
+                   f"{msg} {reduce}")
+    rev_rows = (g.rev_row_offsets[1:] - g.rev_row_offsets[:-1]).double()
+    _assert_within(x.grad, x64.grad, _higham(x64.grad, xa.grad, rev_rows),
+                   f"{msg} {reduce} d_x")
+    if w is not None:
+        w2 = w.clone().requires_grad_(True)
+        hopper_backend.gspmm(g, msg, reduce, x.detach(), w2).backward(cot)
+        w3 = w.clone().requires_grad_(True)
+        ref.gspmm(g, msg, reduce, x.detach(), w3).backward(cot)
+        torch.testing.assert_close(w2.grad, w3.grad, rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("d,k", [(64, 64), (64, 32), (64, 100), (33, 20),
                                  (32, 100), (256, 32), (65, 126)])
 def test_sddmm_backward_matches_float64_plain(dev, hand_graph, tile_graph,

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing every kgat_tpu_torch module,
-the partitioned trainer's (``parallel``, its multi-process module too)
-and the ring kernels' included, and the multi-process test workers
+the partitioned trainer's (``parallel``, its multi-process module too),
+the ring kernels' and the explain CLI's (which keeps its own
+``node_kind`` and ``rel_kind``) included, and the multi-process test workers
 (``tests/torch_mp_worker.py``, ``tests/torch_cuda_mp_worker.py``), loads
 neither jax nor the JAX package (whose __init__ imports jax)."""
 
@@ -27,7 +28,8 @@ leaked = sorted(m for m in sys.modules
 missing = {{"kgat_tpu_torch.parallel.partition", "kgat_tpu_torch.parallel.dp",
            "kgat_tpu_torch.parallel.halo",
            "kgat_tpu_torch.parallel.multihost",
-           "kgat_tpu_torch.ops.hopper.remote_ring"}} - set(names)
+           "kgat_tpu_torch.ops.hopper.remote_ring",
+           "kgat_tpu_torch.explain"}} - set(names)
 print(len(names), sorted(missing), leaked)
 """
 
@@ -42,5 +44,5 @@ def test_port_imports_without_jax():
                           env=torch_threads.one_thread_env())
     assert proc.returncode == 0, proc.stderr
     n_modules, rest = proc.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 27, proc.stdout
+    assert int(n_modules) >= 28, proc.stdout
     assert rest.strip() == "[] []", proc.stdout

@@ -282,6 +282,23 @@ class _Event:
             self.queries > self.ready_after)
 
 
+@pytest.mark.parametrize("world,cards,want", [(4, 4, 2), (8, 4, 2),
+                                             (2, 4, 4), (1, 4, 8),
+                                             (4, 16, 2), (4, 0, 8)])
+def test_processes_of_one_host_share_its_cores(world, cards, want):
+    """Each of the min(world, cards) processes on a host keeps its share
+    of the threads it had (8 here), never fewer than one."""
+    before = torch.get_num_threads()
+    try:
+        torch.set_num_threads(8)
+        assert multihost.share_host_cores(world, cards) == want
+        assert torch.get_num_threads() == want
+        torch.set_num_threads(1)
+        assert multihost.share_host_cores(world, cards) == 1
+    finally:
+        torch.set_num_threads(before)
+
+
 def test_watch_keeps_depth_events_outstanding():
     """``Watch`` records an event per piece of work, waits for the oldest
     once ``depth`` are outstanding, and ``drain`` for the last."""

@@ -166,7 +166,7 @@ def test_default_device_needs_cuda():
         train.main(["--dataset", "synthetic", "--log-dir", "", *SYN_FLAGS])
 
 
-@pytest.mark.parametrize("flags", [["--graph-cache", "cache"]])
+@pytest.mark.parametrize("flags", [["--att-impl", "dense"]])
 def test_unported_flags_are_refused(flags, capsys):
     """Flags whose module is not ported yet fail with the ROADMAP item
     that will bring them; none is accepted and then ignored."""
