@@ -6,7 +6,7 @@ an H100, sm_90a):
 
     python3 chip_smoke.py
 
-Phases, each announced by a line ``[n/11] ...``:
+Phases, each announced by a line ``[n/12] ...``:
   1. device   — requires CUDA; prints nvidia-smi's name and power limit.
   2. build    — compiles the kernels from kgat_tpu_torch/ops/hopper/csrc.
   3. forward kernels (K1 SpMM, K2 SDDMM, K3 softmax) against their plain
@@ -100,6 +100,22 @@ Phases, each announced by a line ``[n/11] ...``:
                hop an edge with the card's attention, strengths the
                products of their hops', and the attention index's build
                seconds.
+  12. the native host loaders and a bf16 trainer epoch: phase 3's
+               yelp2018-scale export parsed by ``kgat_tpu_torch.native``
+               (C++) and by the plain Python / numpy parsers, the arrays
+               equal; the CKG built with the native counting sort and with
+               numpy's stable argsort, every array equal (and equal to
+               phase 3's graph); the parse, ``np.unique`` and build
+               seconds of each, and ``load_dataset``'s whole seconds
+               with each parser, beside the card and the host's CPU
+               model;
+               then one replayed CLI epoch of ``tools/campaigns.md``'s
+               mid-plateau recipe (``--ops-backend pallas --compute-dtype
+               bf16 --lr 1e-3``) and the same epoch in float32 from the
+               same seed, both finite, the bf16 losses within
+               :data:`BF16_RTOL` of the float32 ones, each trainer's
+               replayed CF and KG step times, and the bf16 epoch's K1
+               launches from its graphs.
 Then a JSON line of per-kernel results (each kernel's launches on its
 path, error, time beside its plain version, the library call that
 computes the same function where there is one, and the bound: the least
@@ -121,6 +137,7 @@ dense TF32 on them (K2's and K4's three TF32 passes).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import dataclasses
@@ -128,22 +145,25 @@ import itertools
 import json
 import math
 import os
+import platform
 import re
 import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from kgat_tpu_torch import explain
+from kgat_tpu_torch import explain, native
+from kgat_tpu_torch import data as tdata
 from kgat_tpu_torch import recommend as rec
 from kgat_tpu_torch import optim, train
 from kgat_tpu_torch.data import (load_dataset, save_dataset,
                                  synthetic_dataset)
-from kgat_tpu_torch.graph import build_graph
+from kgat_tpu_torch.graph import build_ckg, build_graph
 from kgat_tpu_torch.models import bprmf, kgat
 from kgat_tpu_torch.models.kgat import KGATConfig
 from kgat_tpu_torch.ops import get_backend, ref
@@ -176,6 +196,13 @@ from kgat_tpu_torch.utils.config import TrainConfig
 YELP2018 = dict(n_users=45919, n_items=45538, n_entities=90961,
                 n_relations_kg=42, n_interactions=1185068,
                 n_triples=1853704)
+# tools/campaigns.md's mid-plateau synthetic dataset (130,498 CKG edges).
+MID_PLATEAU = dict(users=3000, items=2000, entities=4000, relations=8,
+                   interactions=60000, triples=40000)
+# Phase 12: the bf16 epoch's cf_loss and kg_loss against float32's from
+# the same seed, relative. Measured on an H100 (700 W): 2.98e-4 and
+# 8.38e-4; the bound is six times the larger.
+BF16_RTOL = 5e-3
 TOP_K = 20
 RTOL = ATOL = 1e-4          # forward kernel vs plain, f32 (sum order differs)
 # The backward kernels sum up to 10^5 terms per output and are held to a
@@ -208,6 +235,8 @@ class Sizes:
     cf_batch: int = 1024  # the reference recipe's batch sizes
     kg_batch: int = 2048
     chunk: int = CHUNK    # the row split of the hand-made rows
+    plateau: dict = dataclasses.field(
+        default_factory=lambda: dict(MID_PLATEAU))  # phase 12's epochs
 
 
 # The largest in-degree of the yelp-scale graph is 70,884.
@@ -445,7 +474,7 @@ class CudaTimer:
 
 class Progress:
     """The phase being run, for the failure line, and each phase's wall
-    seconds, printed as ``[n/11] took ... s`` when it ends: a run cut at a
+    seconds, printed as ``[n/12] took ... s`` when it ends: a run cut at a
     time limit shows which phase ran long."""
 
     def __init__(self):
@@ -455,13 +484,13 @@ class Progress:
     def phase(self, n: int, what: str):
         self.end()
         self.n = n
-        print(f"[{n}/11] {what} ...", flush=True)
+        print(f"[{n}/12] {what} ...", flush=True)
 
     def end(self):
         """Ends the phase being run."""
         now = time.perf_counter()
         if self.n:
-            print(f"[{self.n}/11] took {now - self.t0:.1f} s", flush=True)
+            print(f"[{self.n}/12] took {now - self.t0:.1f} s", flush=True)
         self.t0 = now
 
 
@@ -605,7 +634,7 @@ def check_kernels(g, label, check, gen, dev, timer, times=None):
         if times is not None:
             ms = timer.device_ms(lambda: spmm_csr(*a1, g.split), 20)
             plain_ms = timer.device_ms(lambda: spmm_csr_plain(*a1), 5)
-            print(f"[3/11] spmm_csr per call at d={dd} {dt}: kernel "
+            print(f"[3/12] spmm_csr per call at d={dd} {dt}: kernel "
                   f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
             if dt == torch.float32:
                 # A forward runs K1 at d = 64, 64, 32.
@@ -891,7 +920,7 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     line = smi.stdout.strip().splitlines()[0]
-    print(f"[1/11] device: torch {torch.__version__}, CUDA "
+    print(f"[1/12] device: torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
     print(line, flush=True)
     return line
@@ -902,9 +931,12 @@ def phase_build():
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))
     build.library()
-    print(f"[2/11] build: nvcc sm_90a {seconds:.1f} s (one nvcc per source, "
+    _, host_s = native.build(force=True)
+    native.library()
+    print(f"[2/12] build: nvcc sm_90a {seconds:.1f} s (one nvcc per source, "
           f"in parallel), {len(regs)} kernels, max {max(regs, default=0)} "
-          f"registers, {spills} spill-store bytes", flush=True)
+          f"registers, {spills} spill-store bytes; the native host layer "
+          f"(g++) {host_s:.1f} s", flush=True)
 
 
 def main(argv=None) -> int:
@@ -956,7 +988,7 @@ def across_only(tmp, smi_line, progress) -> int:
 
 def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
         sizes: Sizes = YELP_SIZES, timer=None, progress=None) -> int:
-    """Phases 3-11 in ``tmp``, on ``dev``; prints the kernels' JSON line."""
+    """Phases 3-12 in ``tmp``, on ``dev``; prints the kernels' JSON line."""
     timer = timer or CudaTimer()
     progress = progress or Progress()
     check = Check(timer)
@@ -972,7 +1004,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     g_host, meta = ds.build()
     gen_s = time.perf_counter() - t0
     deg = (g_host.row_offsets[1:] - g_host.row_offsets[:-1])
-    print(f"[3/11] yelp2018-scale graph: {g_host.n_edges} edges, "
+    print(f"[3/12] yelp2018-scale graph: {g_host.n_edges} edges, "
           f"{g_host.n_nodes} nodes, {g_host.n_relations} relations, "
           f"max in-degree {int(deg.max())}, {int((deg == 0).sum())} empty "
           f"rows, {g_host.tiles.shape[0]} tiles (generated, written, read "
@@ -980,7 +1012,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     hand = handmade_graph(gen, sizes.hub, sizes.chunk).to(dev)
     e2, e3, e1, hand_att = check_kernels(hand, "hand-made", check, gen, dev,
                                          timer)
-    print(f"[3/11] hand-made rows (empty, one edge, hub of {sizes.hub}, "
+    print(f"[3/12] hand-made rows (empty, one edge, hub of {sizes.hub}, "
           f"{boundary_rows(sizes.chunk)} at the chunk boundaries): "
           f"max abs err sddmm {k2_errs(e2)}, softmax {e3:.2e}, spmm "
           f"{', '.join(f'{e:.2e}' for e in e1)} (d64, d32, d64 bf16)",
@@ -999,19 +1031,19 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                      f"{host:.1f} ms on the host ({card:.1f} ms on the "
                      f"card), {sp.cuda_launches} CUDA launches per K1 call by "
                      f"the split")
-    print(f"[3/11] row split (chunk {CHUNK} edges), once per CSR at "
+    print(f"[3/12] row split (chunk {CHUNK} edges), once per CSR at "
           f"start-up: " + "; ".join(lines), flush=True)
     times = Times()
     e2, e3, e1, att = check_kernels(g, "yelp2018", check, gen, dev, timer,
                                     times)
-    print(f"[3/11] yelp2018 shapes: max abs err sddmm {k2_errs(e2)}, softmax "
+    print(f"[3/12] yelp2018 shapes: max abs err sddmm {k2_errs(e2)}, softmax "
           f"{e3:.2e}, spmm {', '.join(f'{e:.2e}' for e in e1)} "
           f"(d64, d32, d64 bf16)", flush=True)
     for name in ("spmm_csr", "sddmm_transr", "segment_softmax_csr"):
-        print(f"[3/11] time per {'forward' if name == 'spmm_csr' else 'call'}"
+        print(f"[3/12] time per {'forward' if name == 'spmm_csr' else 'call'}"
               f" ({smi_line}): {times.line(name)}", flush=True)
     fma_ms = g.n_edges * 4 * 64 * 64 / F32_FLOPS * 1e3
-    print(f"[3/11] sddmm_transr's bound on the float32 FMA units, for the "
+    print(f"[3/12] sddmm_transr's bound on the float32 FMA units, for the "
           f"same products without tensor cores: {fma_ms:.4f} ms", flush=True)
 
     # --- 4. serving at full width ------------------------------------------
@@ -1044,7 +1076,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                                     "segment_softmax_csr": 1, "spmm_csr": 3},
                     "serving")
     check_lists(lines, users.tolist(), ds.train_user_dict, "serving CLI")
-    print(f"[4/11] serving CLI: {len(lines)} users x top-{TOP_K} valid in "
+    print(f"[4/12] serving CLI: {len(lines)} users x top-{TOP_K} valid in "
           f"{cli_s:.1f} s (load, build, forward, score); launches {launches}",
           flush=True)
 
@@ -1097,14 +1129,14 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     server = rec.Recommender(model, g, meta, cfg,
                              train_user_dict=ds.train_user_dict)
     serve_ms = timer.host_ms(lambda: server.recommend(users, k=TOP_K), 5)
-    print(f"[4/11] kernel path vs plain path on the card: all_embed max abs "
+    print(f"[4/12] kernel path vs plain path on the card: all_embed max abs "
           f"err {err:.2e}; top-{TOP_K} scores within rtol {RTOL}; item sets "
           f"equal for {int(clear.sum())}/{len(users)} users with a "
           f"20th/21st gap > 1e-4, same order for {int(ordered.sum())} with "
           f"every gap > 1e-4; CLI lists in the same order for "
           f"{same_order}/{len(users)} users; a second kernel forward is "
           f"{'bit-identical' if repeat else 'NOT bit-identical'}", flush=True)
-    print(f"[4/11] forward {fwd_ms:.2f} ms (plain path {fwd_plain_ms:.2f} "
+    print(f"[4/12] forward {fwd_ms:.2f} ms (plain path {fwd_plain_ms:.2f} "
           f"ms); serve {len(users)} users top-{TOP_K} from the cached "
           f"forward {serve_ms:.2f} ms ({smi_line})", flush=True)
     del emb_k, emb_p, server
@@ -1115,7 +1147,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                                ("yelp2018", g, att, times)):
         shares, k4_errs = check_backward_kernels(graph, w, label, check,
                                                  gen, dev, timer, t)
-        print(f"[5/11] {label}: max abs err, and the bound where the error "
+        print(f"[5/12] {label}: max abs err, and the bound where the error "
               f"is largest against it: "
               + ", ".join(f"{k} {e:.2e} (bound {b:.2e}, {s:.3f} of it)"
                           for k, (e, b, s) in shares.items())
@@ -1125,9 +1157,9 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                  "segment_softmax_csr_bwd"):
         per = "per CF-step backward (d = 64, 64, 32)" if name == \
             "spmm_csr_rev" else "per call"
-        print(f"[5/11] {per} ({smi_line}): {times.line(name)}", flush=True)
+        print(f"[5/12] {per} ({smi_line}): {times.line(name)}", flush=True)
     row_gb = 4 * g.n_edges * 64 * 4 / 1e9
-    print(f"[5/11] sddmm_transr_bwd: {times.per_call['sddmm_transr_bwd']} "
+    print(f"[5/12] sddmm_transr_bwd: {times.per_call['sddmm_transr_bwd']} "
           f"CUDA launches per call (counted); bound on the float32 FMA units, for the "
           f"same products without tensor cores, "
           f"{12 * 64 * 64 * g.n_edges / F32_FLOPS * 1e3:.4f} ms; its d_eh "
@@ -1159,7 +1191,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                           stat_bound(b, length))
             for name, a, b in zip(("d_entity_embed", "d_w_rel",
                                    "d_rel_embed"), *grads.values())]
-    print(f"[5/11] attention gradient through compute_attention, kernel path "
+    print(f"[5/12] attention gradient through compute_attention, kernel path "
           f"vs float64 plain path: "
           + ", ".join(f"{n} {e:.2e} (bound {b:.2e}, {s:.3f} of it)"
                       for n, (e, b, s) in zip(
@@ -1177,7 +1209,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     trainer = train.Trainer(tcfg, dataset=ds)
     build_s = time.perf_counter() - t0
     train_stats = phase_train_steps(trainer, sizes, check, timer, dev)
-    print(f"[6/11] trainer built in {build_s:.1f} s ({trainer.n_cf_batches} "
+    print(f"[6/12] trainer built in {build_s:.1f} s ({trainer.n_cf_batches} "
           f"CF and {trainer.n_kg_batches} KG batches an epoch); "
           + train_stats, flush=True)
     del trainer
@@ -1257,7 +1289,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
         raise AssertionError(f"recommend.main returned {rc}")
     check_lists(lines, users.tolist(), ds.train_user_dict,
                 "serving the trained checkpoint")
-    print(f"[7/11] trainer CLI: 1 epoch of replayed steps in "
+    print(f"[7/12] trainer CLI: 1 epoch of replayed steps in "
           f"{epoch['secs']:.1f} s ({cli_s:.1f} s with data load, build, "
           f"eval and checkpoints), cf_loss {epoch['cf_loss']:.4f}, kg_loss "
           f"{epoch['kg_loss']:.4f} (eager steps from the same seed: "
@@ -1291,6 +1323,10 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                        "CLI")
     gspmm_launches = phase_modules(tmp, ds, g_host, g, meta, users, check,
                                    gen, dev, timer, smi_line)
+
+    # --- 12. the native host loaders and a bf16 trainer epoch --------------
+    progress.phase(12, "the native host loaders and a bf16 trainer epoch")
+    phase_native(tmp, ds, g_host, meta, sizes, dev, timer, smi_line)
     progress.end()
 
     paths = {"sddmm_transr_bwd": ("attention gradient", att_launches),
@@ -1961,7 +1997,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
     b_edges = [[b.n_edges for b in row] for row in buckets]
     b_launches = [[(b.split.cuda_launches, b.rev_split.cuda_launches)
                    for b in row] for row in buckets]
-    print(f"[8/11] partitioned on the host in {host_s:.1f} s (row splits "
+    print(f"[8/12] partitioned on the host in {host_s:.1f} s (row splits "
           f"of the {len(csrs)} bucket CSRs included, {split_ms:.2f} ms per "
           f"CSR): R = {info.rows_per_part}, n_pad = {info.n_nodes_pad}, "
           f"shard edges {[s.n_edges for s in shards]}, ring bucket edges "
@@ -1972,7 +2008,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
     reads = [[int((h.local_ids[R + q * H:R + (q + 1) * H]
                    < info.n_nodes_global).sum()) for q in range(P)]
              for h in halos]
-    print(f"[8/11] selective halo (a2a): H = {H} rows a peer, T = {T} "
+    print(f"[8/12] selective halo (a2a): H = {H} rows a peer, T = {T} "
           f"table rows a partition (R + {P} H), built in {halo_s:.2f} s "
           f"on the host ({halo_s / P:.3f} s a partition; reverse CSR row "
           f"splits included); rows each partition reads of each peer "
@@ -1984,7 +2020,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
           f"float32", flush=True)
     summary = check_ring_kernels(buckets, info, sizes, check, times, gen,
                                  dev, timer)
-    print(f"[8/11] ring kernels ({smi_line}): {summary}", flush=True)
+    print(f"[8/12] ring kernels ({smi_line}): {summary}", flush=True)
 
     # Attention and all_embed of every mesh against the single-device
     # paths, on one random full-width model.
@@ -2038,7 +2074,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                      f"plain, eval forward {ms:.2f} ms (launches "
                      f"{fwd_launches})")
     del want, att_single
-    print(f"[8/11] partitioned forward against single-device ("
+    print(f"[8/12] partitioned forward against single-device ("
           f"{smi_line}): " + "; ".join(lines), flush=True)
 
     # The first CF step of every mesh (dropout 0): the loss against the
@@ -2085,7 +2121,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
         lines.append(f"{mesh_label(key)}: {errs}; forward + backward "
                      f"{ms:.2f} ms (launches {step_launches})")
     del grads_p, terms
-    print(f"[8/11] first CF step (batch {u.numel()}, dropout 0) against the "
+    print(f"[8/12] first CF step (batch {u.numel()}, dropout 0) against the "
           f"single-device kernel path ({loss_single:.6f}) and the float64 "
           f"plain path ({smi_line}): " + "; ".join(lines), flush=True)
 
@@ -2105,7 +2141,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                            names, [torch.zeros_like(p) if gp is None else gp
                                    for p, gp in zip(params, kg_grads)],
                            grads_p, terms, check, length)
-    print(f"[8/11] KG step (batch {kg_batch[0].numel()}) against the float64 "
+    print(f"[8/12] KG step (batch {kg_batch[0].numel()}) against the float64 "
           f"plain path: {kg_errs}", flush=True)
     del grads_p, terms, kg_grads, parts, staged, model, lay, halos
     if dev.type == "cuda":
@@ -2118,7 +2154,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                                             tr)
         if ex == "ring":
             ring_losses = losses[:2]
-        print(f"[8/11] replayed partitioned steps against eager steps from "
+        print(f"[8/12] replayed partitioned steps against eager steps from "
               f"the same generator states ({smi_line}): {line}", flush=True)
 
     # The trainer CLI, one epoch, ring exchange with the fused transport:
@@ -2159,7 +2195,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                      for k in {*step, *evalf}}
     want_launches.update(sddmm_transr=2 * P, segment_softmax_csr=2 * P)
     expect_exact(dev, launches, want_launches, "partitioned trainer CLI")
-    print(f"[8/11] partitioned trainer CLI (python -m kgat_tpu_torch.train "
+    print(f"[8/12] partitioned trainer CLI (python -m kgat_tpu_torch.train "
           f"{' '.join(argv[argv.index('--n-devices'):])}): 1 epoch of "
           f"{'replayed' if epoch['captured'] else 'eager'} steps "
           f"({epoch['why']}) in "
@@ -2286,7 +2322,7 @@ def phase_rest(tmp, ds, argv, check, dev, timer, smi_line) -> None:
     host_s = time.perf_counter() - t0
     if not (math.isfinite(cf) and math.isfinite(kg)):
         raise AssertionError(f"host-sampled losses {cf}, {kg}")
-    print(f"[9/11] {resume_line}; {pretrain_line}; {sparse_line}; "
+    print(f"[9/12] {resume_line}; {pretrain_line}; {sparse_line}; "
           f"--sampler host: trainer with the host samplers built in "
           f"{build_s:.1f} s, 3 CF and 3 KG steps (and a recompute) in "
           f"{host_s:.2f} s, cf_loss {cf:.4f}, kg_loss {kg:.4f} ({smi_line})",
@@ -2431,14 +2467,14 @@ def phase_processes(tmp, ds, sizes, dev, timer, smi_line, ring_losses):
             raise AssertionError(f"group of one: replayed {what} loss {a} "
                                  f"vs phase 8's {b}")
     backend = multihost.backend_for(dev)
-    print(f"[10/11] a process group of one rank ({backend}) holding "
+    print(f"[10/12] a process group of one rank ({backend}) holding "
           f"{P_PARTS} slots, ring/fused, the "
           f"gradient all-reduce inside the captured steps: {line}; replayed "
           f"losses against phase 8's {ring_losses[0]:.6f}, "
           f"{ring_losses[1]:.6f} ({smi_line})", flush=True)
     n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     if n_cards < 2:
-        print(f"[10/11] the cross-process paths (NCCL between processes, K7 "
+        print(f"[10/12] the cross-process paths (NCCL between processes, K7 "
               f"and K8 storing into another process's buffer, one process "
               f"per card) need two or more cards, and {n_cards} is visible: "
               f"NCCL takes one rank per card", flush=True)
@@ -2519,7 +2555,7 @@ def across_processes(tmp, ds, sizes, dev, world, smi_line) -> dict:
     results = []
     for out in outs:
         for ln in out.splitlines():
-            if ln.startswith("[10/11]"):
+            if ln.startswith("[10/12]"):
                 print(ln, flush=True)
             if ln.startswith("PROCESS_RESULT "):
                 results.append(json.loads(ln[len("PROCESS_RESULT "):]))
@@ -2554,7 +2590,7 @@ def across_processes(tmp, ds, sizes, dev, world, smi_line) -> dict:
                 worst = max(worst, err / scale if scale else 0.0)
         lines.append(f"{name}: gradients within {worst:.2e} of their "
                      f"largest entry")
-    print(f"[10/11] {world} processes, one per card "
+    print(f"[10/12] {world} processes, one per card "
           f"({multihost.backend_for(dev)}), P = {world}, every exchange in "
           f"turn in the same processes: first CF step (batch "
           f"{len(refs['cf_batch/0'])}, dropout 0, loss {refs['cf_loss']:.6f}"
@@ -2565,7 +2601,7 @@ def across_processes(tmp, ds, sizes, dev, world, smi_line) -> dict:
     if dev.type == "cuda":
         slow = {k: max(r[k] for r in results)
                 for k in ("cf_wall_ms", "kg_wall_ms")}
-        print(f"[10/11] replayed ring/fused steps, the slowest process: CF "
+        print(f"[10/12] replayed ring/fused steps, the slowest process: CF "
               f"{slow['cf_wall_ms']:.3f} ms, KG {slow['kg_wall_ms']:.3f} ms "
               f"(each process: CF "
               f"{[round(r['cf_wall_ms'], 3) for r in results]}, KG "
@@ -2615,7 +2651,7 @@ def cli_processes(tmp, sizes, dev, world) -> None:
               for r in range(world)]
     if not all(os.path.exists(p) for p in shards):
         raise AssertionError(f"phase 10 trainer CLI: shards {shards}")
-    print(f"[10/11] trainer CLI on {world} processes (python -m "
+    print(f"[10/12] trainer CLI on {world} processes (python -m "
           f"kgat_tpu_torch.train {' '.join(argv[argv.index('--n-devices'):])}"
           f", NUM_PROCESSES {world}): 1 epoch of "
           f"{'replayed' if epoch['captured'] else 'eager'} steps "
@@ -2728,7 +2764,7 @@ def _ring_across_processes(tr, rank, world, dev) -> None:
             raise AssertionError(f"process {rank}: K8 sums beyond the "
                                  f"float32 bound: {float(err.max()):.3e}")
         multihost.barrier(dev)
-    print(f"[10/11] process {rank} on {dev}: K7 and K8 into process "
+    print(f"[10/12] process {rank} on {dev}: K7 and K8 into process "
           f"{nxt}'s registered buffers (K7 backward into process {prev}'s), "
           f"3 rounds bit-exact, K8's sums on its step-0 bucket "
           f"({bucket.n_edges} edges) within the float32 bound", flush=True)
@@ -2799,7 +2835,7 @@ def _replayed_steps(tr, rank, world, dev) -> dict:
             for k in ("cf_busy_ms", "kg_busy_ms")}
     k78 = ("not measured" if res["k7_ms"] is None else
            f"{res['k7_ms']:.4f} and {res['k8_ms']:.4f} ms a launch")
-    print(f"[10/11] process {rank} on {dev}: 10 replayed ring/fused steps "
+    print(f"[10/12] process {rank} on {dev}: 10 replayed ring/fused steps "
           f"against 10 eager ones, loss sums CF {replayed[0]:.5f} "
           f"({eager[0]:.5f}), KG {replayed[1]:.5f} ({eager[1]:.5f}); "
           f"replayed CF step wall {res['cf_wall_ms']:.3f} ms (50 from a "
@@ -2886,7 +2922,7 @@ def phase_modules(tmp, ds, g_host, g, meta, users, check, gen, dev, timer,
     for name, a, b in zip(("segment_softmax_csr", "spmm_csr",
                            "spmm_csr_rev"), *outs):
         check_identical(f"{name} on the cached graph", a, b)
-    print(f"[11/11] graph cache (--graph-cache): built and saved cold in "
+    print(f"[11/12] graph cache (--graph-cache): built and saved cold in "
           f"{cold_s:.2f} s, loaded warm in {warm_s:.2f} s, "
           f"{os.path.getsize(path)} bytes ({os.path.basename(path)}); every "
           f"array, both row splits and the meta equal to a fresh build; "
@@ -2960,7 +2996,7 @@ def phase_modules(tmp, ds, g_host, g, meta, users, check, gen, dev, timer,
     csr = torch.sparse_csr_tensor(g.row_offsets, g.src, w,
                                   (g.n_nodes, g.n_nodes))
     gs_lib = timer.device_ms(lambda: torch.sparse.mm(csr, x), 5)
-    print(f"[11/11] DGL op surface (hopper backend): gspmm u_mul_e sum, "
+    print(f"[11/12] DGL op surface (hopper backend): gspmm u_mul_e sum, "
           f"u_mul_e mean and copy_u sum through K1 at d = 64, and the sum's "
           f"gradients (d_x by K1 on the reverse CSR), against float64 "
           f"plain: " + ", ".join(f"{e:.2e} ({s:.3f} of its bound)"
@@ -3039,7 +3075,7 @@ def phase_modules(tmp, ds, g_host, g, meta, users, check, gen, dev, timer,
             if not math.isclose(pth["strength"], prod, rel_tol=1e-9):
                 raise AssertionError(f"explain CLI: strength "
                                      f"{pth['strength']} != {prod}")
-    print(f"[11/11] explain CLI (python -m kgat_tpu_torch.explain --hops 2, "
+    print(f"[11/12] explain CLI (python -m kgat_tpu_torch.explain --hops 2, "
           f"on the card) for user {user} of phase 7's best checkpoint: "
           + "; ".join(f"{what}: item {r['item']}, {len(r['paths'])} paths "
                       f"in {wall:.1f} s" for what, (r, wall) in runs.items())
@@ -3049,6 +3085,167 @@ def phase_modules(tmp, ds, g_host, g, meta, users, check, gen, dev, timer,
           f"{g_host.n_edges} edges ({g_host.n_nodes} nodes, fanout 16) "
           f"built in {index_s:.2f} s on the host ({smi_line})", flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the native host loaders and a bf16 trainer epoch.
+# ---------------------------------------------------------------------------
+
+def host_cpu() -> str:
+    """The host's CPU model: /proc/cpuinfo's model name, else lscpu's,
+    else the machine's architecture."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                if ln.startswith("model name"):
+                    return ln.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=10).stdout
+        for ln in out.splitlines():
+            if ln.startswith("Model name:"):
+                return ln.split(":", 1)[1].strip()
+    except (OSError, subprocess.TimeoutExpired):
+        pass
+    return f"CPU model not reported ({platform.machine()})"
+
+
+def load_and_build(ddir, ds, parsers, plain_index: bool) -> tuple:
+    """Parse ``ddir``'s export with ``parsers`` (user-items, triples),
+    deduplicate the triples and build the CKG from them, with numpy's
+    sorts when ``plain_index``. Returns (train, test, triples, graph,
+    meta, {stage: seconds})."""
+    parse_ui, parse_kg = parsers
+    t0 = time.perf_counter()
+    train_ = parse_ui(os.path.join(ddir, "train.txt"))
+    test = parse_ui(os.path.join(ddir, "test.txt"))
+    kg = parse_kg(os.path.join(ddir, "kg_final.txt"))
+    t1 = time.perf_counter()
+    kg = np.unique(kg, axis=0)
+    t2 = time.perf_counter()
+    index = (mock.patch.multiple(native, sort_perm=native.sort_perm_plain,
+                                 csr_offsets=native.csr_offsets_plain)
+             if plain_index else contextlib.nullcontext())
+    with index:
+        g, meta = build_ckg(train_, kg, n_users=ds.n_users,
+                            n_entities=ds.n_entities, n_items=ds.n_items,
+                            n_relations_kg=ds.n_relations_kg)
+    t3 = time.perf_counter()
+    return train_, test, kg, g, meta, {"parse": t1 - t0, "unique": t2 - t1,
+                                       "build": t3 - t2}
+
+
+def plateau_argv(sizes, log_dir, run, dev, bf16: bool) -> list:
+    """tools/campaigns.md's mid-plateau command line for one epoch (its
+    --ops-backend pallas, kgat_tpu's name, selects the Hopper kernels)."""
+    argv = ["--dataset", "synthetic"]
+    for k, v in sizes.plateau.items():
+        argv += [f"--syn-{k}", str(v)]
+    argv += ["--ops-backend", "pallas", "--lr", "1e-3", "--epochs", "1",
+             "--eval-every", "1", "--run-name", run, "--log-dir", log_dir,
+             "--device", str(dev)]
+    return argv + (["--compute-dtype", "bf16"] if bf16 else [])
+
+
+def phase_native(tmp, ds, g_host, meta, sizes, dev, timer, smi_line
+                 ) -> None:
+    """Phase 12: phase 3's export through the native parsers and the plain
+    ones, the CKG through the counting sort and numpy's argsort (all
+    equal), with seconds; then one replayed bf16 CLI epoch of the
+    mid-plateau recipe against a float32 epoch from the same seed."""
+    ddir = os.path.join(tmp, "yelp2018")
+    # The whole loader (parse, np.unique of the triples, the per-user
+    # dicts), as the CLIs call it, with the native and the plain parsers.
+    t0 = time.perf_counter()
+    tdata.load_dataset(tmp, "yelp2018")
+    load_s = time.perf_counter() - t0
+    with mock.patch.multiple(
+            native, parse_user_items=tdata._parse_user_items_plain,
+            parse_triples=tdata._parse_triples_plain):
+        t0 = time.perf_counter()
+        tdata.load_dataset(tmp, "yelp2018")
+        load_plain_s = time.perf_counter() - t0
+    got = load_and_build(ddir, ds, (native.parse_user_items,
+                                    native.parse_triples), False)
+    plain = load_and_build(ddir, ds, (tdata._parse_user_items_plain,
+                                      tdata._parse_triples_plain), True)
+    for name, a, b in zip(("train pairs", "test pairs", "triples"), got,
+                          plain):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"native parser: {name} differ from the "
+                                 f"plain parser's")
+    if not (same_graph(got[3], plain[3]) and same_graph(got[3], g_host)
+            and got[4] == plain[4] == meta):
+        raise AssertionError("native index: the graph built with the "
+                             "counting sort differs from numpy's argsort's "
+                             "or from phase 3's")
+    mb = sum(os.path.getsize(os.path.join(ddir, f)) for f in (
+        "train.txt", "test.txt", "kg_final.txt")) / 1e6
+    secs = lambda t: ", ".join(f"{k} {v:.3f} s" for k, v in t.items())  # noqa: E731
+    print(f"[12/12] host loaders on {mb:.1f} MB of text ({len(got[0])} "
+          f"train and {len(got[1])} test pairs, {len(got[2])} distinct "
+          f"triples; {got[3].n_edges} CKG edges): native (C++ parse, "
+          f"counting sort) {secs(got[5])}; plain (Python and np.loadtxt, "
+          f"np.argsort) {secs(plain[5])}; parses and graphs equal; "
+          f"load_dataset {load_s:.3f} s native, {load_plain_s:.3f} s with "
+          f"the plain parsers ({smi_line}; host {host_cpu()}, "
+          f"{os.cpu_count()} cores)", flush=True)
+    del got, plain
+
+    # One replayed CLI epoch of the mid-plateau recipe, bf16 and float32.
+    log_dir = os.path.join(tmp, "plateau")
+    out = {}
+    for name, bf16 in (("bf16", True), ("f32", False)):
+        build.launch_counts.clear()
+        tr = train.Trainer(train.parse_args(plateau_argv(
+            sizes, log_dir, f"plateau-{name}", dev, bf16)))
+        if tr.cfg.model.ops_backend != "hopper" or (
+                (tr.cfg.model.compute_dtype == torch.bfloat16) != bf16):
+            raise AssertionError(f"mid-plateau {name}: {tr.cfg.model}")
+        tr.train()
+        timer.sync()
+        launches, _ = replayed_launches(
+            dict(build.launch_counts), (tr.cf_steps, tr.kg_steps),
+            single_device_nodes(tr.graph))
+        with open(os.path.join(log_dir, f"plateau-{name}.jsonl")) as f:
+            events = [json.loads(ln) for ln in f]
+        check_events(events)
+        epoch = next(e for e in events if e["event"] == "epoch")
+        ev = next(e for e in events if e["event"] == "eval")
+        if not all(math.isfinite(epoch[k]) for k in ("cf_loss", "kg_loss")):
+            raise AssertionError(f"mid-plateau {name} epoch: {epoch}")
+        expect_launches(dev, launches, {
+            "spmm_csr": 3 * tr.n_cf_batches,
+            "spmm_csr_rev": (3 * tr.n_cf_batches,),
+            "sddmm_transr": (2,), "segment_softmax_csr": (2,)},
+            f"mid-plateau {name} epoch")
+        reps = 20
+        cf_ms = timer.host_ms(lambda: tr.cf_steps.run(reps), 3) / reps
+        kg_ms = timer.host_ms(lambda: tr.kg_steps.run(reps), 3) / reps
+        out[name] = (epoch, ev, launches, cf_ms, kg_ms, tr.n_cf_batches,
+                     tr.n_kg_batches, tr.graph.n_edges)
+        del tr
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    gaps = {k: abs(out["bf16"][0][k] - out["f32"][0][k])
+            / abs(out["f32"][0][k]) for k in ("cf_loss", "kg_loss")}
+    for name in ("bf16", "f32"):
+        epoch, ev, launches, cf_ms, kg_ms, n_cf, n_kg, n_e = out[name]
+        how = "replayed" if dev.type == "cuda" else "eager"
+        print(f"[12/12] mid-plateau CLI epoch, {name} ({n_e} CKG edges, "
+              f"{n_cf} CF and {n_kg} KG steps, {how}): {epoch['secs']:.3f}"
+              f" s, cf_loss {epoch['cf_loss']:.6f}, kg_loss "
+              f"{epoch['kg_loss']:.6f}, recall@20 {ev['recall']:.4f}; "
+              f"{how} CF step {cf_ms:.4f} ms, KG step {kg_ms:.4f} ms "
+              f"({smi_line}); launches {launches}", flush=True)
+    print(f"[12/12] bf16 against float32 from the same seed: relative gap "
+          f"cf_loss {gaps['cf_loss']:.2e}, kg_loss {gaps['kg_loss']:.2e} "
+          f"(tolerance {BF16_RTOL})", flush=True)
+    if max(gaps.values()) > BF16_RTOL:
+        raise AssertionError(f"bf16 epoch: relative loss gaps {gaps} beyond "
+                             f"{BF16_RTOL}")
 
 
 if __name__ == "__main__":

@@ -8,8 +8,10 @@ Port of ``kgat_tpu/data.py``. File formats (original KGAT release):
 
 :func:`synthetic_dataset` makes the same numpy RNG calls in the same order
 as ``kgat_tpu.data.synthetic_dataset``, so the two return bit-equal arrays
-for the same arguments. The parsers are the plain-Python ones (the JAX
-package's native parser gives the same arrays).
+for the same arguments. The text files are parsed by the native host
+layer (``kgat_tpu_torch.native``, C++), as ``kgat_tpu.data`` parses them;
+:func:`_parse_user_items_plain` and :func:`_parse_triples_plain` are the
+plain versions the tests hold it to.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from kgat_tpu_torch import native
 from kgat_tpu_torch.graph import (GRAPH_CACHE_VERSION, REL_TILE, CKGMeta,
                                   Graph, build_ckg, load_graph, save_graph)
 from kgat_tpu_torch.ops.row_split import CHUNK
@@ -106,8 +109,9 @@ def _group_by_user(pairs: np.ndarray) -> Dict[int, np.ndarray]:
     return {int(u): c for u, c in zip(uids, chunks)}
 
 
-def _parse_user_items(path: str) -> np.ndarray:
-    """Parse ``uid iid iid ...`` lines -> (n, 2) int64 pairs."""
+def _parse_user_items_plain(path: str) -> np.ndarray:
+    """Parse ``uid iid iid ...`` lines -> (n, 2) int64 pairs, in Python:
+    the plain version of :func:`native.parse_user_items`."""
     pairs = []
     with open(path) as f:
         for line in f:
@@ -119,13 +123,18 @@ def _parse_user_items(path: str) -> np.ndarray:
     return np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
 
 
+def _parse_triples_plain(path: str) -> np.ndarray:
+    """Parse ``h r t`` lines -> (n, 3) int64 with numpy: the plain version
+    of :func:`native.parse_triples` on a well-formed file."""
+    return np.loadtxt(path, dtype=np.int64).reshape(-1, 3)
+
+
 def load_dataset(root: str, name: str) -> Dataset:
     """Load a dataset in the reference's on-disk format (amazon-book etc.)."""
     ddir = os.path.join(root, name)
-    train = _parse_user_items(os.path.join(ddir, "train.txt"))
-    test = _parse_user_items(os.path.join(ddir, "test.txt"))
-    kg = np.loadtxt(os.path.join(ddir, "kg_final.txt"),
-                    dtype=np.int64).reshape(-1, 3)
+    train = native.parse_user_items(os.path.join(ddir, "train.txt"))
+    test = native.parse_user_items(os.path.join(ddir, "test.txt"))
+    kg = native.parse_triples(os.path.join(ddir, "kg_final.txt"))
     # Deduplicate triples as the reference loader does.
     kg = np.unique(kg, axis=0)
     n_users = int(max(train[:, 0].max(), test[:, 0].max())) + 1

@@ -48,6 +48,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from kgat_tpu_torch import native
 from kgat_tpu_torch.ops.row_split import RowSplit, build_row_split
 
 # Edges per attention tile. One thread block of the SDDMM kernel handles
@@ -114,9 +115,9 @@ def build_graph(src: np.ndarray, dst: np.ndarray, etype: np.ndarray,
                 rel_tile: int = REL_TILE) -> Graph:
     """Build a :class:`Graph` on the CPU from host-side COO arrays.
 
-    The canonical order is numpy's stable argsort by dst, which is the
-    order ``kgat_tpu.graph.build_graph`` produces (its native counting
-    sort is stable too), so edge ids agree between the two packages.
+    The canonical order is the stable counting sort by dst
+    (``native.sort_perm``, as ``kgat_tpu.graph.build_graph`` sorts), which
+    is numpy's stable argsort, so edge ids agree between the two packages.
     """
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
@@ -134,16 +135,14 @@ def build_graph(src: np.ndarray, dst: np.ndarray, etype: np.ndarray,
     if rel_tile < 1:
         raise ValueError("rel_tile must be positive")
 
-    order = np.argsort(dst, kind="stable")
+    order = native.sort_perm(dst, n_nodes)
     src, dst, etype = src[order], dst[order], etype[order]
-    row_offsets = np.searchsorted(dst, np.arange(n_nodes + 1), side="left")
+    row_offsets = native.csr_offsets(dst, n_nodes)
 
-    rel_perm = np.argsort(etype, kind="stable")
-    rel_offsets = np.searchsorted(etype[rel_perm], np.arange(n_relations + 1),
-                                  side="left")
-    rev_perm = np.argsort(src, kind="stable")
-    rev_row_offsets = np.searchsorted(src[rev_perm], np.arange(n_nodes + 1),
-                                      side="left")
+    rel_perm = native.sort_perm(etype, n_relations)
+    rel_offsets = native.csr_offsets(etype[rel_perm], n_relations)
+    rev_perm = native.sort_perm(src, n_nodes)
+    rev_row_offsets = native.csr_offsets(src[rev_perm], n_nodes)
     as32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))  # noqa: E731
     row_offsets, rev_row_offsets = as32(row_offsets), as32(rev_row_offsets)
     return Graph(

@@ -24,6 +24,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from kgat_tpu_torch import native
 from kgat_tpu_torch.graph import REL_TILE, Graph, build_graph
 from kgat_tpu_torch.ops.row_split import RowSplit, build_row_split
 
@@ -95,7 +96,7 @@ def _shard_edges(dst: np.ndarray, info: PartitionInfo, p: int) -> np.ndarray:
     by local dst, as ``kgat_tpu``'s shard build orders them."""
     R = info.rows_per_part
     sel = np.nonzero((dst >= p * R) & (dst < (p + 1) * R))[0]
-    return sel[np.argsort(dst[sel], kind="stable")]
+    return sel[native.sort_perm(dst[sel] - p * R, R)]
 
 
 def partition_graph(src: np.ndarray, dst: np.ndarray, etype: np.ndarray,
@@ -170,7 +171,6 @@ def build_ring_buckets(src: np.ndarray, dst: np.ndarray,
     src = np.asarray(src, np.int64)
     dst = np.asarray(dst, np.int64)
     P, R = info.n_parts, info.rows_per_part
-    rows = np.arange(R + 1)
     as32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))  # noqa: E731
     out = []
     for p in range(P):
@@ -181,9 +181,9 @@ def build_ring_buckets(src: np.ndarray, dst: np.ndarray,
             q = (p - s) % P
             slots = np.nonzero(s_src // R == q)[0]   # ascending: dst-sorted
             b_src, b_dst = s_src[slots] - q * R, s_dst[slots]
-            rev = np.argsort(b_src, kind="stable")
-            ro = as32(np.searchsorted(b_dst, rows))
-            rev_ro = as32(np.searchsorted(b_src[rev], rows))
+            rev = native.sort_perm(b_src, R)
+            ro = as32(native.csr_offsets(b_dst, R))
+            rev_ro = as32(native.csr_offsets(b_src[rev], R))
             steps.append(Bucket(
                 row_offsets=ro, src=as32(b_src), dst=as32(b_dst),
                 rev_row_offsets=rev_ro, rev_dst=as32(b_dst[rev]),

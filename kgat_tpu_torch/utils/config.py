@@ -131,9 +131,12 @@ def parse_args(argv=None) -> TrainConfig:
                    help="L2 reg on CF embeddings (reference --regs[0])")
     p.add_argument("--reg-kg", type=float, default=None,
                    help="L2 reg on TransR triples (reference --regs[1])")
-    p.add_argument("--ops-backend", default=None, choices=["ref", "hopper"],
+    p.add_argument("--ops-backend", default=None,
+                   choices=["ref", "hopper", "pallas"],
                    help="hopper (default): the CUDA kernels; ref: plain "
-                        "PyTorch")
+                        "PyTorch; pallas, kgat_tpu's name for its kernel "
+                        "backend, is accepted for kgat_tpu's command lines "
+                        "and selects hopper")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions)")
@@ -249,7 +252,8 @@ def parse_args(argv=None) -> TrainConfig:
     if a.reg_kg is not None:
         m["reg_kg"] = a.reg_kg
     if a.ops_backend:
-        m["ops_backend"] = a.ops_backend
+        m["ops_backend"] = ("hopper" if a.ops_backend == "pallas"
+                            else a.ops_backend)
     if a.compute_dtype:
         m["compute_dtype"] = (torch.bfloat16 if a.compute_dtype == "bf16"
                               else None)

@@ -1,7 +1,7 @@
 """chip_smoke.py rehearsed on the CPU.
 
 Its phases run only on the GPU machine, where a Python fault would show
-for the first time. Here ``run()`` drives phases 3-10 at a tiny size with
+for the first time. Here ``run()`` drives phases 3-12 at a tiny size with
 the plain versions and a stub timer, in a subprocess where importing jax
 or the JAX package raises (the GPU machine has no jax). ``main()`` itself
 must refuse to run without CUDA, and the script must fail outside the
@@ -56,7 +56,9 @@ class StubTimer:
 sizes = chip_smoke.Sizes(
     dataset=dict(n_users=150, n_items=100, n_entities=250, n_relations_kg=4,
                  n_interactions=1500, n_triples=1000),
-    hub=300, users=16, steps=3, cf_batch=64, kg_batch=128, chunk=16)
+    hub=300, users=16, steps=3, cf_batch=64, kg_batch=128, chunk=16,
+    plateau=dict(users=60, items=40, entities=90, relations=3,
+                 interactions=800, triples=400))
 torch.manual_seed(0)
 with tempfile.TemporaryDirectory() as tmp:
     rc = chip_smoke.run(tmp, torch.device("cpu"),
@@ -73,8 +75,9 @@ def test_phases_3_to_7_run_on_the_cpu_without_jax():
     """Phases 3-7, phase 8 (the partitioned trainer), phase 9 (resume,
     pretrain, sparse Adam and the host samplers, eager here) and phase 10
     (a gloo group of one process holding four slots; the cross-process
-    paths need two cards) and phase 11 (the graph cache, DGL's op surface
-    and the explain CLI). Each phase prints its wall seconds: a run cut
+    paths need two cards), phase 11 (the graph cache, DGL's op surface
+    and the explain CLI) and phase 12 (the native host loaders against
+    the plain ones, a bf16 CLI epoch against a float32 one). Each phase prints its wall seconds: a run cut
     at the time limit shows which phase ran long."""
     try:
         proc = subprocess.run([sys.executable, "-I", "-c",
@@ -88,8 +91,8 @@ def test_phases_3_to_7_run_on_the_cpu_without_jax():
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     assert lines[-1] == "RC 0 []", lines[-1]
-    for n in range(3, 12):
-        assert any(ln.startswith(f"[{n}/11] took ") for ln in lines), n
+    for n in range(3, 13):
+        assert any(ln.startswith(f"[{n}/12] took ") for ln in lines), n
     assert any("need two or more cards" in ln for ln in lines)
     kernels = json.loads(lines[-2])["kernels"]
     assert [k["name"] for k in kernels] == [
@@ -115,7 +118,10 @@ def test_phases_3_to_7_run_on_the_cpu_without_jax():
         assert ("gspmm_launches" in k) == k["name"].startswith("spmm_csr")
     for what in ("graph cache (--graph-cache)", "DGL op surface",
                  "explain CLI"):
-        assert any(ln.startswith(f"[11/11] {what}") for ln in lines), what
+        assert any(ln.startswith(f"[11/12] {what}") for ln in lines), what
+    for what in ("host loaders on", "mid-plateau CLI epoch, bf16",
+                 "mid-plateau CLI epoch, f32", "bf16 against float32"):
+        assert any(ln.startswith(f"[12/12] {what}") for ln in lines), what
     assert "FAILED" not in proc.stdout
 
 
@@ -159,7 +165,7 @@ def test_phase_10_across_processes_runs_on_the_cpu():
                     f"{(out or '')[-3000:]}")
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
-    assert any(ln.startswith("[10/11] 2 processes, one per card (gloo)")
+    assert any(ln.startswith("[10/12] 2 processes, one per card (gloo)")
                for ln in lines), lines
     assert sum("3 rounds bit-exact" in ln for ln in lines) == 2
     assert any("trainer CLI on 2 processes" in ln for ln in lines)

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing every kgat_tpu_torch module,
 the partitioned trainer's (``parallel``, its multi-process module too),
-the ring kernels' and the explain CLI's (which keeps its own
-``node_kind`` and ``rel_kind``) included, and the multi-process test workers
+the ring kernels', the explain CLI's (which keeps its own ``node_kind``
+and ``rel_kind``) and the native host layer's (which builds nothing at
+import) included, and the multi-process test workers
 (``tests/torch_mp_worker.py``, ``tests/torch_cuda_mp_worker.py``), loads
 neither jax nor the JAX package (whose __init__ imports jax)."""
 
@@ -29,7 +30,10 @@ missing = {{"kgat_tpu_torch.parallel.partition", "kgat_tpu_torch.parallel.dp",
            "kgat_tpu_torch.parallel.halo",
            "kgat_tpu_torch.parallel.multihost",
            "kgat_tpu_torch.ops.hopper.remote_ring",
-           "kgat_tpu_torch.explain"}} - set(names)
+           "kgat_tpu_torch.explain", "kgat_tpu_torch.native"}} - set(names)
+# The native host layer builds and loads its library at first use only.
+from kgat_tpu_torch import native
+assert native.library.cache_info().currsize == 0
 print(len(names), sorted(missing), leaked)
 """
 
@@ -44,5 +48,5 @@ def test_port_imports_without_jax():
                           env=torch_threads.one_thread_env())
     assert proc.returncode == 0, proc.stderr
     n_modules, rest = proc.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 28, proc.stdout
+    assert int(n_modules) >= 29, proc.stdout
     assert rest.strip() == "[] []", proc.stdout

@@ -175,6 +175,32 @@ def test_unported_flags_are_refused(flags, capsys):
     assert "ROADMAP.md" in capsys.readouterr().err
 
 
+# tools/campaigns.md's mid-plateau command line, as kgat_tpu runs it.
+MID_PLATEAU = ["--dataset", "synthetic", "--syn-users", "3000", "--syn-items",
+               "2000", "--syn-entities", "4000", "--syn-relations", "8",
+               "--syn-interactions", "60000", "--syn-triples", "40000",
+               "--ops-backend", "pallas", "--compute-dtype", "bf16", "--lr",
+               "1e-3", "--epochs", "300", "--eval-every", "5", "--run-name",
+               "mid-plateau"]
+
+
+def test_pallas_backend_name_selects_hopper(tmp_path):
+    """kgat_tpu's name for its kernel backend, ``--ops-backend pallas``,
+    is accepted so that its command lines run unchanged, and selects the
+    Hopper kernels; a CLI epoch with it logs the hopper backend."""
+    cfg = parse_args(MID_PLATEAU)
+    assert cfg.model.ops_backend == "hopper"
+    assert cfg.model.compute_dtype == torch.bfloat16
+    assert (cfg.lr, cfg.epochs, cfg.eval_every, cfg.syn_interactions) == (
+        1e-3, 300, 5, 60000)
+    train.main(["--device", "cpu", "--ops-backend", "pallas", "--dataset",
+                "synthetic", "--epochs", "1", "--log-dir", str(tmp_path),
+                *MODEL_FLAGS, *SYN_FLAGS])
+    start = next(e for e in _events(tmp_path / "kgat.jsonl")
+                 if e["event"] == "start")
+    assert start["backend"] == "hopper"
+
+
 PARTITIONED_MODES = ["--n-devices 4 --halo-exchange a2a",
                      "--n-devices 4 --dp-replicas 2",
                      "--n-devices 4 --dp-replicas 2 --halo-exchange a2a"]
