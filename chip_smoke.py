@@ -6,7 +6,7 @@ an H100, sm_90a):
 
     python3 chip_smoke.py
 
-Phases, each announced by a line ``[n/12] ...``:
+Phases, each announced by a line ``[n/13] ...``:
   1. device   — requires CUDA; prints nvidia-smi's name and power limit.
   2. build    — compiles the kernels from kgat_tpu_torch/ops/hopper/csrc.
   3. forward kernels (K1 SpMM, K2 SDDMM, K3 softmax) against their plain
@@ -116,6 +116,21 @@ Phases, each announced by a line ``[n/12] ...``:
                :data:`BF16_RTOL` of the float32 ones, each trainer's
                replayed CF and KG step times, and the bf16 epoch's K1
                launches from its graphs.
+  13. ``kgat_tpu``'s default training arithmetic at yelp2018 scale
+               (which phases 6-9 and 12 run too: coalesced on one
+               device and under the all-gather, the dense route where
+               auto picks it): the coalesced CSRs built on the host,
+               with their seconds and group count; K1 on them forward
+               and on their reverse CSR against float64 under the row
+               bound, and against K1 on the full CSRs, both timed; the
+               coalesced staging against a float64 group sum, and in
+               bf16 equal bit for bit to the float32 sums rounded; a
+               replayed coalesced CF step, the attention refreshed and
+               replayed again, each held to eager coalesced and
+               uncoalesced steps within :data:`LOSS_RTOL`; the dense
+               route, which auto picks at mid-plateau scale and which
+               is forced at yelp2018 scale, against K2's logits, with
+               its device ms beside K2 + K3's and its peak memory.
 Then a JSON line of per-kernel results (each kernel's launches on its
 path, error, time beside its plain version, the library call that
 computes the same function where there is one, and the bound: the least
@@ -163,10 +178,11 @@ from kgat_tpu_torch import recommend as rec
 from kgat_tpu_torch import optim, train
 from kgat_tpu_torch.data import (load_dataset, save_dataset,
                                  synthetic_dataset)
-from kgat_tpu_torch.graph import build_ckg, build_graph
+from kgat_tpu_torch.graph import (build_ckg, build_coalesced, build_graph,
+                                  coalesce_weights, spmm_csr_of)
 from kgat_tpu_torch.models import bprmf, kgat
 from kgat_tpu_torch.models.kgat import KGATConfig
-from kgat_tpu_torch.ops import get_backend, ref
+from kgat_tpu_torch.ops import get_backend, hopper_backend, ref
 from kgat_tpu_torch.ops.hopper import build
 from kgat_tpu_torch.ops.row_split import CHUNK, build_row_split
 from kgat_tpu_torch.ops.hopper import remote_ring
@@ -474,7 +490,7 @@ class CudaTimer:
 
 class Progress:
     """The phase being run, for the failure line, and each phase's wall
-    seconds, printed as ``[n/12] took ... s`` when it ends: a run cut at a
+    seconds, printed as ``[n/13] took ... s`` when it ends: a run cut at a
     time limit shows which phase ran long."""
 
     def __init__(self):
@@ -484,13 +500,13 @@ class Progress:
     def phase(self, n: int, what: str):
         self.end()
         self.n = n
-        print(f"[{n}/12] {what} ...", flush=True)
+        print(f"[{n}/13] {what} ...", flush=True)
 
     def end(self):
         """Ends the phase being run."""
         now = time.perf_counter()
         if self.n:
-            print(f"[{self.n}/12] took {now - self.t0:.1f} s", flush=True)
+            print(f"[{self.n}/13] took {now - self.t0:.1f} s", flush=True)
         self.t0 = now
 
 
@@ -634,7 +650,7 @@ def check_kernels(g, label, check, gen, dev, timer, times=None):
         if times is not None:
             ms = timer.device_ms(lambda: spmm_csr(*a1, g.split), 20)
             plain_ms = timer.device_ms(lambda: spmm_csr_plain(*a1), 5)
-            print(f"[3/12] spmm_csr per call at d={dd} {dt}: kernel "
+            print(f"[3/13] spmm_csr per call at d={dd} {dt}: kernel "
                   f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
             if dt == torch.float32:
                 # A forward runs K1 at d = 64, 64, 32.
@@ -866,12 +882,14 @@ def expect_launches(dev, launches, want, what):
                                  f"expected {n}: {launches}")
 
 
-def single_device_nodes(graph):
+def single_device_nodes(graph, staged):
     """The CUDA launches of a single-device step's captured wrapper calls
     (``calls``: name -> count): K1 forward and on the reverse CSR, each
-    as many as its CSR's row split needs."""
-    per_call = {"spmm_csr": graph.split.cuda_launches,
-                "spmm_csr_rev": graph.rev_split.cuda_launches}
+    as many as the row split of the CSR the staged weights ``staged``
+    reduce over needs (the graph's, or its coalesced CSRs)."""
+    csr = spmm_csr_of(graph, staged)
+    per_call = {"spmm_csr": csr.split.cuda_launches,
+                "spmm_csr_rev": csr.rev_split.cuda_launches}
     return lambda calls: sum(n * per_call[k] for k, n in calls.items())
 
 
@@ -920,7 +938,7 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     line = smi.stdout.strip().splitlines()[0]
-    print(f"[1/12] device: torch {torch.__version__}, CUDA "
+    print(f"[1/13] device: torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
     print(line, flush=True)
     return line
@@ -933,7 +951,7 @@ def phase_build():
     build.library()
     _, host_s = native.build(force=True)
     native.library()
-    print(f"[2/12] build: nvcc sm_90a {seconds:.1f} s (one nvcc per source, "
+    print(f"[2/13] build: nvcc sm_90a {seconds:.1f} s (one nvcc per source, "
           f"in parallel), {len(regs)} kernels, max {max(regs, default=0)} "
           f"registers, {spills} spill-store bytes; the native host layer "
           f"(g++) {host_s:.1f} s", flush=True)
@@ -988,7 +1006,7 @@ def across_only(tmp, smi_line, progress) -> int:
 
 def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
         sizes: Sizes = YELP_SIZES, timer=None, progress=None) -> int:
-    """Phases 3-12 in ``tmp``, on ``dev``; prints the kernels' JSON line."""
+    """Phases 3-13 in ``tmp``, on ``dev``; prints the kernels' JSON line."""
     timer = timer or CudaTimer()
     progress = progress or Progress()
     check = Check(timer)
@@ -1004,7 +1022,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     g_host, meta = ds.build()
     gen_s = time.perf_counter() - t0
     deg = (g_host.row_offsets[1:] - g_host.row_offsets[:-1])
-    print(f"[3/12] yelp2018-scale graph: {g_host.n_edges} edges, "
+    print(f"[3/13] yelp2018-scale graph: {g_host.n_edges} edges, "
           f"{g_host.n_nodes} nodes, {g_host.n_relations} relations, "
           f"max in-degree {int(deg.max())}, {int((deg == 0).sum())} empty "
           f"rows, {g_host.tiles.shape[0]} tiles (generated, written, read "
@@ -1012,7 +1030,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     hand = handmade_graph(gen, sizes.hub, sizes.chunk).to(dev)
     e2, e3, e1, hand_att = check_kernels(hand, "hand-made", check, gen, dev,
                                          timer)
-    print(f"[3/12] hand-made rows (empty, one edge, hub of {sizes.hub}, "
+    print(f"[3/13] hand-made rows (empty, one edge, hub of {sizes.hub}, "
           f"{boundary_rows(sizes.chunk)} at the chunk boundaries): "
           f"max abs err sddmm {k2_errs(e2)}, softmax {e3:.2e}, spmm "
           f"{', '.join(f'{e:.2e}' for e in e1)} (d64, d32, d64 bf16)",
@@ -1031,19 +1049,19 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                      f"{host:.1f} ms on the host ({card:.1f} ms on the "
                      f"card), {sp.cuda_launches} CUDA launches per K1 call by "
                      f"the split")
-    print(f"[3/12] row split (chunk {CHUNK} edges), once per CSR at "
+    print(f"[3/13] row split (chunk {CHUNK} edges), once per CSR at "
           f"start-up: " + "; ".join(lines), flush=True)
     times = Times()
     e2, e3, e1, att = check_kernels(g, "yelp2018", check, gen, dev, timer,
                                     times)
-    print(f"[3/12] yelp2018 shapes: max abs err sddmm {k2_errs(e2)}, softmax "
+    print(f"[3/13] yelp2018 shapes: max abs err sddmm {k2_errs(e2)}, softmax "
           f"{e3:.2e}, spmm {', '.join(f'{e:.2e}' for e in e1)} "
           f"(d64, d32, d64 bf16)", flush=True)
     for name in ("spmm_csr", "sddmm_transr", "segment_softmax_csr"):
-        print(f"[3/12] time per {'forward' if name == 'spmm_csr' else 'call'}"
+        print(f"[3/13] time per {'forward' if name == 'spmm_csr' else 'call'}"
               f" ({smi_line}): {times.line(name)}", flush=True)
     fma_ms = g.n_edges * 4 * 64 * 64 / F32_FLOPS * 1e3
-    print(f"[3/12] sddmm_transr's bound on the float32 FMA units, for the "
+    print(f"[3/13] sddmm_transr's bound on the float32 FMA units, for the "
           f"same products without tensor cores: {fma_ms:.4f} ms", flush=True)
 
     # --- 4. serving at full width ------------------------------------------
@@ -1076,7 +1094,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                                     "segment_softmax_csr": 1, "spmm_csr": 3},
                     "serving")
     check_lists(lines, users.tolist(), ds.train_user_dict, "serving CLI")
-    print(f"[4/12] serving CLI: {len(lines)} users x top-{TOP_K} valid in "
+    print(f"[4/13] serving CLI: {len(lines)} users x top-{TOP_K} valid in "
           f"{cli_s:.1f} s (load, build, forward, score); launches {launches}",
           flush=True)
 
@@ -1129,14 +1147,14 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     server = rec.Recommender(model, g, meta, cfg,
                              train_user_dict=ds.train_user_dict)
     serve_ms = timer.host_ms(lambda: server.recommend(users, k=TOP_K), 5)
-    print(f"[4/12] kernel path vs plain path on the card: all_embed max abs "
+    print(f"[4/13] kernel path vs plain path on the card: all_embed max abs "
           f"err {err:.2e}; top-{TOP_K} scores within rtol {RTOL}; item sets "
           f"equal for {int(clear.sum())}/{len(users)} users with a "
           f"20th/21st gap > 1e-4, same order for {int(ordered.sum())} with "
           f"every gap > 1e-4; CLI lists in the same order for "
           f"{same_order}/{len(users)} users; a second kernel forward is "
           f"{'bit-identical' if repeat else 'NOT bit-identical'}", flush=True)
-    print(f"[4/12] forward {fwd_ms:.2f} ms (plain path {fwd_plain_ms:.2f} "
+    print(f"[4/13] forward {fwd_ms:.2f} ms (plain path {fwd_plain_ms:.2f} "
           f"ms); serve {len(users)} users top-{TOP_K} from the cached "
           f"forward {serve_ms:.2f} ms ({smi_line})", flush=True)
     del emb_k, emb_p, server
@@ -1147,7 +1165,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                                ("yelp2018", g, att, times)):
         shares, k4_errs = check_backward_kernels(graph, w, label, check,
                                                  gen, dev, timer, t)
-        print(f"[5/12] {label}: max abs err, and the bound where the error "
+        print(f"[5/13] {label}: max abs err, and the bound where the error "
               f"is largest against it: "
               + ", ".join(f"{k} {e:.2e} (bound {b:.2e}, {s:.3f} of it)"
                           for k, (e, b, s) in shares.items())
@@ -1157,9 +1175,9 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                  "segment_softmax_csr_bwd"):
         per = "per CF-step backward (d = 64, 64, 32)" if name == \
             "spmm_csr_rev" else "per call"
-        print(f"[5/12] {per} ({smi_line}): {times.line(name)}", flush=True)
+        print(f"[5/13] {per} ({smi_line}): {times.line(name)}", flush=True)
     row_gb = 4 * g.n_edges * 64 * 4 / 1e9
-    print(f"[5/12] sddmm_transr_bwd: {times.per_call['sddmm_transr_bwd']} "
+    print(f"[5/13] sddmm_transr_bwd: {times.per_call['sddmm_transr_bwd']} "
           f"CUDA launches per call (counted); bound on the float32 FMA units, for the "
           f"same products without tensor cores, "
           f"{12 * 64 * 64 * g.n_edges / F32_FLOPS * 1e3:.4f} ms; its d_eh "
@@ -1191,7 +1209,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                           stat_bound(b, length))
             for name, a, b in zip(("d_entity_embed", "d_w_rel",
                                    "d_rel_embed"), *grads.values())]
-    print(f"[5/12] attention gradient through compute_attention, kernel path "
+    print(f"[5/13] attention gradient through compute_attention, kernel path "
           f"vs float64 plain path: "
           + ", ".join(f"{n} {e:.2e} (bound {b:.2e}, {s:.3f} of it)"
                       for n, (e, b, s) in zip(
@@ -1209,7 +1227,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     trainer = train.Trainer(tcfg, dataset=ds)
     build_s = time.perf_counter() - t0
     train_stats = phase_train_steps(trainer, sizes, check, timer, dev)
-    print(f"[6/12] trainer built in {build_s:.1f} s ({trainer.n_cf_batches} "
+    print(f"[6/13] trainer built in {build_s:.1f} s ({trainer.n_cf_batches} "
           f"CF and {trainer.n_kg_batches} KG batches an epoch); "
           + train_stats, flush=True)
     del trainer
@@ -1235,7 +1253,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     cli_s = time.perf_counter() - t0
     main_launches, graph_nodes = replayed_launches(
         dict(build.launch_counts), (cli.cf_steps, cli.kg_steps),
-        single_device_nodes(cli.graph))
+        single_device_nodes(cli.graph, cli._step_att))
     peak_gb = (torch.cuda.max_memory_allocated() / 1e9
                if dev.type == "cuda" else 0.0)
     # The CLI returns nothing: its trainer, graphs and their memory pools
@@ -1289,7 +1307,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
         raise AssertionError(f"recommend.main returned {rc}")
     check_lists(lines, users.tolist(), ds.train_user_dict,
                 "serving the trained checkpoint")
-    print(f"[7/12] trainer CLI: 1 epoch of replayed steps in "
+    print(f"[7/13] trainer CLI: 1 epoch of replayed steps in "
           f"{epoch['secs']:.1f} s ({cli_s:.1f} s with data load, build, "
           f"eval and checkpoints), cf_loss {epoch['cf_loss']:.4f}, kg_loss "
           f"{epoch['kg_loss']:.4f} (eager steps from the same seed: "
@@ -1327,6 +1345,12 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     # --- 12. the native host loaders and a bf16 trainer epoch --------------
     progress.phase(12, "the native host loaders and a bf16 trainer epoch")
     phase_native(tmp, ds, g_host, meta, sizes, dev, timer, smi_line)
+
+    # --- 13. coalescing, the bf16 staging and the dense route ---------------
+    progress.phase(13, "multi-edge coalescing, its replayed steps and the "
+                       "dense attention route")
+    coalesced_k1 = phase_coalesced(ds, g_host, g, sizes, check, gen, dev,
+                                   timer, smi_line)
     progress.end()
 
     paths = {"sddmm_transr_bwd": ("attention gradient", att_launches),
@@ -1350,6 +1374,8 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                      **across.get(name, {}),
                      **({"gspmm_launches": gspmm_launches.get(name, 0)}
                         if name.startswith("spmm_csr") else {}),
+                     # K1 on the coalesced CSRs (phase 13).
+                     **coalesced_k1.get(name, {}),
                      **({} if r["replay_ms"] is None
                         else {"replay_ms": r["replay_ms"]})})
     print(json.dumps({"kernels": rows}), flush=True)
@@ -1676,8 +1702,9 @@ def partitioned_launches(exchange, transport, n_layers, n_parts,
 def partitioned_nodes(part, n_layers):
     """The CUDA launches of one partitioned CF step's wrapper calls, for
     the kernel nodes of its captured graph: each K1, K6 and K8 call as
-    many as its CSR's row split needs, each K7 call one (a KG step makes
-    no wrapper call)."""
+    many as its CSR's row split needs (the all-gather's: each shard's
+    coalesced CSRs when coalescing), each K7 call one (a KG step makes no
+    wrapper call)."""
     n, P = 0, part.n_parts
     for d in range(part.n_rows):
         for p in range(P):
@@ -1689,6 +1716,7 @@ def partitioned_nodes(part, n_layers):
                               "fused": 1}[part.transport]
             else:
                 g = (part.halos if part.a2a else part.shards)[d][p].graph
+                g = g.co if part.coalesce else g
                 n += g.split.cuda_launches + g.rev_split.cuda_launches
     return lambda calls: n_layers * n if calls else 0
 
@@ -1997,7 +2025,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
     b_edges = [[b.n_edges for b in row] for row in buckets]
     b_launches = [[(b.split.cuda_launches, b.rev_split.cuda_launches)
                    for b in row] for row in buckets]
-    print(f"[8/12] partitioned on the host in {host_s:.1f} s (row splits "
+    print(f"[8/13] partitioned on the host in {host_s:.1f} s (row splits "
           f"of the {len(csrs)} bucket CSRs included, {split_ms:.2f} ms per "
           f"CSR): R = {info.rows_per_part}, n_pad = {info.n_nodes_pad}, "
           f"shard edges {[s.n_edges for s in shards]}, ring bucket edges "
@@ -2008,7 +2036,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
     reads = [[int((h.local_ids[R + q * H:R + (q + 1) * H]
                    < info.n_nodes_global).sum()) for q in range(P)]
              for h in halos]
-    print(f"[8/12] selective halo (a2a): H = {H} rows a peer, T = {T} "
+    print(f"[8/13] selective halo (a2a): H = {H} rows a peer, T = {T} "
           f"table rows a partition (R + {P} H), built in {halo_s:.2f} s "
           f"on the host ({halo_s / P:.3f} s a partition; reverse CSR row "
           f"splits included); rows each partition reads of each peer "
@@ -2020,7 +2048,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
           f"float32", flush=True)
     summary = check_ring_kernels(buckets, info, sizes, check, times, gen,
                                  dev, timer)
-    print(f"[8/12] ring kernels ({smi_line}): {summary}", flush=True)
+    print(f"[8/13] ring kernels ({smi_line}): {summary}", flush=True)
 
     # Attention and all_embed of every mesh against the single-device
     # paths, on one random full-width model.
@@ -2074,7 +2102,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                      f"plain, eval forward {ms:.2f} ms (launches "
                      f"{fwd_launches})")
     del want, att_single
-    print(f"[8/12] partitioned forward against single-device ("
+    print(f"[8/13] partitioned forward against single-device ("
           f"{smi_line}): " + "; ".join(lines), flush=True)
 
     # The first CF step of every mesh (dropout 0): the loss against the
@@ -2121,7 +2149,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
         lines.append(f"{mesh_label(key)}: {errs}; forward + backward "
                      f"{ms:.2f} ms (launches {step_launches})")
     del grads_p, terms
-    print(f"[8/12] first CF step (batch {u.numel()}, dropout 0) against the "
+    print(f"[8/13] first CF step (batch {u.numel()}, dropout 0) against the "
           f"single-device kernel path ({loss_single:.6f}) and the float64 "
           f"plain path ({smi_line}): " + "; ".join(lines), flush=True)
 
@@ -2141,7 +2169,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                            names, [torch.zeros_like(p) if gp is None else gp
                                    for p, gp in zip(params, kg_grads)],
                            grads_p, terms, check, length)
-    print(f"[8/12] KG step (batch {kg_batch[0].numel()}) against the float64 "
+    print(f"[8/13] KG step (batch {kg_batch[0].numel()}) against the float64 "
           f"plain path: {kg_errs}", flush=True)
     del grads_p, terms, kg_grads, parts, staged, model, lay, halos
     if dev.type == "cuda":
@@ -2154,7 +2182,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                                             tr)
         if ex == "ring":
             ring_losses = losses[:2]
-        print(f"[8/12] replayed partitioned steps against eager steps from "
+        print(f"[8/13] replayed partitioned steps against eager steps from "
               f"the same generator states ({smi_line}): {line}", flush=True)
 
     # The trainer CLI, one epoch, ring exchange with the fused transport:
@@ -2195,7 +2223,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                      for k in {*step, *evalf}}
     want_launches.update(sddmm_transr=2 * P, segment_softmax_csr=2 * P)
     expect_exact(dev, launches, want_launches, "partitioned trainer CLI")
-    print(f"[8/12] partitioned trainer CLI (python -m kgat_tpu_torch.train "
+    print(f"[8/13] partitioned trainer CLI (python -m kgat_tpu_torch.train "
           f"{' '.join(argv[argv.index('--n-devices'):])}): 1 epoch of "
           f"{'replayed' if epoch['captured'] else 'eager'} steps "
           f"({epoch['why']}) in "
@@ -2322,7 +2350,7 @@ def phase_rest(tmp, ds, argv, check, dev, timer, smi_line) -> None:
     host_s = time.perf_counter() - t0
     if not (math.isfinite(cf) and math.isfinite(kg)):
         raise AssertionError(f"host-sampled losses {cf}, {kg}")
-    print(f"[9/12] {resume_line}; {pretrain_line}; {sparse_line}; "
+    print(f"[9/13] {resume_line}; {pretrain_line}; {sparse_line}; "
           f"--sampler host: trainer with the host samplers built in "
           f"{build_s:.1f} s, 3 CF and 3 KG steps (and a recompute) in "
           f"{host_s:.2f} s, cf_loss {cf:.4f}, kg_loss {kg:.4f} ({smi_line})",
@@ -2467,14 +2495,14 @@ def phase_processes(tmp, ds, sizes, dev, timer, smi_line, ring_losses):
             raise AssertionError(f"group of one: replayed {what} loss {a} "
                                  f"vs phase 8's {b}")
     backend = multihost.backend_for(dev)
-    print(f"[10/12] a process group of one rank ({backend}) holding "
+    print(f"[10/13] a process group of one rank ({backend}) holding "
           f"{P_PARTS} slots, ring/fused, the "
           f"gradient all-reduce inside the captured steps: {line}; replayed "
           f"losses against phase 8's {ring_losses[0]:.6f}, "
           f"{ring_losses[1]:.6f} ({smi_line})", flush=True)
     n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     if n_cards < 2:
-        print(f"[10/12] the cross-process paths (NCCL between processes, K7 "
+        print(f"[10/13] the cross-process paths (NCCL between processes, K7 "
               f"and K8 storing into another process's buffer, one process "
               f"per card) need two or more cards, and {n_cards} is visible: "
               f"NCCL takes one rank per card", flush=True)
@@ -2555,7 +2583,7 @@ def across_processes(tmp, ds, sizes, dev, world, smi_line) -> dict:
     results = []
     for out in outs:
         for ln in out.splitlines():
-            if ln.startswith("[10/12]"):
+            if ln.startswith("[10/13]"):
                 print(ln, flush=True)
             if ln.startswith("PROCESS_RESULT "):
                 results.append(json.loads(ln[len("PROCESS_RESULT "):]))
@@ -2590,7 +2618,7 @@ def across_processes(tmp, ds, sizes, dev, world, smi_line) -> dict:
                 worst = max(worst, err / scale if scale else 0.0)
         lines.append(f"{name}: gradients within {worst:.2e} of their "
                      f"largest entry")
-    print(f"[10/12] {world} processes, one per card "
+    print(f"[10/13] {world} processes, one per card "
           f"({multihost.backend_for(dev)}), P = {world}, every exchange in "
           f"turn in the same processes: first CF step (batch "
           f"{len(refs['cf_batch/0'])}, dropout 0, loss {refs['cf_loss']:.6f}"
@@ -2601,7 +2629,7 @@ def across_processes(tmp, ds, sizes, dev, world, smi_line) -> dict:
     if dev.type == "cuda":
         slow = {k: max(r[k] for r in results)
                 for k in ("cf_wall_ms", "kg_wall_ms")}
-        print(f"[10/12] replayed ring/fused steps, the slowest process: CF "
+        print(f"[10/13] replayed ring/fused steps, the slowest process: CF "
               f"{slow['cf_wall_ms']:.3f} ms, KG {slow['kg_wall_ms']:.3f} ms "
               f"(each process: CF "
               f"{[round(r['cf_wall_ms'], 3) for r in results]}, KG "
@@ -2651,7 +2679,7 @@ def cli_processes(tmp, sizes, dev, world) -> None:
               for r in range(world)]
     if not all(os.path.exists(p) for p in shards):
         raise AssertionError(f"phase 10 trainer CLI: shards {shards}")
-    print(f"[10/12] trainer CLI on {world} processes (python -m "
+    print(f"[10/13] trainer CLI on {world} processes (python -m "
           f"kgat_tpu_torch.train {' '.join(argv[argv.index('--n-devices'):])}"
           f", NUM_PROCESSES {world}): 1 epoch of "
           f"{'replayed' if epoch['captured'] else 'eager'} steps "
@@ -2764,7 +2792,7 @@ def _ring_across_processes(tr, rank, world, dev) -> None:
             raise AssertionError(f"process {rank}: K8 sums beyond the "
                                  f"float32 bound: {float(err.max()):.3e}")
         multihost.barrier(dev)
-    print(f"[10/12] process {rank} on {dev}: K7 and K8 into process "
+    print(f"[10/13] process {rank} on {dev}: K7 and K8 into process "
           f"{nxt}'s registered buffers (K7 backward into process {prev}'s), "
           f"3 rounds bit-exact, K8's sums on its step-0 bucket "
           f"({bucket.n_edges} edges) within the float32 bound", flush=True)
@@ -2835,7 +2863,7 @@ def _replayed_steps(tr, rank, world, dev) -> dict:
             for k in ("cf_busy_ms", "kg_busy_ms")}
     k78 = ("not measured" if res["k7_ms"] is None else
            f"{res['k7_ms']:.4f} and {res['k8_ms']:.4f} ms a launch")
-    print(f"[10/12] process {rank} on {dev}: 10 replayed ring/fused steps "
+    print(f"[10/13] process {rank} on {dev}: 10 replayed ring/fused steps "
           f"against 10 eager ones, loss sums CF {replayed[0]:.5f} "
           f"({eager[0]:.5f}), KG {replayed[1]:.5f} ({eager[1]:.5f}); "
           f"replayed CF step wall {res['cf_wall_ms']:.3f} ms (50 from a "
@@ -2902,7 +2930,9 @@ def phase_modules(tmp, ds, g_host, g, meta, users, check, gen, dev, timer,
     path = ds.graph_cache_path(cache)
     if os.listdir(cache) != [os.path.basename(path)]:
         raise AssertionError(f"graph cache: {os.listdir(cache)}")
-    if not (same_graph(cold[0], g_host) and same_graph(warm, g_host)
+    # The cache carries the coalesced CSRs too (kgat_tpu/data.py:119-123).
+    fresh = dataclasses.replace(g_host, co=build_coalesced(g_host))
+    if not (same_graph(cold[0], fresh) and same_graph(warm, fresh)
             and cold[1] == warm_meta == meta):
         raise AssertionError("graph cache: a cached graph differs from a "
                              "fresh build")
@@ -2922,13 +2952,14 @@ def phase_modules(tmp, ds, g_host, g, meta, users, check, gen, dev, timer,
     for name, a, b in zip(("segment_softmax_csr", "spmm_csr",
                            "spmm_csr_rev"), *outs):
         check_identical(f"{name} on the cached graph", a, b)
-    print(f"[11/12] graph cache (--graph-cache): built and saved cold in "
+    print(f"[11/13] graph cache (--graph-cache): built and saved cold in "
           f"{cold_s:.2f} s, loaded warm in {warm_s:.2f} s, "
           f"{os.path.getsize(path)} bytes ({os.path.basename(path)}); every "
-          f"array, both row splits and the meta equal to a fresh build; "
+          f"array, both row splits, the coalesced CSRs ({fresh.co.n_pairs} "
+          f"groups) and the meta equal to a fresh build; "
           f"K3, K1 and K1 rev on the loaded graph bit-identical to the "
           f"built graph's", flush=True)
-    del w_g, outs
+    del w_g, outs, fresh
 
     # --- DGL's op surface: gspmm's sum and mean through K1.
     hop = get_backend("hopper")
@@ -2996,7 +3027,7 @@ def phase_modules(tmp, ds, g_host, g, meta, users, check, gen, dev, timer,
     csr = torch.sparse_csr_tensor(g.row_offsets, g.src, w,
                                   (g.n_nodes, g.n_nodes))
     gs_lib = timer.device_ms(lambda: torch.sparse.mm(csr, x), 5)
-    print(f"[11/12] DGL op surface (hopper backend): gspmm u_mul_e sum, "
+    print(f"[11/13] DGL op surface (hopper backend): gspmm u_mul_e sum, "
           f"u_mul_e mean and copy_u sum through K1 at d = 64, and the sum's "
           f"gradients (d_x by K1 on the reverse CSR), against float64 "
           f"plain: " + ", ".join(f"{e:.2e} ({s:.3f} of its bound)"
@@ -3075,7 +3106,7 @@ def phase_modules(tmp, ds, g_host, g, meta, users, check, gen, dev, timer,
             if not math.isclose(pth["strength"], prod, rel_tol=1e-9):
                 raise AssertionError(f"explain CLI: strength "
                                      f"{pth['strength']} != {prod}")
-    print(f"[11/12] explain CLI (python -m kgat_tpu_torch.explain --hops 2, "
+    print(f"[11/13] explain CLI (python -m kgat_tpu_torch.explain --hops 2, "
           f"on the card) for user {user} of phase 7's best checkpoint: "
           + "; ".join(f"{what}: item {r['item']}, {len(r['paths'])} paths "
                       f"in {wall:.1f} s" for what, (r, wall) in runs.items())
@@ -3184,7 +3215,7 @@ def phase_native(tmp, ds, g_host, meta, sizes, dev, timer, smi_line
     mb = sum(os.path.getsize(os.path.join(ddir, f)) for f in (
         "train.txt", "test.txt", "kg_final.txt")) / 1e6
     secs = lambda t: ", ".join(f"{k} {v:.3f} s" for k, v in t.items())  # noqa: E731
-    print(f"[12/12] host loaders on {mb:.1f} MB of text ({len(got[0])} "
+    print(f"[12/13] host loaders on {mb:.1f} MB of text ({len(got[0])} "
           f"train and {len(got[1])} test pairs, {len(got[2])} distinct "
           f"triples; {got[3].n_edges} CKG edges): native (C++ parse, "
           f"counting sort) {secs(got[5])}; plain (Python and np.loadtxt, "
@@ -3208,7 +3239,7 @@ def phase_native(tmp, ds, g_host, meta, sizes, dev, timer, smi_line
         timer.sync()
         launches, _ = replayed_launches(
             dict(build.launch_counts), (tr.cf_steps, tr.kg_steps),
-            single_device_nodes(tr.graph))
+            single_device_nodes(tr.graph, tr._step_att))
         with open(os.path.join(log_dir, f"plateau-{name}.jsonl")) as f:
             events = [json.loads(ln) for ln in f]
         check_events(events)
@@ -3216,10 +3247,14 @@ def phase_native(tmp, ds, g_host, meta, sizes, dev, timer, smi_line
         ev = next(e for e in events if e["event"] == "eval")
         if not all(math.isfinite(epoch[k]) for k in ("cf_loss", "kg_loss")):
             raise AssertionError(f"mid-plateau {name} epoch: {epoch}")
+        # At this size the training attention takes the dense route
+        # (kgat_tpu's auto rule): K3 alone, twice an epoch.
+        k2 = 0 if hopper_backend.use_dense_attention(
+            tr.graph, tr.cfg.model) else 2
         expect_launches(dev, launches, {
             "spmm_csr": 3 * tr.n_cf_batches,
             "spmm_csr_rev": (3 * tr.n_cf_batches,),
-            "sddmm_transr": (2,), "segment_softmax_csr": (2,)},
+            "sddmm_transr": (k2,), "segment_softmax_csr": (2,)},
             f"mid-plateau {name} epoch")
         reps = 20
         cf_ms = timer.host_ms(lambda: tr.cf_steps.run(reps), 3) / reps
@@ -3234,18 +3269,237 @@ def phase_native(tmp, ds, g_host, meta, sizes, dev, timer, smi_line
     for name in ("bf16", "f32"):
         epoch, ev, launches, cf_ms, kg_ms, n_cf, n_kg, n_e = out[name]
         how = "replayed" if dev.type == "cuda" else "eager"
-        print(f"[12/12] mid-plateau CLI epoch, {name} ({n_e} CKG edges, "
+        print(f"[12/13] mid-plateau CLI epoch, {name} ({n_e} CKG edges, "
               f"{n_cf} CF and {n_kg} KG steps, {how}): {epoch['secs']:.3f}"
               f" s, cf_loss {epoch['cf_loss']:.6f}, kg_loss "
               f"{epoch['kg_loss']:.6f}, recall@20 {ev['recall']:.4f}; "
               f"{how} CF step {cf_ms:.4f} ms, KG step {kg_ms:.4f} ms "
               f"({smi_line}); launches {launches}", flush=True)
-    print(f"[12/12] bf16 against float32 from the same seed: relative gap "
+    print(f"[12/13] bf16 against float32 from the same seed: relative gap "
           f"cf_loss {gaps['cf_loss']:.2e}, kg_loss {gaps['kg_loss']:.2e} "
           f"(tolerance {BF16_RTOL})", flush=True)
     if max(gaps.values()) > BF16_RTOL:
         raise AssertionError(f"bf16 epoch: relative loss gaps {gaps} beyond "
                              f"{BF16_RTOL}")
+
+
+def phase_coalesced(ds, g_host, g, sizes, check, gen, dev, timer,
+                    smi_line) -> dict:
+    """Phase 13 at yelp2018 scale: the coalesced CSRs built on the host;
+    K1 on them forward and on their reverse CSR against float64 under
+    the row bound, timed beside the full CSR's; the coalesced staging
+    against a float64 group sum (in bf16, bit for bit the float32 sums
+    rounded); a replayed coalesced CF step, the attention refreshed and
+    replayed again, each against eager coalesced and uncoalesced steps;
+    then the dense attention route, chosen by auto at mid-plateau scale
+    and forced at yelp2018 scale, against K2, with its device ms beside
+    K2 + K3 and its peak memory. Returns K1's coalesced numbers for the
+    JSON line."""
+    cap = KGATConfig().coalesce_cap
+    t0 = time.perf_counter()
+    co = build_coalesced(g_host, cap)
+    host_s = time.perf_counter() - t0
+    co = co.to(dev)
+    n_e, n_g, n = g_host.n_edges, co.n_pairs, g_host.n_nodes
+    print(f"[13/13] coalesced CSRs (cap {cap}) built on the host in "
+          f"{host_s:.2f} s: {n_g} groups of {n_e} edges "
+          f"({1 - n_g / n_e:.1%} fewer rows), {co.split.cuda_launches} and "
+          f"{co.rev_split.cuda_launches} CUDA launches per K1 call by the "
+          f"forward and reverse splits", flush=True)
+
+    # The staging of one attention (K2, K3 on a random full-width model)
+    # against a float64 sum of each group's members.
+    emb, w_rel, rel_embed = random_inputs(n, g.n_relations, 64, 64, gen, dev)
+    att = segment_softmax_csr(g.row_offsets, sddmm_transr(
+        g.rel_perm, g.tiles, g.src, g.dst, emb, w_rel, rel_embed), g.split)
+    staged = coalesce_weights(co, att)
+    group = torch.empty(n_e, dtype=torch.long, device=dev)
+    group[co.order.long()] = torch.cumsum((co.within == 0).long(), 0) - 1
+    want64 = torch.zeros(n_g, dtype=torch.float64, device=dev).index_add_(
+        0, group, att.double())
+    members = torch.bincount(group, minlength=n_g).double()
+    stage_err = check.bounded("coalesced staging", "group sums",
+                              staged.fwd, want64,
+                              sum_bound(want64, want64, members))[0]
+    check_identical("coalesced staging, reverse order", staged.rev,
+                    staged.fwd[co.rev_perm.long()])
+    b16 = coalesce_weights(co, att, torch.bfloat16)
+    check_identical("bf16 staging", b16.fwd,
+                    staged.fwd.to(torch.bfloat16).float())
+    check_identical("bf16 staging, reverse order", b16.rev,
+                    staged.rev.to(torch.bfloat16).float())
+    stage_ms = timer.device_ms(lambda: coalesce_weights(co, att), 10)
+    del want64, members, group
+
+    # K1 on the coalesced CSRs, forward and reverse, under the row bound,
+    # and against K1 on the full CSRs (the same function).
+    errs, out = [], {}
+    for name, args, full_args in (
+            ("spmm_csr", (co.row_offsets, co.src, staged.fwd, co.split),
+             (g.row_offsets, g.src, att, g.split)),
+            ("spmm_csr_rev", (co.rev_row_offsets, co.rev_dst, staged.rev,
+                              co.rev_split),
+             (g.rev_row_offsets, g.rev_dst,
+              att[g.rev_perm.long()].contiguous(), g.rev_split))):
+        ro, idx, w, split = args
+        lens = csr_lengths(ro)
+        x = torch.randn(n, 64, generator=gen).to(dev)
+        got = spmm_csr(ro, idx, w, x, split)
+        want = spmm_csr_plain(ro, idx, w.double(), x.double())
+        terms = spmm_csr_plain(ro, idx, w.double().abs(), x.double().abs())
+        e, _, share = check.bounded(name, "coalesced d=64", got, want,
+                                    sum_bound(want, terms, lens[:, None]))
+        check("coalesced K1 against the full CSR's", name, got,
+              spmm_csr(full_args[0], full_args[1], full_args[2], x,
+                       full_args[3]))
+        errs.append(f"{name} {e:.2e} ({share:.3f} of its bound)")
+        del want, terms
+        # A forward (or a CF step's backward) runs K1 at d = 64, 64, 32.
+        ms = full_ms = plain_ms = 0.0
+        for dd in (64, 64, 32):
+            xd = x[:, :dd].contiguous()
+            ms += timer.device_ms(lambda: spmm_csr(ro, idx, w, xd, split),
+                                  20)
+            full_ms += timer.device_ms(lambda: spmm_csr(
+                full_args[0], full_args[1], full_args[2], xd, full_args[3]),
+                20)
+            plain_ms += timer.device_ms(
+                lambda: spmm_csr_plain(ro, idx, w, xd), 3)
+        bound_ms = sum(spmm_bytes(n, n_g, n, dd) for dd in (64, 64, 32)) \
+            / HBM_BYTES_PER_S * 1e3
+        out[name] = {"coalesced_ms": ms, "coalesced_plain_ms": plain_ms,
+                     "coalesced_bound_ms": bound_ms,
+                     "coalesced_groups": n_g}
+        print(f"[13/13] {name} on the coalesced CSRs, per "
+              f"{'forward' if name == 'spmm_csr' else 'CF-step backward'} "
+              f"(d = 64, 64, 32; {smi_line}): {ms:.4f} ms, on the full "
+              f"CSR {full_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms by bytes", flush=True)
+    print(f"[13/13] K1 on the coalesced CSRs against float64: "
+          f"{', '.join(errs)}; staging (cap - 1 shifted adds, two gathers) "
+          f"{stage_ms:.4f} ms, its group sums {stage_err:.2e} from "
+          f"float64; in bf16 the float32 sums rounded, bit for bit",
+          flush=True)
+    del att, staged, b16, emb, w_rel, rel_embed
+
+    # A replayed coalesced CF step, the attention refreshed, replayed
+    # again; each against eager steps on the same batch and masks,
+    # coalesced and not.
+    t0 = time.perf_counter()
+    tr = train.Trainer(TrainConfig(
+        dataset="yelp2018", device=str(dev), log_dir=None, seed=0,
+        cf_batch_size=sizes.cf_batch, kg_batch_size=sizes.kg_batch),
+        dataset=ds)
+    mcfg = tr.cfg.model
+    if not (mcfg.coalesce and mcfg.ops_backend == "hopper"):
+        raise AssertionError(f"the trainer's defaults: {mcfg}")
+    tr.stage(tr.attention())
+    build.launch_counts.clear()
+    if dev.type == "cuda":
+        tr.cf_steps.capture()
+    full = dataclasses.replace(mcfg, coalesce=False)
+    losses, prev = [], None
+    for _ in range(2):
+        att = tr.attention()
+        if not att.coalesced or att.fwd.shape != (tr.graph.co.n_pairs,):
+            raise AssertionError("the trainer staged no coalesced weights")
+        if prev is not None and torch.equal(prev, att.fwd):
+            raise AssertionError("the refreshed attention did not change")
+        prev = att.fwd.clone()
+        tr.stage(att)
+        before = snapshot(tr)
+        loss_r = replayed_step(tr.cf_steps)
+        *batch, masks = tr.cf_drawn
+        batch = [t.clone() for t in batch]
+        masks = [None if m is None else m.clone() for m in masks]
+        restore(tr, before)
+        loss_e = float(tr.cf_grad(att, *batch, masks=masks))
+        loss_u = float(tr.cf_grad(kgat.attention_for_training(
+            tr.model, tr.graph, full), *batch, masks=masks))
+        for what, want in (("eager coalesced", loss_e),
+                           ("eager uncoalesced", loss_u)):
+            if abs(loss_r - want) > LOSS_RTOL * abs(want):
+                raise AssertionError(f"replayed coalesced CF step "
+                                     f"{loss_r} vs {what} {want}")
+        losses.append((loss_r, loss_e, loss_u))
+        tr.opt.step()   # new parameters, so the next attention differs
+    launches, nodes = replayed_launches(
+        dict(build.launch_counts), (tr.cf_steps,),
+        single_device_nodes(tr.graph, tr._step_att))
+    step_s = time.perf_counter() - t0
+    del tr, att, prev, before
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"[13/13] replayed coalesced CF steps, the attention refreshed "
+          f"between them (replayed, eager coalesced, eager uncoalesced): "
+          + "; ".join(f"{a:.6f}, {b:.6f}, {c:.6f}" for a, b, c in losses)
+          + f" (within {LOSS_RTOL}); launches {launches}, CUDA kernel "
+          f"nodes {nodes} ({step_s:.1f} s with the trainer's build)",
+          flush=True)
+
+    # The dense route: auto picks it at mid-plateau scale; forced at
+    # yelp2018 scale. Against K2's logits on the same weights.
+    p = sizes.plateau
+    gm, _ = synthetic_dataset(
+        seed=0, n_users=p["users"], n_items=p["items"],
+        n_entities=p["entities"], n_relations_kg=p["relations"],
+        n_interactions=p["interactions"], n_triples=p["triples"]).build()
+    gm = gm.to(dev)
+    auto = KGATConfig(ops_backend="hopper")
+    forced = dataclasses.replace(auto, att_impl="dense")
+    if not hopper_backend.use_dense_attention(gm, auto):
+        raise AssertionError("auto: the dense route expected at mid-plateau "
+                             "scale")
+    if sizes == YELP_SIZES and hopper_backend.use_dense_attention(g, auto):
+        raise AssertionError("auto: the relation-tile route expected at "
+                             "yelp2018 scale")
+    model = kgat.init_params(gm.n_nodes, gm.n_relations, auto, generator=gen,
+                             device=dev)
+    build.launch_counts.clear()
+    kgat.attention_for_training(model, gm, auto)
+    expect_launches(dev, dict(build.launch_counts), {
+        "sddmm_transr": (0,), "segment_softmax_csr": (1,)},
+        "mid-plateau training attention (auto: dense)")
+    del model
+    lines = []
+    for label, graph, cfg in (("mid-plateau, auto", gm, auto),
+                              ("yelp2018, forced", g, forced)):
+        if not hopper_backend.use_dense_attention(graph, cfg):
+            raise AssertionError(f"{label}: the dense route not taken")
+        emb, w_rel, rel_embed = random_inputs(graph.n_nodes,
+                                              graph.n_relations, 64, 64, gen,
+                                              dev)
+        a2 = (graph.rel_perm, graph.tiles, graph.src, graph.dst, emb, w_rel,
+              rel_embed)
+
+        def dense():
+            return hopper_backend.attention_logits_dense(graph, emb, w_rel,
+                                                         rel_embed)
+        base = 0
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        logits = dense()
+        peak_gb = ((torch.cuda.max_memory_allocated() - base) / 1e9
+                   if dev.type == "cuda" else 0.0)
+        err = check("dense attention", label, logits, sddmm_transr(*a2))
+        dense_ms = timer.device_ms(dense, 3)
+        dense_k3_ms = timer.device_ms(lambda: segment_softmax_csr(
+            graph.row_offsets, dense(), graph.split), 3)
+        k2_k3_ms = timer.device_ms(lambda: segment_softmax_csr(
+            graph.row_offsets, sddmm_transr(*a2), graph.split), 3)
+        tables_gb = 2 * graph.n_relations * graph.n_nodes * 64 * 4 / 1e9
+        lines.append(f"{label} ({graph.n_edges} edges, {graph.n_relations} "
+                     f"relations, tables {tables_gb:.3f} GB): logits max abs "
+                     f"err {err:.2e} against K2's; dense {dense_ms:.3f} ms, "
+                     f"dense + K3 {dense_k3_ms:.3f} ms, K2 + K3 "
+                     f"{k2_k3_ms:.3f} ms; peak memory above the inputs "
+                     f"{peak_gb:.2f} GB")
+        del emb, w_rel, rel_embed, logits
+    print(f"[13/13] dense attention route ({smi_line}): "
+          + "; ".join(lines), flush=True)
+    return out
 
 
 if __name__ == "__main__":

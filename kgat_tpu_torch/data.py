@@ -26,7 +26,8 @@ import numpy as np
 
 from kgat_tpu_torch import native
 from kgat_tpu_torch.graph import (GRAPH_CACHE_VERSION, REL_TILE, CKGMeta,
-                                  Graph, build_ckg, load_graph, save_graph)
+                                  Graph, build_ckg, coalesced, load_graph,
+                                  save_graph)
 from kgat_tpu_torch.ops.row_split import CHUNK
 
 
@@ -57,11 +58,14 @@ class Dataset:
               cache_dir: Optional[str] = None) -> Tuple[Graph, CKGMeta]:
         """Construct the collaborative knowledge graph from train CF + KG.
 
-        cache_dir: if set, the built graph, its row splits and its meta
-        round-trip through :meth:`graph_cache_path` (``graph.save_graph``),
-        so a later run on the same inputs loads them instead of building
-        (``kgat_tpu/data.py:68-128``). A file of another cache version, or
-        one that cannot be read, is rebuilt and written anew.
+        cache_dir: if set, the built graph, its row splits, its coalesced
+        CSRs (built here at the default cap, as ``kgat_tpu/data.py:119-123``
+        builds them for its cache) and its meta round-trip through
+        :meth:`graph_cache_path` (``graph.save_graph``), so a later run on
+        the same inputs loads them instead of building
+        (``kgat_tpu/data.py:68-128``). A file of another cache version
+        (one without the coalesced CSRs, too), or one that cannot be read,
+        is rebuilt and written anew.
         """
         path = None
         if cache_dir is not None:
@@ -80,6 +84,7 @@ class Dataset:
             n_items=self.n_items, n_relations_kg=self.n_relations_kg,
             rel_tile=rel_tile)
         if path is not None:
+            coalesced(g)
             os.makedirs(cache_dir, exist_ok=True)
             save_graph(path, g, meta)
         return g, meta

@@ -30,10 +30,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from kgat_tpu_torch.graph import CKGMeta, EdgeWeights, Graph
+from kgat_tpu_torch.graph import CKGMeta, EdgeWeights, Graph, stage_weights
 from kgat_tpu_torch.ops import BACKENDS, get_backend
 
 AGGREGATORS = ("gcn", "graphsage", "bi-interaction")
+ATT_IMPLS = ("auto", "dense", "relblock")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,13 +52,29 @@ class KGATConfig:
     ops_backend: str = "ref"            # ref | hopper
     # SpMM value-stream dtype on the hopper backend (None = float32;
     # torch.bfloat16 halves the gathered bytes, accumulation stays f32).
+    # The staged attention weights are rounded to it too, as kgat_tpu's.
     compute_dtype: Optional[torch.dtype] = None
+    # The training attention's logits route on the hopper backend: 'auto'
+    # (the dense projected tables when they fit kgat_tpu's size bound,
+    # else the relation-tile kernel K2), 'dense' or 'relblock'
+    # (hopper_backend.use_dense_attention).
+    att_impl: str = "auto"
+    # The dense route's table dtype (None = float32; torch.bfloat16).
+    att_table_dtype: Optional[torch.dtype] = None
+    # Coalesce multi-edges for the training SpMM (hopper backend, one
+    # device and the all-gather's shards): the members of one (dst, src)
+    # pair reduce once with their weights summed (graph.Coalesced).
+    coalesce: bool = True
+    # Most members of a coalesced group (a longer run splits).
+    coalesce_cap: int = 8
 
     def __post_init__(self):
         if self.aggregator not in AGGREGATORS:
             raise ValueError(f"unknown aggregator {self.aggregator!r}")
         if self.ops_backend not in BACKENDS:
             raise ValueError(f"unknown ops backend {self.ops_backend!r}")
+        if self.att_impl not in ATT_IMPLS:
+            raise ValueError(f"unknown att_impl {self.att_impl!r}")
 
     @property
     def out_dim(self) -> int:
@@ -219,11 +236,28 @@ def l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 def attention_for_training(model: KGAT, graph: Graph,
                            cfg: KGATConfig) -> EdgeWeights:
-    """Per-epoch attention recompute, no grad, staged for the hot loop:
-    canonical weights and their reverse-CSR order, which the SpMM's
-    backward reads (``kgat_tpu``'s ``attention_for_training``)."""
+    """Per-epoch attention recompute, no grad, staged for the hot loop
+    (``kgat_tpu``'s ``attention_for_training``, ``models/kgat.py:
+    185-199``). On the hopper backend, as ``kgat_tpu``'s pallas backend
+    (``pallas_backend.attention_prepared``): the logits by the
+    dense-projection route where ``cfg.att_impl`` resolves to it, else by
+    K2; K3's softmax; the weights summed over the coalesced groups when
+    ``cfg.coalesce``, and rounded to ``cfg.compute_dtype``. The ref
+    backend stages the canonical float32 weights."""
     with torch.no_grad():
-        return EdgeWeights.stage(graph, compute_attention(model, graph, cfg))
+        if cfg.ops_backend != "hopper":
+            return EdgeWeights.stage(graph,
+                                     compute_attention(model, graph, cfg))
+        ops = get_backend(cfg.ops_backend)
+        if ops.use_dense_attention(graph, cfg):
+            logits = ops.attention_logits_dense(
+                graph, model.entity_embed, model.w_rel, model.rel_embed,
+                cfg.att_table_dtype)
+        else:
+            logits = attention_logits(model, graph, cfg)
+        return stage_weights(graph, ops.segment_softmax(graph, logits),
+                             dtype=cfg.compute_dtype, coalesce=cfg.coalesce,
+                             cap=cfg.coalesce_cap)
 
 
 def aggregate(ego: torch.Tensor, side: torch.Tensor, layer,

@@ -26,7 +26,7 @@ from typing import Optional, Union
 
 import torch
 
-from kgat_tpu_torch.graph import EdgeWeights, Graph
+from kgat_tpu_torch.graph import EdgeWeights, Graph, spmm_csr_of
 from kgat_tpu_torch.ops import ref, row_split
 from kgat_tpu_torch.ops.hopper import build
 
@@ -170,7 +170,9 @@ def edge_dot(src: torch.Tensor, dst: torch.Tensor, x: torch.Tensor,
 
 class _Spmm(torch.autograd.Function):
     """K1 forward on the dst-sorted CSR; backward: d_x by K1 on the
-    reverse CSR, d_w by :func:`edge_dot` only when it is asked for."""
+    reverse CSR, d_w by :func:`edge_dot` only when it is asked for.
+    ``graph`` is a :class:`Graph` or its ``Coalesced`` CSRs, which carry
+    the same fields over groups."""
 
     @staticmethod
     def forward(ctx, w, x, w_rev, graph):
@@ -251,7 +253,12 @@ def spmm(graph: Graph, edge_w: Union[torch.Tensor, EdgeWeights],
     """out[v] = sum over edges (u -> v) of w[e] * x[u], differentiable in
     ``x`` and in canonical weights. ``edge_w`` is the canonical (E,)
     weights or :class:`EdgeWeights` staged once per attention recompute,
-    which saves the backward its gather of ``w[rev_perm]``."""
+    which saves the backward its gather of ``w[rev_perm]``. Coalesced
+    weights (``graph.coalesce_weights``) are reduced over the graph's
+    coalesced CSRs: K1 forward on the groups, K1 on their reverse CSR
+    for d_x, and d_w per group, which reaches the canonical weights
+    through the staging's autograd."""
     if isinstance(edge_w, EdgeWeights):
-        return _Spmm.apply(edge_w.fwd, x, edge_w.rev, graph)
+        return _Spmm.apply(edge_w.fwd, x, edge_w.rev,
+                           spmm_csr_of(graph, edge_w))
     return _Spmm.apply(edge_w, x, None, graph)

@@ -18,7 +18,7 @@ from typing import Iterable, List, Sequence, Tuple, Union
 
 import torch
 
-from kgat_tpu_torch.graph import EdgeWeights, Graph
+from kgat_tpu_torch.graph import EdgeWeights, Graph, spmm_csr_of
 
 
 def offsets_to_dst(row_offsets: torch.Tensor) -> torch.Tensor:
@@ -348,9 +348,12 @@ def spmm(graph: Graph, edge_w: Union[torch.Tensor, EdgeWeights],
          x: torch.Tensor) -> torch.Tensor:
     """out[v] = sum over edges (u -> v) of edge_w[e] * x[u]; autograd
     differentiates the gather and ``index_add_``. ``edge_w`` may be staged
-    :class:`EdgeWeights` (this path reads only their canonical order)."""
+    :class:`EdgeWeights` (this path reads only their forward order, over
+    the graph's coalesced groups when they are coalesced)."""
     if isinstance(edge_w, EdgeWeights):
-        edge_w = edge_w.fwd
+        csr = spmm_csr_of(graph, edge_w)
+        return spmm_coo(csr.src, csr.dst, edge_w.fwd, x,
+                        csr.row_offsets.numel() - 1)
     return spmm_coo(graph.src, graph.dst, edge_w, x, graph.n_nodes)
 
 

@@ -69,12 +69,14 @@ its loss and gradients are its share, which the trainer all-reduces.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from kgat_tpu_torch.graph import CKGMeta, EdgeWeights
+from kgat_tpu_torch.graph import (CKGMeta, EdgeWeights, build_coalesced,
+                                  round_weights, stage_weights)
 from kgat_tpu_torch.models import kgat
 from kgat_tpu_torch.models.kgat import KGAT, KGATConfig
 from kgat_tpu_torch.ops import get_backend
@@ -97,7 +99,7 @@ def _place(staged, devices):
         if w is None:
             return None
         if isinstance(w, EdgeWeights):
-            return EdgeWeights(fwd=w.fwd.to(dev), rev=w.rev.to(dev))
+            return w.with_tensors(w.fwd.to(dev), w.rev.to(dev))
         return [to(x, dev) for x in w]
     return [to(w, dev) for w, dev in zip(staged, devices)]
 
@@ -141,6 +143,17 @@ class Partitioned:
         self.ring, self.a2a = exchange == "ring", exchange == "a2a"
         self.transport = ring_transport
         self.ops = get_backend(cfg.ops_backend)
+        # The all-gather's shards reduce over their coalesced CSRs on the
+        # hopper backend, as kgat_tpu/train.py:315-319 builds coalesced
+        # shards for the all-gather alone; ring buckets and a2a halos keep
+        # every edge. Built on the host for this process's partitions.
+        self.coalesce = (exchange == "allgather" and cfg.coalesce
+                         and cfg.ops_backend == "hopper")
+        if self.coalesce:
+            mine = {p for d in mesh.local_rows() for p in mesh.local_parts(d)}
+            shards = [dataclasses.replace(s, graph=dataclasses.replace(
+                s.graph, co=build_coalesced(s.graph, cfg.coalesce_cap)))
+                if p in mine else s for p, s in enumerate(shards)]
         # [row][partition]: this process's slots only (None elsewhere); a
         # device's tensors are shared by the rows on it.
         place = lambda objs: [multihost.place_local(objs, row)  # noqa: E731
@@ -211,11 +224,15 @@ class Partitioned:
         partition of this process's first row, the per-dst softmax of the
         TransR logits in the shard's canonical edge order, and the weights
         staged for the SpMM of every row, ``staged[d][p]``: :class:`
-        EdgeWeights` of the shard (all-gather) or of its halo's CSR (a2a),
-        or per ring step of its bucket (ring); None for another process's
-        partitions and rows."""
+        EdgeWeights` of the shard (all-gather; over its coalesced groups
+        when coalescing) or of its halo's CSR (a2a), or per ring step of
+        its bucket (ring); None for another process's partitions and rows.
+        The staged weights are rounded to ``compute_dtype``, as
+        ``kgat_tpu`` stages every exchange's (``halo.py:296-297,
+        :312-314``)."""
         first, *others = self.mesh.local_rows()
         atts, staged = [None] * self.n_parts, [None] * self.n_parts
+        cfg = self.cfg
         with torch.no_grad():
             for p in self._local(first):
                 shard = self.shards[first][p]
@@ -226,14 +243,17 @@ class Partitioned:
                 att = self.ops.segment_softmax(shard.graph, logits)
                 atts[p] = att
                 if self.ring:
-                    staged[p] = [EdgeWeights(fwd=att[b.gather],
-                                             rev=att[b.rev_gather])
+                    w = round_weights(att, cfg.compute_dtype)
+                    staged[p] = [EdgeWeights(fwd=w[b.gather],
+                                             rev=w[b.rev_gather])
                                  for b in self.buckets[first][p]]
                 elif self.a2a:
-                    staged[p] = EdgeWeights.stage(self.halos[first][p].graph,
-                                                  att)
+                    staged[p] = stage_weights(self.halos[first][p].graph,
+                                              att, dtype=cfg.compute_dtype)
                 else:
-                    staged[p] = EdgeWeights.stage(shard.graph, att)
+                    staged[p] = stage_weights(
+                        shard.graph, att, dtype=cfg.compute_dtype,
+                        coalesce=self.coalesce, cap=cfg.coalesce_cap)
         rows = [None] * self.n_rows
         rows[first] = staged
         for d in others:

@@ -259,7 +259,7 @@ def build_selective_halo(shards: List[Shard],
             rev_perm=torch.from_numpy(rev.astype(np.int32)),
             rev_row_offsets=rev_ro,
             rev_dst=shard.graph.dst[torch.from_numpy(rev)].contiguous(),
-            rev_split=build_row_split(rev_ro))
+            rev_split=build_row_split(rev_ro), co=None)
         out.append(SelectiveHalo(
             graph=g, send_idx=torch.from_numpy(send_idx),
             local_ids=torch.from_numpy(local_ids), halo_rows=H,

@@ -14,6 +14,11 @@ checkpoints.
 The default is ``--device cuda --ops-backend hopper``: the CF step runs
 the SpMM kernel forward and on the reverse CSR backward, the attention
 recompute the SDDMM and softmax kernels, and it fails if there is no GPU.
+At ``kgat_tpu``'s defaults the SpMM reduces over the multi-edge-coalesced
+CSRs (``--no-coalesce`` keeps every edge), the staged attention weights
+are rounded to the value stream's dtype (``--compute-dtype bf16``), and
+the attention's logits take the dense-projection route where
+``--att-impl auto`` picks it (``models.kgat.attention_for_training``).
 
 ``--n-devices N`` (N > 1) trains edge-partitioned, as ``kgat_tpu``'s
 BASELINE config 5 does: N destination-block partitions, partition p on
@@ -77,7 +82,7 @@ import torch.distributed as dist
 
 from kgat_tpu_torch import eval as evaluation
 from kgat_tpu_torch.data import Dataset, load_dataset, synthetic_dataset
-from kgat_tpu_torch.graph import clone_weights, copy_weights_
+from kgat_tpu_torch.graph import clone_weights, coalesced, copy_weights_
 from kgat_tpu_torch.models import kgat
 from kgat_tpu_torch.ops.hopper import build, remote_ring
 from kgat_tpu_torch.optim import (adam_count, make_optimizer, set_adam_count,
@@ -303,6 +308,11 @@ class Trainer:
                                                   cfg.kg_batch_size)
         self.part: Optional[halo.Partitioned] = None
         self.part_generators = []
+        mc = cfg.model
+        if not self.partitioned and mc.coalesce and mc.ops_backend == "hopper":
+            # The coalesced CSRs, built here rather than in the first
+            # epoch's attention (a no-op when the graph cache held them).
+            coalesced(self.graph, mc.coalesce_cap)
         if self.partitioned:
             self._build_partitioned(graph)
         elif cfg.sampler == "host":

@@ -2,8 +2,8 @@
 
 Port of ``kgat_tpu/utils/config.py`` with the same flags. The defaults are
 the reference recipe (SURVEY.md §2.9) on one GPU: ``--device cuda
---ops-backend hopper``. Flags whose module is not ported yet are refused
-with the ROADMAP.md item that will bring them, never accepted and ignored.
+--ops-backend hopper``, with ``kgat_tpu``'s multi-edge coalescing and
+attention route (``--no-coalesce``, ``--att-impl``).
 On CUDA the device-sampled epoch replays CUDA graphs of its steps
 (``train.StepGraph``), the partitioned trainer's too when its partitions
 share one card; no flag turns that off.
@@ -105,14 +105,6 @@ PRESETS = {
                                               ops_backend="hopper")),
 }
 
-# (flag as named to the user, test on the parsed args, why it is refused)
-_UNPORTED = (
-    ("--att-impl dense", lambda a: a.att_impl == "dense",
-     "the dense-projection attention route is not ported (ROADMAP.md "
-     "queue 1, 'Not to port'); the port always runs the relation-tile "
-     "kernel"),
-)
-
 
 def parse_args(argv=None) -> TrainConfig:
     p = argparse.ArgumentParser(
@@ -142,13 +134,14 @@ def parse_args(argv=None) -> TrainConfig:
                         "PyTorch versions)")
     p.add_argument("--att-impl", default=None,
                    choices=["auto", "dense", "relblock"],
-                   help="attention logits route; the port has the "
-                        "relation-tile kernel only (auto = relblock)")
+                   help="training attention logits route (hopper "
+                        "backend): dense per-relation projected tables vs "
+                        "the relation-tile SDDMM kernel; auto picks by "
+                        "table size")
     p.add_argument("--no-coalesce", action="store_true",
-                   help="accepted for kgat_tpu's command lines: the port "
-                        "never coalesces multi-edges (coalesced shards "
-                        "under partitioning are ROADMAP.md queue 1, item "
-                        "13)")
+                   help="disable multi-edge coalescing of the training "
+                        "SpMM (hopper backend, one device and the "
+                        "all-gather's shards)")
     p.add_argument("--compute-dtype", default=None, choices=["f32", "bf16"],
                    help="SpMM value-stream dtype (hopper backend); bf16 "
                         "halves the gathered bytes, accumulation stays f32")
@@ -216,9 +209,6 @@ def parse_args(argv=None) -> TrainConfig:
         p.add_argument(f"--syn-{f}", type=int, default=None,
                        help=f"synthetic dataset: number of {f}")
     a = p.parse_args(argv)
-    for flag, given, why in _UNPORTED:
-        if given(a):
-            p.error(f"{flag}: {why}")
 
     cfg = TrainConfig(**PRESETS[a.preset]) if a.preset else TrainConfig()
     for field in ("dataset", "data_root", "lr", "cf_batch_size",
@@ -254,6 +244,10 @@ def parse_args(argv=None) -> TrainConfig:
     if a.ops_backend:
         m["ops_backend"] = ("hopper" if a.ops_backend == "pallas"
                             else a.ops_backend)
+    if a.att_impl:
+        m["att_impl"] = a.att_impl
+    if a.no_coalesce:
+        m["coalesce"] = False
     if a.compute_dtype:
         m["compute_dtype"] = (torch.bfloat16 if a.compute_dtype == "bf16"
                               else None)

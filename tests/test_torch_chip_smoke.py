@@ -1,7 +1,7 @@
 """chip_smoke.py rehearsed on the CPU.
 
 Its phases run only on the GPU machine, where a Python fault would show
-for the first time. Here ``run()`` drives phases 3-12 at a tiny size with
+for the first time. Here ``run()`` drives phases 3-13 at a tiny size with
 the plain versions and a stub timer, in a subprocess where importing jax
 or the JAX package raises (the GPU machine has no jax). ``main()`` itself
 must refuse to run without CUDA, and the script must fail outside the
@@ -76,9 +76,11 @@ def test_phases_3_to_7_run_on_the_cpu_without_jax():
     pretrain, sparse Adam and the host samplers, eager here) and phase 10
     (a gloo group of one process holding four slots; the cross-process
     paths need two cards), phase 11 (the graph cache, DGL's op surface
-    and the explain CLI) and phase 12 (the native host loaders against
-    the plain ones, a bf16 CLI epoch against a float32 one). Each phase prints its wall seconds: a run cut
-    at the time limit shows which phase ran long."""
+    and the explain CLI), phase 12 (the native host loaders against the
+    plain ones, a bf16 CLI epoch against a float32 one) and phase 13
+    (coalescing, its staging and steps, the dense attention route). Each
+    phase prints its wall seconds: a run cut at the time limit shows
+    which phase ran long."""
     try:
         proc = subprocess.run([sys.executable, "-I", "-c",
                                REHEARSAL.format(repo=REPO)],
@@ -91,8 +93,8 @@ def test_phases_3_to_7_run_on_the_cpu_without_jax():
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     assert lines[-1] == "RC 0 []", lines[-1]
-    for n in range(3, 13):
-        assert any(ln.startswith(f"[{n}/12] took ") for ln in lines), n
+    for n in range(3, 14):
+        assert any(ln.startswith(f"[{n}/13] took ") for ln in lines), n
     assert any("need two or more cards" in ln for ln in lines)
     kernels = json.loads(lines[-2])["kernels"]
     assert [k["name"] for k in kernels] == [
@@ -116,12 +118,18 @@ def test_phases_3_to_7_run_on_the_cpu_without_jax():
         # Phase 11's gspmm calls of K1, counted apart (none on the CPU).
         assert k.get("gspmm_launches", 0) == 0
         assert ("gspmm_launches" in k) == k["name"].startswith("spmm_csr")
+        # Phase 13's K1 on the coalesced CSRs, beside the full CSR's.
+        assert ("coalesced_ms" in k) == k["name"].startswith("spmm_csr")
     for what in ("graph cache (--graph-cache)", "DGL op surface",
                  "explain CLI"):
-        assert any(ln.startswith(f"[11/12] {what}") for ln in lines), what
+        assert any(ln.startswith(f"[11/13] {what}") for ln in lines), what
     for what in ("host loaders on", "mid-plateau CLI epoch, bf16",
                  "mid-plateau CLI epoch, f32", "bf16 against float32"):
-        assert any(ln.startswith(f"[12/12] {what}") for ln in lines), what
+        assert any(ln.startswith(f"[12/13] {what}") for ln in lines), what
+    for what in ("coalesced CSRs (cap 8)", "spmm_csr on the coalesced CSRs",
+                 "spmm_csr_rev on the coalesced CSRs",
+                 "replayed coalesced CF steps", "dense attention route"):
+        assert any(ln.startswith(f"[13/13] {what}") for ln in lines), what
     assert "FAILED" not in proc.stdout
 
 
@@ -165,7 +173,7 @@ def test_phase_10_across_processes_runs_on_the_cpu():
                     f"{(out or '')[-3000:]}")
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
-    assert any(ln.startswith("[10/12] 2 processes, one per card (gloo)")
+    assert any(ln.startswith("[10/13] 2 processes, one per card (gloo)")
                for ln in lines), lines
     assert sum("3 rounds bit-exact" in ln for ln in lines) == 2
     assert any("trainer CLI on 2 processes" in ln for ln in lines)

@@ -1,9 +1,10 @@
 """The port's npz graph cache (``Dataset.build(cache_dir=...)``,
 ``graph.save_graph`` / ``load_graph``) and ``--graph-cache`` in its CLIs.
 
-A warm load gives the graph a fresh build gives, every array and both
-row splits bit-equal; a changed dataset, a damaged file and a file of
-another cache version are rebuilt; one directory holds ``kgat_tpu``'s
+A warm load gives the graph a fresh build gives, every array, both row
+splits and the coalesced CSRs (with theirs) bit-equal; a changed
+dataset, a damaged file and a file of another cache version (version 1,
+which had no coalesced CSRs, too) are rebuilt; one directory holds ``kgat_tpu``'s
 cache file and the port's side by side; the trainer and the serving CLI
 give the same results with the cache cold, warm and absent.
 """
@@ -39,27 +40,35 @@ SYN_FLAGS = ["--syn-users", "60", "--syn-items", "40", "--syn-entities", "90",
 
 def assert_graphs_equal(got: tgraph.Graph, want: tgraph.Graph) -> None:
     """Every field equal: tensors bit-equal with their dtype, both row
-    splits' tensors and statics, the tuples and sizes."""
-    for f in dataclasses.fields(want):
-        a, b = getattr(got, f.name), getattr(want, f.name)
+    splits' and the coalesced CSRs' tensors and statics (theirs too), the
+    tuples and sizes."""
+    def same(a, b, where):
         if isinstance(b, torch.Tensor):
-            assert a.dtype == b.dtype and torch.equal(a, b), f.name
-        elif isinstance(b, RowSplit):
-            for g in dataclasses.fields(b):
-                x, y = getattr(a, g.name), getattr(b, g.name)
-                if isinstance(y, torch.Tensor):
-                    assert x.dtype == y.dtype and torch.equal(x, y), (
-                        f.name, g.name)
-                else:
-                    assert x == y, (f.name, g.name)
+            assert a.dtype == b.dtype and torch.equal(a, b), where
+        elif isinstance(b, (RowSplit, tgraph.Coalesced)):
+            assert type(a) is type(b), where
+            for f in dataclasses.fields(b):
+                same(getattr(a, f.name), getattr(b, f.name),
+                     where + (f.name,))
         else:
-            assert a == b, f.name
+            assert a == b, where
+    for f in dataclasses.fields(want):
+        same(getattr(got, f.name), getattr(want, f.name), (f.name,))
+
+
+def _built(ds, **kw):
+    """A fresh build of ``ds`` with its coalesced CSRs at the default
+    cap: what the cache holds."""
+    g, meta = ds.build(**kw)
+    tgraph.coalesced(g)
+    return g, meta
 
 
 @pytest.fixture(scope="module")
 def tiny():
     ds = tdata.synthetic_dataset(**TINY)
-    g, meta = ds.build()
+    g, meta = _built(ds)
+    assert g.co.n_pairs < g.n_edges   # the graph has multi-edges
     return ds, g, meta
 
 
@@ -70,13 +79,17 @@ def _cache_files(d):
 @pytest.mark.parametrize("chunk", [None, 4])
 def test_save_load_round_trips_every_field(tiny, tmp_path, chunk):
     """Chunk 4 splits rows into several units, so the splits' slots and
-    split rows are not empty."""
+    split rows are not empty (the coalesced CSRs' too)."""
     _, g, meta = tiny
     if chunk is not None:
+        co = dataclasses.replace(
+            g.co, split=build_row_split(g.co.row_offsets, chunk),
+            rev_split=build_row_split(g.co.rev_row_offsets, chunk))
         g = dataclasses.replace(
             g, split=build_row_split(g.row_offsets, chunk),
-            rev_split=build_row_split(g.rev_row_offsets, chunk))
+            rev_split=build_row_split(g.rev_row_offsets, chunk), co=co)
         assert g.split.n_split > 0 and g.rev_split.n_slots > 0
+        assert co.split.n_split > 0 and co.rev_split.n_slots > 0
     path = tgraph.save_graph(str(tmp_path / "g.npz"), g, meta)
     got, got_meta = tgraph.load_graph(path)
     assert_graphs_equal(got, g)
@@ -104,8 +117,11 @@ def test_cold_then_warm_build_gives_one_file_and_equal_graphs(
         assert_graphs_equal(got[0], g)
         assert got[1] == meta
     assert _cache_files(tmp_path) == files
-    # A row split on the loaded graph travels with .to, as a built one's.
-    assert warm[0].to("cpu").split.n_units == g.split.n_units
+    # A row split on the loaded graph travels with .to, as a built one's,
+    # and so do the coalesced CSRs with theirs.
+    moved = warm[0].to("cpu")
+    assert moved.split.n_units == g.split.n_units
+    assert moved.co.rev_split.n_units == g.co.rev_split.n_units
 
 
 @pytest.mark.parametrize("change", ["cf_train", "kg_triples", "rel_tile"])
@@ -120,19 +136,24 @@ def test_changed_dataset_misses_the_cache(tiny, tmp_path, change):
         other = dataclasses.replace(ds, **{change: getattr(ds, change)[1:]})
     got, meta = other.build(cache_dir=str(tmp_path), **kw)
     assert len(_cache_files(tmp_path)) == 2
-    assert_graphs_equal(got, other.build(**kw)[0])
+    assert_graphs_equal(got, _built(other, **kw)[0])
 
 
-@pytest.mark.parametrize("damage", ["truncated", "garbage", "version"])
+@pytest.mark.parametrize("damage", ["truncated", "garbage", "version",
+                                    "version-1"])
 def test_damaged_or_stale_file_is_rebuilt(tiny, tmp_path, damage,
                                           monkeypatch):
+    """A file of version 1 (before the cache carried the coalesced CSRs)
+    is refused by load_graph and rebuilt by the build, never used to
+    train uncoalesced."""
     ds, g, meta = tiny
     path = ds.graph_cache_path(str(tmp_path))
-    if damage == "version":
-        monkeypatch.setattr(tgraph, "GRAPH_CACHE_VERSION", 0)
-        tgraph.save_graph(path, g, meta)
+    if damage.startswith("version"):
+        old = 1 if damage == "version-1" else 0
+        monkeypatch.setattr(tgraph, "GRAPH_CACHE_VERSION", old)
+        tgraph.save_graph(path, dataclasses.replace(g, co=None), meta)
         monkeypatch.undo()
-        with pytest.raises(ValueError, match="graph cache version 0"):
+        with pytest.raises(ValueError, match=f"graph cache version {old}"):
             tgraph.load_graph(path)
     else:
         tgraph.save_graph(path, g, meta)
@@ -143,7 +164,7 @@ def test_damaged_or_stale_file_is_rebuilt(tiny, tmp_path, damage,
                     else b"not an npz" * 10)
     got, got_meta = ds.build(cache_dir=str(tmp_path))
     assert_graphs_equal(got, g)
-    assert got_meta == meta
+    assert got.co is not None and got_meta == meta
     # The file was written anew, and reads.
     assert_graphs_equal(tgraph.load_graph(path)[0], g)
     assert _cache_files(tmp_path) == [os.path.basename(path)]
@@ -164,7 +185,7 @@ def test_one_directory_serves_both_packages(tmp_path):
     assert _cache_files(tmp_path) == files
     assert dataclasses.asdict(jmeta2) == dataclasses.asdict(tmeta2) == \
         dataclasses.asdict(tmeta)
-    assert_graphs_equal(tg2, tds.build()[0])
+    assert_graphs_equal(tg2, _built(tds)[0])
     # One canonical edge order in both packages.
     E = tg2.n_edges
     for key in ("src", "dst", "etype"):

@@ -8,10 +8,13 @@
 #     tools/run_torch_campaigns.sh STAGE...
 #
 # STAGE is one of: mid-plateau (seeds 1234, 1, 2), ab-pretrain, smoke-gcn,
-# yelp2018-files, lastfm-bi-ev, amazon-graphsage-ev, amazon-c6-cold. The
+# yelp2018-files (seeds 1234, 1, 2), lastfm-bi-ev, amazon-graphsage-ev,
+# amazon-c6-cold. The
 # last four read the synthetic exports at the Makefile's published sizes,
 # which the port's synthetic_dataset / save_dataset write into datasets/
-# when they are missing. Each run logs to runs/torch-<name>.jsonl. A run
+# when they are missing. Each run logs to runs/torch-<name>$SUFFIX.jsonl
+# ($SUFFIX default empty; "-co" names the runs at the coalesced, bf16-
+# rounded defaults apart from earlier ones). A run
 # whose log exists without a `done` event continues with --resume (the
 # log appends); a finished run is skipped. Each log, and the pretrain
 # npz, is copied into $OUT (default runs/tmp, gitignored) as it ends,
@@ -23,6 +26,7 @@ set -u
 cd "$(dirname "$0")/.."
 OUT=${OUT:-runs/tmp}
 LIMIT=${LIMIT:-1800}
+SUFFIX=${SUFFIX:-}
 mkdir -p runs "$OUT"
 failed=0
 
@@ -47,7 +51,7 @@ save_dataset(synthetic_dataset(seed=0, n_users=u, n_items=i, n_entities=e,
 # run NAME ARGS...: one trainer run, continued with --resume if its log
 # exists unfinished.
 run() {
-  local name=$1; shift
+  local name=$1$SUFFIX; shift
   local log="runs/$name.jsonl" extra=()
   if [ -f "$log" ] && grep -q '"event": "done"' "$log"; then
     note "$name: done already"; return 0
@@ -90,7 +94,12 @@ for stage in "$@"; do
       export_dataset yelp2018 || failed=$((failed + 1))
       run torch-yelp2018-files --dataset yelp2018 --data-root datasets \
         --ops-backend pallas --compute-dtype bf16 --epochs 2 \
-        --eval-every 2 --graph-cache runs/gcache ;;
+        --eval-every 2 --graph-cache runs/gcache
+      for seed in 1 2; do
+        run "torch-yelp2018-files-s$seed" --dataset yelp2018 \
+          --data-root datasets --ops-backend pallas --compute-dtype bf16 \
+          --epochs 2 --eval-every 2 --graph-cache runs/gcache --seed "$seed"
+      done ;;
     lastfm-bi-ev)
       export_dataset last-fm || failed=$((failed + 1))
       run torch-lastfm-bi-ev --preset lastfm-bi --compute-dtype bf16 \
