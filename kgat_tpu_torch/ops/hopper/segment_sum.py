@@ -33,6 +33,16 @@ from kgat_tpu_torch.ops.hopper import build
 MAX_DIM = 256
 
 
+def spmm_bytes(n_rows: int, n_edges: int, n_in: int, d: int,
+               elt: int = 4) -> int:
+    """The bytes K1 must move for one call, each input read once and the
+    output written once: x (n_in, d) of ``elt``-byte values, (src, w) per
+    edge, the n_rows + 1 offsets and the (n_rows, d) float32 output. The
+    count behind K1's bound in ``chip_smoke.py`` and the SpMM floor of
+    ``kgat_tpu_torch.bench.roofline``."""
+    return n_in * d * elt + n_edges * 8 + (n_rows + 1) * 4 + n_rows * d * 4
+
+
 def spmm_csr_plain(row_offsets: torch.Tensor, src: torch.Tensor,
                    w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`spmm_csr` (gather + ``index_add_``),

@@ -119,26 +119,38 @@ def recommend(model: KGAT, graph: Graph, meta: CKGMeta, cfg: KGATConfig,
     return _blocked_topk(all_embed, meta, users, k, train_user_dict, block)
 
 
+def _score_block(all_embed: torch.Tensor, user_nodes: torch.Tensor,
+                 mask_pairs: torch.Tensor, n_items: int, k: int):
+    """One block of users scored against every item -> per-user top k
+    (``kgat_tpu/recommend.py``'s ``_score_block``): (B, n_items) scores,
+    the (M, 2) ``mask_pairs`` [row in the block, item] set to -inf (the
+    block's train interactions), then (top_items, top_scores), each
+    (B, k)."""
+    with torch.no_grad():
+        scores = all_embed[user_nodes] @ all_embed[:n_items].T
+        scores[mask_pairs[:, 0].long(), mask_pairs[:, 1].long()] = -torch.inf
+        top_scores, top_items = torch.topk(scores, k, dim=1)
+    return top_items, top_scores
+
+
 def _blocked_topk(all_embed: torch.Tensor, meta: CKGMeta, users: np.ndarray,
                   k: int, train_user_dict: Optional[dict], block: int):
     device = all_embed.device
-    item_embed = all_embed[: meta.n_items]
     out_items = np.empty((len(users), k), np.int64)
     out_scores = np.empty((len(users), k), np.float32)
     for start in range(0, len(users), block):
         u_blk = users[start:start + block]
         nodes = torch.as_tensor(meta.user_node(u_blk), device=device)
-        with torch.no_grad():
-            scores = all_embed[nodes] @ item_embed.T          # (B, n_items)
-            if train_user_dict:
-                per_user = [np.asarray(train_user_dict.get(int(u), ()),
-                                       np.int64) for u in u_blk]
-                rows = np.repeat(np.arange(len(u_blk)),
-                                 [len(t) for t in per_user])
-                items = np.concatenate(per_user)
-                scores[torch.as_tensor(rows, device=device),
-                       torch.as_tensor(items, device=device)] = -torch.inf
-            top_scores, top_items = torch.topk(scores, k, dim=1)
+        pairs = np.zeros((0, 2), np.int64)
+        if train_user_dict:
+            per_user = [np.asarray(train_user_dict.get(int(u), ()),
+                                   np.int64) for u in u_blk]
+            rows = np.repeat(np.arange(len(u_blk)),
+                             [len(t) for t in per_user])
+            pairs = np.stack([rows, np.concatenate(per_user)], axis=1)
+        top_items, top_scores = _score_block(
+            all_embed, nodes, torch.as_tensor(pairs, device=device),
+            meta.n_items, k)
         out_items[start:start + len(u_blk)] = top_items.cpu().numpy()
         out_scores[start:start + len(u_blk)] = top_scores.cpu().numpy()
     return out_items, out_scores

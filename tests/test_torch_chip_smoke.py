@@ -1,7 +1,7 @@
 """chip_smoke.py rehearsed on the CPU.
 
 Its phases run only on the GPU machine, where a Python fault would show
-for the first time. Here ``run()`` drives phases 3-13 at a tiny size with
+for the first time. Here ``run()`` drives phases 3-14 at a tiny size with
 the plain versions and a stub timer, in a subprocess where importing jax
 or the JAX package raises (the GPU machine has no jax). ``main()`` itself
 must refuse to run without CUDA, and the script must fail outside the
@@ -58,7 +58,9 @@ sizes = chip_smoke.Sizes(
                  n_interactions=1500, n_triples=1000),
     hub=300, users=16, steps=3, cf_batch=64, kg_batch=128, chunk=16,
     plateau=dict(users=60, items=40, entities=90, relations=3,
-                 interactions=800, triples=400))
+                 interactions=800, triples=400),
+    bench_preset="smoke", bench_iters=2,
+    roofline=dict(seq_shape=(256, 512), mm_n=64, iters=2))
 torch.manual_seed(0)
 with tempfile.TemporaryDirectory() as tmp:
     rc = chip_smoke.run(tmp, torch.device("cpu"),
@@ -77,8 +79,13 @@ def test_phases_3_to_7_run_on_the_cpu_without_jax():
     (a gloo group of one process holding four slots; the cross-process
     paths need two cards), phase 11 (the graph cache, DGL's op surface
     and the explain CLI), phase 12 (the native host loaders against the
-    plain ones, a bf16 CLI epoch against a float32 one) and phase 13
-    (coalescing, its staging and steps, the dense attention route). Each
+    plain ones, a bf16 CLI epoch against a float32 one), phase 13
+    (coalescing, its staging and steps, the dense attention route) and
+    phase 14 (the port's bench at the smoke preset, its JSON line with
+    --compare, its hopper payloads against its ref path's, P = 1 and
+    P = 4 ring/fused, the roofline at small probe sizes, a CF step
+    against an eager one, the ring/fused engine at P = 1 and 4 against
+    the single-device kernel path). Each
     phase prints its wall seconds: a run cut at the time limit shows
     which phase ran long."""
     try:
@@ -93,8 +100,8 @@ def test_phases_3_to_7_run_on_the_cpu_without_jax():
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     assert lines[-1] == "RC 0 []", lines[-1]
-    for n in range(3, 14):
-        assert any(ln.startswith(f"[{n}/13] took ") for ln in lines), n
+    for n in range(3, 15):
+        assert any(ln.startswith(f"[{n}/14] took ") for ln in lines), n
     assert any("need two or more cards" in ln for ln in lines)
     kernels = json.loads(lines[-2])["kernels"]
     assert [k["name"] for k in kernels] == [
@@ -120,16 +127,27 @@ def test_phases_3_to_7_run_on_the_cpu_without_jax():
         assert ("gspmm_launches" in k) == k["name"].startswith("spmm_csr")
         # Phase 13's K1 on the coalesced CSRs, beside the full CSR's.
         assert ("coalesced_ms" in k) == k["name"].startswith("spmm_csr")
+        # Phase 14's launches on the bench's path (none on the CPU).
+        assert k["bench_launches"] == 0, k
     for what in ("graph cache (--graph-cache)", "DGL op surface",
                  "explain CLI"):
-        assert any(ln.startswith(f"[11/13] {what}") for ln in lines), what
+        assert any(ln.startswith(f"[11/14] {what}") for ln in lines), what
     for what in ("host loaders on", "mid-plateau CLI epoch, bf16",
                  "mid-plateau CLI epoch, f32", "bf16 against float32"):
-        assert any(ln.startswith(f"[12/13] {what}") for ln in lines), what
+        assert any(ln.startswith(f"[12/14] {what}") for ln in lines), what
     for what in ("coalesced CSRs (cap 8)", "spmm_csr on the coalesced CSRs",
                  "spmm_csr_rev on the coalesced CSRs",
                  "replayed coalesced CF steps", "dense attention route"):
-        assert any(ln.startswith(f"[13/13] {what}") for ln in lines), what
+        assert any(ln.startswith(f"[13/14] {what}") for ln in lines), what
+    for what in ("bench.run (smoke", "the bench's hopper payloads",
+                 "bench_partitioned P = 4 ring/fused",
+                 "kernel launches on the bench's path", "bench.roofline",
+                 "bench CF step run eagerly",
+                 "the bench's ring/fused engine against the single-device"):
+        assert any(ln.startswith(f"[14/14] {what}") for ln in lines), what
+    bench_line = next(json.loads(ln) for ln in lines
+                      if ln.startswith('{"metric": "cf_step_edges_per_s"'))
+    assert bench_line["plain_versions"] and "ref_t_cf_step_ms" in bench_line
     assert "FAILED" not in proc.stdout
 
 
@@ -173,7 +191,7 @@ def test_phase_10_across_processes_runs_on_the_cpu():
                     f"{(out or '')[-3000:]}")
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
-    assert any(ln.startswith("[10/13] 2 processes, one per card (gloo)")
+    assert any(ln.startswith("[10/14] 2 processes, one per card (gloo)")
                for ln in lines), lines
     assert sum("3 rounds bit-exact" in ln for ln in lines) == 2
     assert any("trainer CLI on 2 processes" in ln for ln in lines)

@@ -1,10 +1,12 @@
 """The PyTorch port stands alone: importing every kgat_tpu_torch module,
 the partitioned trainer's (``parallel``, its multi-process module too),
 the ring kernels', the explain CLI's (which keeps its own ``node_kind``
-and ``rel_kind``) and the native host layer's (which builds nothing at
-import) included, and the multi-process test workers
-(``tests/torch_mp_worker.py``, ``tests/torch_cuda_mp_worker.py``), loads
-neither jax nor the JAX package (whose __init__ imports jax)."""
+and ``rel_kind``), the native host layer's (which builds nothing at
+import) and the bench's (``bench``, ``bench_attention``, which keep their
+own copy of ``bench.py``'s presets) included, and the multi-process test
+workers (``tests/torch_mp_worker.py``, ``tests/torch_cuda_mp_worker.py``),
+loads neither jax nor the JAX package (whose __init__ imports jax) nor
+the repository's ``bench.py`` and ``bench_attention.py``."""
 
 import os
 import subprocess
@@ -25,12 +27,15 @@ for name in names:
 sys.path.insert(0, {tests!r})
 import torch_mp_worker, torch_cuda_mp_worker
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "kgat_tpu", "triton"))
+                if m.split(".")[0] in ("jax", "jaxlib", "kgat_tpu", "triton",
+                                       "bench", "bench_attention"))
 missing = {{"kgat_tpu_torch.parallel.partition", "kgat_tpu_torch.parallel.dp",
            "kgat_tpu_torch.parallel.halo",
            "kgat_tpu_torch.parallel.multihost",
            "kgat_tpu_torch.ops.hopper.remote_ring",
-           "kgat_tpu_torch.explain", "kgat_tpu_torch.native"}} - set(names)
+           "kgat_tpu_torch.explain", "kgat_tpu_torch.native",
+           "kgat_tpu_torch.bench",
+           "kgat_tpu_torch.bench_attention"}} - set(names)
 # The native host layer builds and loads its library at first use only.
 from kgat_tpu_torch import native
 assert native.library.cache_info().currsize == 0
@@ -48,5 +53,5 @@ def test_port_imports_without_jax():
                           env=torch_threads.one_thread_env())
     assert proc.returncode == 0, proc.stderr
     n_modules, rest = proc.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 29, proc.stdout
+    assert int(n_modules) >= 31, proc.stdout
     assert rest.strip() == "[] []", proc.stdout
