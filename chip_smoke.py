@@ -6,7 +6,7 @@ an H100, sm_90a):
 
     python3 chip_smoke.py
 
-Phases, each announced by a line ``[n/14] ...``:
+Phases, each announced by a line ``[n/15] ...``:
   1. device   — requires CUDA; prints nvidia-smi's name and power limit.
   2. build    — compiles the kernels from kgat_tpu_torch/ops/hopper/csrc.
   3. forward kernels (K1 SpMM, K2 SDDMM, K3 softmax) against their plain
@@ -147,6 +147,17 @@ Phases, each announced by a line ``[n/14] ...``:
                step's from the same state within 1e-6, and the bench's
                ring/fused engine at P = 1 and 4 held to the
                single-device kernel path.
+  15. the entry points (``kgat_tpu_torch.graft_entry``, ``python -m
+               kgat_tpu_torch.graft_entry``): ``entry()``'s flagship
+               forward on its tiny CKG, 16 finite scores; then
+               ``dryrun_multichip`` at 4 and 8 partitions, all on the
+               card: the all-gather's CF and data-parallel KG steps, four
+               replayed steps of each, the ring (plain copies and K7),
+               a2a and the (2, n/2) mesh held to the all-gather, and the
+               kernel backend at d = 16 held to the single-device plain
+               path, each at 1e-4; the seconds and largest errors of
+               each; K1 both ways, K2, K3 and K7 must have launched on
+               this path (the JSON line's ``graft_launches``).
 Then a JSON line of per-kernel results (each kernel's launches on its
 path and on the bench's, error, time beside its plain version, the library call that
 computes the same function where there is one, and the bound: the least
@@ -188,7 +199,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from kgat_tpu_torch import bench, explain, native
+from kgat_tpu_torch import bench, explain, graft_entry, native
 from kgat_tpu_torch import data as tdata
 from kgat_tpu_torch import recommend as rec
 from kgat_tpu_torch import optim, train
@@ -504,7 +515,7 @@ class CudaTimer:
 
 class Progress:
     """The phase being run, for the failure line, and each phase's wall
-    seconds, printed as ``[n/14] took ... s`` when it ends: a run cut at a
+    seconds, printed as ``[n/15] took ... s`` when it ends: a run cut at a
     time limit shows which phase ran long."""
 
     def __init__(self):
@@ -514,13 +525,13 @@ class Progress:
     def phase(self, n: int, what: str):
         self.end()
         self.n = n
-        print(f"[{n}/14] {what} ...", flush=True)
+        print(f"[{n}/15] {what} ...", flush=True)
 
     def end(self):
         """Ends the phase being run."""
         now = time.perf_counter()
         if self.n:
-            print(f"[{self.n}/14] took {now - self.t0:.1f} s", flush=True)
+            print(f"[{self.n}/15] took {now - self.t0:.1f} s", flush=True)
         self.t0 = now
 
 
@@ -664,7 +675,7 @@ def check_kernels(g, label, check, gen, dev, timer, times=None):
         if times is not None:
             ms = timer.device_ms(lambda: spmm_csr(*a1, g.split), 20)
             plain_ms = timer.device_ms(lambda: spmm_csr_plain(*a1), 5)
-            print(f"[3/14] spmm_csr per call at d={dd} {dt}: kernel "
+            print(f"[3/15] spmm_csr per call at d={dd} {dt}: kernel "
                   f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
             if dt == torch.float32:
                 # A forward runs K1 at d = 64, 64, 32.
@@ -952,7 +963,7 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     line = smi.stdout.strip().splitlines()[0]
-    print(f"[1/14] device: torch {torch.__version__}, CUDA "
+    print(f"[1/15] device: torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
     print(line, flush=True)
     return line
@@ -965,7 +976,7 @@ def phase_build():
     build.library()
     _, host_s = native.build(force=True)
     native.library()
-    print(f"[2/14] build: nvcc sm_90a {seconds:.1f} s (one nvcc per source, "
+    print(f"[2/15] build: nvcc sm_90a {seconds:.1f} s (one nvcc per source, "
           f"in parallel), {len(regs)} kernels, max {max(regs, default=0)} "
           f"registers, {spills} spill-store bytes; the native host layer "
           f"(g++) {host_s:.1f} s", flush=True)
@@ -1020,7 +1031,7 @@ def across_only(tmp, smi_line, progress) -> int:
 
 def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
         sizes: Sizes = YELP_SIZES, timer=None, progress=None) -> int:
-    """Phases 3-14 in ``tmp``, on ``dev``; prints the kernels' JSON line."""
+    """Phases 3-15 in ``tmp``, on ``dev``; prints the kernels' JSON line."""
     timer = timer or CudaTimer()
     progress = progress or Progress()
     check = Check(timer)
@@ -1036,7 +1047,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     g_host, meta = ds.build()
     gen_s = time.perf_counter() - t0
     deg = (g_host.row_offsets[1:] - g_host.row_offsets[:-1])
-    print(f"[3/14] yelp2018-scale graph: {g_host.n_edges} edges, "
+    print(f"[3/15] yelp2018-scale graph: {g_host.n_edges} edges, "
           f"{g_host.n_nodes} nodes, {g_host.n_relations} relations, "
           f"max in-degree {int(deg.max())}, {int((deg == 0).sum())} empty "
           f"rows, {g_host.tiles.shape[0]} tiles (generated, written, read "
@@ -1044,7 +1055,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     hand = handmade_graph(gen, sizes.hub, sizes.chunk).to(dev)
     e2, e3, e1, hand_att = check_kernels(hand, "hand-made", check, gen, dev,
                                          timer)
-    print(f"[3/14] hand-made rows (empty, one edge, hub of {sizes.hub}, "
+    print(f"[3/15] hand-made rows (empty, one edge, hub of {sizes.hub}, "
           f"{boundary_rows(sizes.chunk)} at the chunk boundaries): "
           f"max abs err sddmm {k2_errs(e2)}, softmax {e3:.2e}, spmm "
           f"{', '.join(f'{e:.2e}' for e in e1)} (d64, d32, d64 bf16)",
@@ -1063,19 +1074,19 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                      f"{host:.1f} ms on the host ({card:.1f} ms on the "
                      f"card), {sp.cuda_launches} CUDA launches per K1 call by "
                      f"the split")
-    print(f"[3/14] row split (chunk {CHUNK} edges), once per CSR at "
+    print(f"[3/15] row split (chunk {CHUNK} edges), once per CSR at "
           f"start-up: " + "; ".join(lines), flush=True)
     times = Times()
     e2, e3, e1, att = check_kernels(g, "yelp2018", check, gen, dev, timer,
                                     times)
-    print(f"[3/14] yelp2018 shapes: max abs err sddmm {k2_errs(e2)}, softmax "
+    print(f"[3/15] yelp2018 shapes: max abs err sddmm {k2_errs(e2)}, softmax "
           f"{e3:.2e}, spmm {', '.join(f'{e:.2e}' for e in e1)} "
           f"(d64, d32, d64 bf16)", flush=True)
     for name in ("spmm_csr", "sddmm_transr", "segment_softmax_csr"):
-        print(f"[3/14] time per {'forward' if name == 'spmm_csr' else 'call'}"
+        print(f"[3/15] time per {'forward' if name == 'spmm_csr' else 'call'}"
               f" ({smi_line}): {times.line(name)}", flush=True)
     fma_ms = g.n_edges * 4 * 64 * 64 / F32_FLOPS * 1e3
-    print(f"[3/14] sddmm_transr's bound on the float32 FMA units, for the "
+    print(f"[3/15] sddmm_transr's bound on the float32 FMA units, for the "
           f"same products without tensor cores: {fma_ms:.4f} ms", flush=True)
 
     # --- 4. serving at full width ------------------------------------------
@@ -1108,7 +1119,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                                     "segment_softmax_csr": 1, "spmm_csr": 3},
                     "serving")
     check_lists(lines, users.tolist(), ds.train_user_dict, "serving CLI")
-    print(f"[4/14] serving CLI: {len(lines)} users x top-{TOP_K} valid in "
+    print(f"[4/15] serving CLI: {len(lines)} users x top-{TOP_K} valid in "
           f"{cli_s:.1f} s (load, build, forward, score); launches {launches}",
           flush=True)
 
@@ -1161,14 +1172,14 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     server = rec.Recommender(model, g, meta, cfg,
                              train_user_dict=ds.train_user_dict)
     serve_ms = timer.host_ms(lambda: server.recommend(users, k=TOP_K), 5)
-    print(f"[4/14] kernel path vs plain path on the card: all_embed max abs "
+    print(f"[4/15] kernel path vs plain path on the card: all_embed max abs "
           f"err {err:.2e}; top-{TOP_K} scores within rtol {RTOL}; item sets "
           f"equal for {int(clear.sum())}/{len(users)} users with a "
           f"20th/21st gap > 1e-4, same order for {int(ordered.sum())} with "
           f"every gap > 1e-4; CLI lists in the same order for "
           f"{same_order}/{len(users)} users; a second kernel forward is "
           f"{'bit-identical' if repeat else 'NOT bit-identical'}", flush=True)
-    print(f"[4/14] forward {fwd_ms:.2f} ms (plain path {fwd_plain_ms:.2f} "
+    print(f"[4/15] forward {fwd_ms:.2f} ms (plain path {fwd_plain_ms:.2f} "
           f"ms); serve {len(users)} users top-{TOP_K} from the cached "
           f"forward {serve_ms:.2f} ms ({smi_line})", flush=True)
     del emb_k, emb_p, server
@@ -1179,7 +1190,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                                ("yelp2018", g, att, times)):
         shares, k4_errs = check_backward_kernels(graph, w, label, check,
                                                  gen, dev, timer, t)
-        print(f"[5/14] {label}: max abs err, and the bound where the error "
+        print(f"[5/15] {label}: max abs err, and the bound where the error "
               f"is largest against it: "
               + ", ".join(f"{k} {e:.2e} (bound {b:.2e}, {s:.3f} of it)"
                           for k, (e, b, s) in shares.items())
@@ -1189,9 +1200,9 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                  "segment_softmax_csr_bwd"):
         per = "per CF-step backward (d = 64, 64, 32)" if name == \
             "spmm_csr_rev" else "per call"
-        print(f"[5/14] {per} ({smi_line}): {times.line(name)}", flush=True)
+        print(f"[5/15] {per} ({smi_line}): {times.line(name)}", flush=True)
     row_gb = 4 * g.n_edges * 64 * 4 / 1e9
-    print(f"[5/14] sddmm_transr_bwd: {times.per_call['sddmm_transr_bwd']} "
+    print(f"[5/15] sddmm_transr_bwd: {times.per_call['sddmm_transr_bwd']} "
           f"CUDA launches per call (counted); bound on the float32 FMA units, for the "
           f"same products without tensor cores, "
           f"{12 * 64 * 64 * g.n_edges / F32_FLOPS * 1e3:.4f} ms; its d_eh "
@@ -1223,7 +1234,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                           stat_bound(b, length))
             for name, a, b in zip(("d_entity_embed", "d_w_rel",
                                    "d_rel_embed"), *grads.values())]
-    print(f"[5/14] attention gradient through compute_attention, kernel path "
+    print(f"[5/15] attention gradient through compute_attention, kernel path "
           f"vs float64 plain path: "
           + ", ".join(f"{n} {e:.2e} (bound {b:.2e}, {s:.3f} of it)"
                       for n, (e, b, s) in zip(
@@ -1241,7 +1252,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     trainer = train.Trainer(tcfg, dataset=ds)
     build_s = time.perf_counter() - t0
     train_stats = phase_train_steps(trainer, sizes, check, timer, dev)
-    print(f"[6/14] trainer built in {build_s:.1f} s ({trainer.n_cf_batches} "
+    print(f"[6/15] trainer built in {build_s:.1f} s ({trainer.n_cf_batches} "
           f"CF and {trainer.n_kg_batches} KG batches an epoch); "
           + train_stats, flush=True)
     del trainer
@@ -1321,7 +1332,7 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
         raise AssertionError(f"recommend.main returned {rc}")
     check_lists(lines, users.tolist(), ds.train_user_dict,
                 "serving the trained checkpoint")
-    print(f"[7/14] trainer CLI: 1 epoch of replayed steps in "
+    print(f"[7/15] trainer CLI: 1 epoch of replayed steps in "
           f"{epoch['secs']:.1f} s ({cli_s:.1f} s with data load, build, "
           f"eval and checkpoints), cf_loss {epoch['cf_loss']:.4f}, kg_loss "
           f"{epoch['kg_loss']:.4f} (eager steps from the same seed: "
@@ -1370,6 +1381,11 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
     # --- 14. the port's bench ----------------------------------------------
     progress.phase(14, "the port's bench (python -m kgat_tpu_torch.bench)")
     bench_launches = phase_bench(tmp, sizes, dev, smi_line)
+
+    # --- 15. the entry points ----------------------------------------------
+    progress.phase(15, "the entry points (python -m "
+                       "kgat_tpu_torch.graft_entry)")
+    graft_launches = phase_graft(dev, smi_line)
     progress.end()
 
     paths = {"sddmm_transr_bwd": ("attention gradient", att_launches),
@@ -1397,6 +1413,8 @@ def run(tmp: str, dev: torch.device, gen: torch.Generator, smi_line: str,
                      **coalesced_k1.get(name, {}),
                      # Launches on the bench's path (phase 14).
                      "bench_launches": bench_launches.get(name, 0),
+                     # Launches on the entry points' path (phase 15).
+                     "graft_launches": graft_launches.get(name, 0),
                      **({} if r["replay_ms"] is None
                         else {"replay_ms": r["replay_ms"]})})
     print(json.dumps({"kernels": rows}), flush=True)
@@ -2046,7 +2064,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
     b_edges = [[b.n_edges for b in row] for row in buckets]
     b_launches = [[(b.split.cuda_launches, b.rev_split.cuda_launches)
                    for b in row] for row in buckets]
-    print(f"[8/14] partitioned on the host in {host_s:.1f} s (row splits "
+    print(f"[8/15] partitioned on the host in {host_s:.1f} s (row splits "
           f"of the {len(csrs)} bucket CSRs included, {split_ms:.2f} ms per "
           f"CSR): R = {info.rows_per_part}, n_pad = {info.n_nodes_pad}, "
           f"shard edges {[s.n_edges for s in shards]}, ring bucket edges "
@@ -2057,7 +2075,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
     reads = [[int((h.local_ids[R + q * H:R + (q + 1) * H]
                    < info.n_nodes_global).sum()) for q in range(P)]
              for h in halos]
-    print(f"[8/14] selective halo (a2a): H = {H} rows a peer, T = {T} "
+    print(f"[8/15] selective halo (a2a): H = {H} rows a peer, T = {T} "
           f"table rows a partition (R + {P} H), built in {halo_s:.2f} s "
           f"on the host ({halo_s / P:.3f} s a partition; reverse CSR row "
           f"splits included); rows each partition reads of each peer "
@@ -2069,7 +2087,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
           f"float32", flush=True)
     summary = check_ring_kernels(buckets, info, sizes, check, times, gen,
                                  dev, timer)
-    print(f"[8/14] ring kernels ({smi_line}): {summary}", flush=True)
+    print(f"[8/15] ring kernels ({smi_line}): {summary}", flush=True)
 
     # Attention and all_embed of every mesh against the single-device
     # paths, on one random full-width model.
@@ -2123,7 +2141,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                      f"plain, eval forward {ms:.2f} ms (launches "
                      f"{fwd_launches})")
     del want, att_single
-    print(f"[8/14] partitioned forward against single-device ("
+    print(f"[8/15] partitioned forward against single-device ("
           f"{smi_line}): " + "; ".join(lines), flush=True)
 
     # The first CF step of every mesh (dropout 0): the loss against the
@@ -2170,7 +2188,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
         lines.append(f"{mesh_label(key)}: {errs}; forward + backward "
                      f"{ms:.2f} ms (launches {step_launches})")
     del grads_p, terms
-    print(f"[8/14] first CF step (batch {u.numel()}, dropout 0) against the "
+    print(f"[8/15] first CF step (batch {u.numel()}, dropout 0) against the "
           f"single-device kernel path ({loss_single:.6f}) and the float64 "
           f"plain path ({smi_line}): " + "; ".join(lines), flush=True)
 
@@ -2190,7 +2208,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                            names, [torch.zeros_like(p) if gp is None else gp
                                    for p, gp in zip(params, kg_grads)],
                            grads_p, terms, check, length)
-    print(f"[8/14] KG step (batch {kg_batch[0].numel()}) against the float64 "
+    print(f"[8/15] KG step (batch {kg_batch[0].numel()}) against the float64 "
           f"plain path: {kg_errs}", flush=True)
     del grads_p, terms, kg_grads, parts, staged, model, lay, halos
     if dev.type == "cuda":
@@ -2203,7 +2221,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                                             tr)
         if ex == "ring":
             ring_losses = losses[:2]
-        print(f"[8/14] replayed partitioned steps against eager steps from "
+        print(f"[8/15] replayed partitioned steps against eager steps from "
               f"the same generator states ({smi_line}): {line}", flush=True)
 
     # The trainer CLI, one epoch, ring exchange with the fused transport:
@@ -2244,7 +2262,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
                      for k in {*step, *evalf}}
     want_launches.update(sddmm_transr=2 * P, segment_softmax_csr=2 * P)
     expect_exact(dev, launches, want_launches, "partitioned trainer CLI")
-    print(f"[8/14] partitioned trainer CLI (python -m kgat_tpu_torch.train "
+    print(f"[8/15] partitioned trainer CLI (python -m kgat_tpu_torch.train "
           f"{' '.join(argv[argv.index('--n-devices'):])}): 1 epoch of "
           f"{'replayed' if epoch['captured'] else 'eager'} steps "
           f"({epoch['why']}) in "
@@ -2371,7 +2389,7 @@ def phase_rest(tmp, ds, argv, check, dev, timer, smi_line) -> None:
     host_s = time.perf_counter() - t0
     if not (math.isfinite(cf) and math.isfinite(kg)):
         raise AssertionError(f"host-sampled losses {cf}, {kg}")
-    print(f"[9/14] {resume_line}; {pretrain_line}; {sparse_line}; "
+    print(f"[9/15] {resume_line}; {pretrain_line}; {sparse_line}; "
           f"--sampler host: trainer with the host samplers built in "
           f"{build_s:.1f} s, 3 CF and 3 KG steps (and a recompute) in "
           f"{host_s:.2f} s, cf_loss {cf:.4f}, kg_loss {kg:.4f} ({smi_line})",
@@ -2516,14 +2534,14 @@ def phase_processes(tmp, ds, sizes, dev, timer, smi_line, ring_losses):
             raise AssertionError(f"group of one: replayed {what} loss {a} "
                                  f"vs phase 8's {b}")
     backend = multihost.backend_for(dev)
-    print(f"[10/14] a process group of one rank ({backend}) holding "
+    print(f"[10/15] a process group of one rank ({backend}) holding "
           f"{P_PARTS} slots, ring/fused, the "
           f"gradient all-reduce inside the captured steps: {line}; replayed "
           f"losses against phase 8's {ring_losses[0]:.6f}, "
           f"{ring_losses[1]:.6f} ({smi_line})", flush=True)
     n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     if n_cards < 2:
-        print(f"[10/14] the cross-process paths (NCCL between processes, K7 "
+        print(f"[10/15] the cross-process paths (NCCL between processes, K7 "
               f"and K8 storing into another process's buffer, one process "
               f"per card) need two or more cards, and {n_cards} is visible: "
               f"NCCL takes one rank per card", flush=True)
@@ -2604,7 +2622,7 @@ def across_processes(tmp, ds, sizes, dev, world, smi_line) -> dict:
     results = []
     for out in outs:
         for ln in out.splitlines():
-            if ln.startswith("[10/14]"):
+            if ln.startswith("[10/15]"):
                 print(ln, flush=True)
             if ln.startswith("PROCESS_RESULT "):
                 results.append(json.loads(ln[len("PROCESS_RESULT "):]))
@@ -2639,7 +2657,7 @@ def across_processes(tmp, ds, sizes, dev, world, smi_line) -> dict:
                 worst = max(worst, err / scale if scale else 0.0)
         lines.append(f"{name}: gradients within {worst:.2e} of their "
                      f"largest entry")
-    print(f"[10/14] {world} processes, one per card "
+    print(f"[10/15] {world} processes, one per card "
           f"({multihost.backend_for(dev)}), P = {world}, every exchange in "
           f"turn in the same processes: first CF step (batch "
           f"{len(refs['cf_batch/0'])}, dropout 0, loss {refs['cf_loss']:.6f}"
@@ -2650,7 +2668,7 @@ def across_processes(tmp, ds, sizes, dev, world, smi_line) -> dict:
     if dev.type == "cuda":
         slow = {k: max(r[k] for r in results)
                 for k in ("cf_wall_ms", "kg_wall_ms")}
-        print(f"[10/14] replayed ring/fused steps, the slowest process: CF "
+        print(f"[10/15] replayed ring/fused steps, the slowest process: CF "
               f"{slow['cf_wall_ms']:.3f} ms, KG {slow['kg_wall_ms']:.3f} ms "
               f"(each process: CF "
               f"{[round(r['cf_wall_ms'], 3) for r in results]}, KG "
@@ -2700,7 +2718,7 @@ def cli_processes(tmp, sizes, dev, world) -> None:
               for r in range(world)]
     if not all(os.path.exists(p) for p in shards):
         raise AssertionError(f"phase 10 trainer CLI: shards {shards}")
-    print(f"[10/14] trainer CLI on {world} processes (python -m "
+    print(f"[10/15] trainer CLI on {world} processes (python -m "
           f"kgat_tpu_torch.train {' '.join(argv[argv.index('--n-devices'):])}"
           f", NUM_PROCESSES {world}): 1 epoch of "
           f"{'replayed' if epoch['captured'] else 'eager'} steps "
@@ -2813,7 +2831,7 @@ def _ring_across_processes(tr, rank, world, dev) -> None:
             raise AssertionError(f"process {rank}: K8 sums beyond the "
                                  f"float32 bound: {float(err.max()):.3e}")
         multihost.barrier(dev)
-    print(f"[10/14] process {rank} on {dev}: K7 and K8 into process "
+    print(f"[10/15] process {rank} on {dev}: K7 and K8 into process "
           f"{nxt}'s registered buffers (K7 backward into process {prev}'s), "
           f"3 rounds bit-exact, K8's sums on its step-0 bucket "
           f"({bucket.n_edges} edges) within the float32 bound", flush=True)
@@ -2884,7 +2902,7 @@ def _replayed_steps(tr, rank, world, dev) -> dict:
             for k in ("cf_busy_ms", "kg_busy_ms")}
     k78 = ("not measured" if res["k7_ms"] is None else
            f"{res['k7_ms']:.4f} and {res['k8_ms']:.4f} ms a launch")
-    print(f"[10/14] process {rank} on {dev}: 10 replayed ring/fused steps "
+    print(f"[10/15] process {rank} on {dev}: 10 replayed ring/fused steps "
           f"against 10 eager ones, loss sums CF {replayed[0]:.5f} "
           f"({eager[0]:.5f}), KG {replayed[1]:.5f} ({eager[1]:.5f}); "
           f"replayed CF step wall {res['cf_wall_ms']:.3f} ms (50 from a "
@@ -2973,7 +2991,7 @@ def phase_modules(tmp, ds, g_host, g, meta, users, check, gen, dev, timer,
     for name, a, b in zip(("segment_softmax_csr", "spmm_csr",
                            "spmm_csr_rev"), *outs):
         check_identical(f"{name} on the cached graph", a, b)
-    print(f"[11/14] graph cache (--graph-cache): built and saved cold in "
+    print(f"[11/15] graph cache (--graph-cache): built and saved cold in "
           f"{cold_s:.2f} s, loaded warm in {warm_s:.2f} s, "
           f"{os.path.getsize(path)} bytes ({os.path.basename(path)}); every "
           f"array, both row splits, the coalesced CSRs ({fresh.co.n_pairs} "
@@ -3048,7 +3066,7 @@ def phase_modules(tmp, ds, g_host, g, meta, users, check, gen, dev, timer,
     csr = torch.sparse_csr_tensor(g.row_offsets, g.src, w,
                                   (g.n_nodes, g.n_nodes))
     gs_lib = timer.device_ms(lambda: torch.sparse.mm(csr, x), 5)
-    print(f"[11/14] DGL op surface (hopper backend): gspmm u_mul_e sum, "
+    print(f"[11/15] DGL op surface (hopper backend): gspmm u_mul_e sum, "
           f"u_mul_e mean and copy_u sum through K1 at d = 64, and the sum's "
           f"gradients (d_x by K1 on the reverse CSR), against float64 "
           f"plain: " + ", ".join(f"{e:.2e} ({s:.3f} of its bound)"
@@ -3127,7 +3145,7 @@ def phase_modules(tmp, ds, g_host, g, meta, users, check, gen, dev, timer,
             if not math.isclose(pth["strength"], prod, rel_tol=1e-9):
                 raise AssertionError(f"explain CLI: strength "
                                      f"{pth['strength']} != {prod}")
-    print(f"[11/14] explain CLI (python -m kgat_tpu_torch.explain --hops 2, "
+    print(f"[11/15] explain CLI (python -m kgat_tpu_torch.explain --hops 2, "
           f"on the card) for user {user} of phase 7's best checkpoint: "
           + "; ".join(f"{what}: item {r['item']}, {len(r['paths'])} paths "
                       f"in {wall:.1f} s" for what, (r, wall) in runs.items())
@@ -3236,7 +3254,7 @@ def phase_native(tmp, ds, g_host, meta, sizes, dev, timer, smi_line
     mb = sum(os.path.getsize(os.path.join(ddir, f)) for f in (
         "train.txt", "test.txt", "kg_final.txt")) / 1e6
     secs = lambda t: ", ".join(f"{k} {v:.3f} s" for k, v in t.items())  # noqa: E731
-    print(f"[12/14] host loaders on {mb:.1f} MB of text ({len(got[0])} "
+    print(f"[12/15] host loaders on {mb:.1f} MB of text ({len(got[0])} "
           f"train and {len(got[1])} test pairs, {len(got[2])} distinct "
           f"triples; {got[3].n_edges} CKG edges): native (C++ parse, "
           f"counting sort) {secs(got[5])}; plain (Python and np.loadtxt, "
@@ -3290,13 +3308,13 @@ def phase_native(tmp, ds, g_host, meta, sizes, dev, timer, smi_line
     for name in ("bf16", "f32"):
         epoch, ev, launches, cf_ms, kg_ms, n_cf, n_kg, n_e = out[name]
         how = "replayed" if dev.type == "cuda" else "eager"
-        print(f"[12/14] mid-plateau CLI epoch, {name} ({n_e} CKG edges, "
+        print(f"[12/15] mid-plateau CLI epoch, {name} ({n_e} CKG edges, "
               f"{n_cf} CF and {n_kg} KG steps, {how}): {epoch['secs']:.3f}"
               f" s, cf_loss {epoch['cf_loss']:.6f}, kg_loss "
               f"{epoch['kg_loss']:.6f}, recall@20 {ev['recall']:.4f}; "
               f"{how} CF step {cf_ms:.4f} ms, KG step {kg_ms:.4f} ms "
               f"({smi_line}); launches {launches}", flush=True)
-    print(f"[12/14] bf16 against float32 from the same seed: relative gap "
+    print(f"[12/15] bf16 against float32 from the same seed: relative gap "
           f"cf_loss {gaps['cf_loss']:.2e}, kg_loss {gaps['kg_loss']:.2e} "
           f"(tolerance {BF16_RTOL})", flush=True)
     if max(gaps.values()) > BF16_RTOL:
@@ -3322,7 +3340,7 @@ def phase_coalesced(ds, g_host, g, sizes, check, gen, dev, timer,
     host_s = time.perf_counter() - t0
     co = co.to(dev)
     n_e, n_g, n = g_host.n_edges, co.n_pairs, g_host.n_nodes
-    print(f"[13/14] coalesced CSRs (cap {cap}) built on the host in "
+    print(f"[13/15] coalesced CSRs (cap {cap}) built on the host in "
           f"{host_s:.2f} s: {n_g} groups of {n_e} edges "
           f"({1 - n_g / n_e:.1%} fewer rows), {co.split.cuda_launches} and "
           f"{co.rev_split.cuda_launches} CUDA launches per K1 call by the "
@@ -3391,12 +3409,12 @@ def phase_coalesced(ds, g_host, g, sizes, check, gen, dev, timer,
         out[name] = {"coalesced_ms": ms, "coalesced_plain_ms": plain_ms,
                      "coalesced_bound_ms": bound_ms,
                      "coalesced_groups": n_g}
-        print(f"[13/14] {name} on the coalesced CSRs, per "
+        print(f"[13/15] {name} on the coalesced CSRs, per "
               f"{'forward' if name == 'spmm_csr' else 'CF-step backward'} "
               f"(d = 64, 64, 32; {smi_line}): {ms:.4f} ms, on the full "
               f"CSR {full_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
               f"{bound_ms:.4f} ms by bytes", flush=True)
-    print(f"[13/14] K1 on the coalesced CSRs against float64: "
+    print(f"[13/15] K1 on the coalesced CSRs against float64: "
           f"{', '.join(errs)}; staging (cap - 1 shifted adds, two gathers) "
           f"{stage_ms:.4f} ms, its group sums {stage_err:.2e} from "
           f"float64; in bf16 the float32 sums rounded, bit for bit",
@@ -3451,7 +3469,7 @@ def phase_coalesced(ds, g_host, g, sizes, check, gen, dev, timer,
     del tr, att, prev, before
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    print(f"[13/14] replayed coalesced CF steps, the attention refreshed "
+    print(f"[13/15] replayed coalesced CF steps, the attention refreshed "
           f"between them (replayed, eager coalesced, eager uncoalesced): "
           + "; ".join(f"{a:.6f}, {b:.6f}, {c:.6f}" for a, b, c in losses)
           + f" (within {LOSS_RTOL}); launches {launches}, CUDA kernel "
@@ -3518,7 +3536,7 @@ def phase_coalesced(ds, g_host, g, sizes, check, gen, dev, timer,
                      f"{k2_k3_ms:.3f} ms; peak memory above the inputs "
                      f"{peak_gb:.2f} GB")
         del emb, w_rel, rel_embed, logits
-    print(f"[13/14] dense attention route ({smi_line}): "
+    print(f"[13/15] dense attention route ({smi_line}): "
           + "; ".join(lines), flush=True)
     return out
 
@@ -3694,13 +3712,13 @@ def phase_bench(tmp, sizes, dev, smi_line) -> dict:
     elif os.path.exists(refcache):
         raise AssertionError("a CPU run wrote the ref cache")
     run_s = time.perf_counter() - t0
-    print(f"[14/14] bench.run ({sizes.bench_preset}, --iters "
+    print(f"[14/15] bench.run ({sizes.bench_preset}, --iters "
           f"{sizes.bench_iters}, --compare --serving, P = 1 ring/fused) in "
           f"{run_s:.1f} s with the build; cf_step {out['t_cf_step_ms']} ms "
           f"replayed, ref {out['ref_t_cf_step_ms']} ms, vs_baseline "
           f"{out['vs_baseline']}; peak device memory {peak_gb:.2f} GB "
           f"({smi_line})", flush=True)
-    print(f"[14/14] the bench's hopper payloads (bf16, coalesced) against "
+    print(f"[14/15] the bench's hopper payloads (bf16, coalesced) against "
           f"its ref path's: {payload_line}", flush=True)
 
     g = g_host.to(dev)
@@ -3721,16 +3739,16 @@ def phase_bench(tmp, sizes, dev, smi_line) -> dict:
         "spmm_csr": 1, "spmm_csr_rev": 1, "sddmm_transr": 1,
         "segment_softmax_csr": 1, "segment_sum_csr": 1, "reduce_send": 1},
         "the bench's path")
-    print(f"[14/14] bench_partitioned P = 4 ring/fused on one card "
+    print(f"[14/15] bench_partitioned P = 4 ring/fused on one card "
           f"({time.perf_counter() - t0:.1f} s): {json.dumps(part)}",
           flush=True)
-    print(f"[14/14] kernel launches on the bench's path (--compare, "
+    print(f"[14/15] kernel launches on the bench's path (--compare, "
           f"--serving, P = 1 and 4 ring/fused; {len(step_graphs)} CF step "
           f"graphs, replays {[s.replays for s in step_graphs]}): "
           f"{launches}", flush=True)
     roof = bench.roofline(g, meta, **sizes.roofline)
     check_bench(roof, "roofline")
-    print(f"[14/14] bench.roofline ({smi_line}): {json.dumps(roof)}",
+    print(f"[14/15] bench.roofline ({smi_line}): {json.dumps(roof)}",
           flush=True)
 
     # A replayed CF step against an eager step from the same state.
@@ -3753,17 +3771,55 @@ def phase_bench(tmp, sizes, dev, smi_line) -> dict:
                              f"eager {loss_e}")
     how = ("from its CUDA graph" if step.steps.graph is not None
            else "eagerly: the CPU captures nothing")
-    print(f"[14/14] bench CF step run {how}: loss {loss_r:.8f}; an eager step "
+    print(f"[14/15] bench CF step run {how}: loss {loss_r:.8f}; an eager step "
           f"from the same state {loss_e:.8f} (within {REPLAY_ATOL})",
           flush=True)
     del step, att, model
-    print(f"[14/14] the bench's ring/fused engine against the single-device "
+    print(f"[14/15] the bench's ring/fused engine against the single-device "
           f"kernel path (dropout 0, {smi_line}): "
           f"{partitioned_against_single(ds, g, meta, sizes, dev)}",
           flush=True)
     del g
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    return launches
+
+
+def phase_graft(dev, smi_line) -> dict:
+    """Phase 15: the entry points of ``kgat_tpu_torch.graft_entry`` on
+    ``dev``: ``entry()``'s flagship forward (16 scores, finite), then
+    ``dryrun_multichip`` at 4 and 8 partitions, which raises unless every
+    comparison holds (the exchanges and the (2, n/2) mesh against the
+    all-gather, the kernel backend against the single-device plain path,
+    rtol = atol = 1e-4); the seconds and largest errors of each. The
+    launch counts are set to 0 before ``entry()`` and read after the dry
+    runs: K1 both ways, K2, K3 and K7 must have launched. Returns them."""
+    build.launch_counts.clear()
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry(dev)
+    scores = fn(*args)
+    sync(dev)
+    if scores.shape != (16,) or not bool(scores.isfinite().all()):
+        raise AssertionError(f"entry(): scores {scores}")
+    print(f"[15/15] entry(): 16 finite scores in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for n in (4, 8):
+        t0 = time.perf_counter()
+        out = graft_entry.dryrun_multichip(n, dev)
+        sync(dev)
+        errs = ", ".join(f"{k} {v:.3e} ({out['ratios'][k]:.3f} of its "
+                         f"tolerance)" for k, v in out["errors"].items())
+        print(f"[15/15] dryrun_multichip({n}) in "
+              f"{time.perf_counter() - t0:.2f} s ({smi_line}): cf_loss "
+              f"{out['cf_loss']:.5f}, kg_loss {out['kg_loss']:.5f}, four "
+              f"replayed steps {out['cf_scan4']:.5f} / "
+              f"{out['kg_scan4']:.5f}; max abs err {errs}", flush=True)
+    launches = dict(build.launch_counts)
+    expect_launches(dev, launches, {
+        "spmm_csr": 1, "spmm_csr_rev": 1, "sddmm_transr": 1,
+        "segment_softmax_csr": 1, "ring_shift": 1}, "graft entry")
+    print(f"[15/15] kernel launches on the entry points' path: "
+          f"{launches}", flush=True)
     return launches
 
 

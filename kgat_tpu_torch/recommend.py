@@ -35,9 +35,14 @@ from kgat_tpu_torch.utils.checkpoint import load_params
 
 
 def disable_tf32() -> None:
-    """Keep float32 matmuls in full float32 on the GPU. The JAX reference
-    computes at HIGHEST f32 precision; TF32 keeps ~3 decimal digits and
-    would move the scores by far more than the parity tolerances."""
+    """Keep float32 matmuls in full float32 on the GPU: the port computes
+    in float32 end to end. TF32 keeps ~3 decimal digits and would move the
+    scores by far more than the parity tolerances. The JAX reference on a
+    TPU asks for HIGHEST in its attention only; its dense layers, the KG
+    loss's TransR projection and the scores set no precision and run at
+    XLA's DEFAULT there, one MXU pass over bf16-rounded operands
+    (``tools/tpu_default_precision.py`` runs the trainer so). On the CPU,
+    where the parity tests run it, XLA's dot is full float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

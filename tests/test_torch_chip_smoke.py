@@ -1,7 +1,7 @@
 """chip_smoke.py rehearsed on the CPU.
 
 Its phases run only on the GPU machine, where a Python fault would show
-for the first time. Here ``run()`` drives phases 3-14 at a tiny size with
+for the first time. Here ``run()`` drives phases 3-15 at a tiny size with
 the plain versions and a stub timer, in a subprocess where importing jax
 or the JAX package raises (the GPU machine has no jax). ``main()`` itself
 must refuse to run without CUDA, and the script must fail outside the
@@ -85,7 +85,8 @@ def test_phases_3_to_7_run_on_the_cpu_without_jax():
     --compare, its hopper payloads against its ref path's, P = 1 and
     P = 4 ring/fused, the roofline at small probe sizes, a CF step
     against an eager one, the ring/fused engine at P = 1 and 4 against
-    the single-device kernel path). Each
+    the single-device kernel path) and phase 15 (the entry points:
+    entry() and dryrun_multichip at 4 and 8 partitions). Each
     phase prints its wall seconds: a run cut at the time limit shows
     which phase ran long."""
     try:
@@ -100,8 +101,8 @@ def test_phases_3_to_7_run_on_the_cpu_without_jax():
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     assert lines[-1] == "RC 0 []", lines[-1]
-    for n in range(3, 15):
-        assert any(ln.startswith(f"[{n}/14] took ") for ln in lines), n
+    for n in range(3, 16):
+        assert any(ln.startswith(f"[{n}/15] took ") for ln in lines), n
     assert any("need two or more cards" in ln for ln in lines)
     kernels = json.loads(lines[-2])["kernels"]
     assert [k["name"] for k in kernels] == [
@@ -129,22 +130,28 @@ def test_phases_3_to_7_run_on_the_cpu_without_jax():
         assert ("coalesced_ms" in k) == k["name"].startswith("spmm_csr")
         # Phase 14's launches on the bench's path (none on the CPU).
         assert k["bench_launches"] == 0, k
+        # Phase 15's launches on the entry points' path (none on the CPU).
+        assert k["graft_launches"] == 0, k
     for what in ("graph cache (--graph-cache)", "DGL op surface",
                  "explain CLI"):
-        assert any(ln.startswith(f"[11/14] {what}") for ln in lines), what
+        assert any(ln.startswith(f"[11/15] {what}") for ln in lines), what
     for what in ("host loaders on", "mid-plateau CLI epoch, bf16",
                  "mid-plateau CLI epoch, f32", "bf16 against float32"):
-        assert any(ln.startswith(f"[12/14] {what}") for ln in lines), what
+        assert any(ln.startswith(f"[12/15] {what}") for ln in lines), what
     for what in ("coalesced CSRs (cap 8)", "spmm_csr on the coalesced CSRs",
                  "spmm_csr_rev on the coalesced CSRs",
                  "replayed coalesced CF steps", "dense attention route"):
-        assert any(ln.startswith(f"[13/14] {what}") for ln in lines), what
+        assert any(ln.startswith(f"[13/15] {what}") for ln in lines), what
     for what in ("bench.run (smoke", "the bench's hopper payloads",
                  "bench_partitioned P = 4 ring/fused",
                  "kernel launches on the bench's path", "bench.roofline",
                  "bench CF step run eagerly",
                  "the bench's ring/fused engine against the single-device"):
-        assert any(ln.startswith(f"[14/14] {what}") for ln in lines), what
+        assert any(ln.startswith(f"[14/15] {what}") for ln in lines), what
+    for what in ("entry(): 16 finite scores", "dryrun_multichip(4) in",
+                 "dryrun_multichip(8) in",
+                 "kernel launches on the entry points' path"):
+        assert any(ln.startswith(f"[15/15] {what}") for ln in lines), what
     bench_line = next(json.loads(ln) for ln in lines
                       if ln.startswith('{"metric": "cf_step_edges_per_s"'))
     assert bench_line["plain_versions"] and "ref_t_cf_step_ms" in bench_line
@@ -191,7 +198,7 @@ def test_phase_10_across_processes_runs_on_the_cpu():
                     f"{(out or '')[-3000:]}")
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
-    assert any(ln.startswith("[10/14] 2 processes, one per card (gloo)")
+    assert any(ln.startswith("[10/15] 2 processes, one per card (gloo)")
                for ln in lines), lines
     assert sum("3 rounds bit-exact" in ln for ln in lines) == 2
     assert any("trainer CLI on 2 processes" in ln for ln in lines)

@@ -3,8 +3,9 @@ the partitioned trainer's (``parallel``, its multi-process module too),
 the ring kernels', the explain CLI's (which keeps its own ``node_kind``
 and ``rel_kind``), the native host layer's (which builds nothing at
 import) and the bench's (``bench``, ``bench_attention``, which keep their
-own copy of ``bench.py``'s presets) included, and the multi-process test
-workers (``tests/torch_mp_worker.py``, ``tests/torch_cuda_mp_worker.py``),
+own copy of ``bench.py``'s presets) included, the entry points'
+(``graft_entry``), and the multi-process test workers
+(``tests/torch_mp_worker.py``, ``tests/torch_cuda_mp_worker.py``),
 loads neither jax nor the JAX package (whose __init__ imports jax) nor
 the repository's ``bench.py`` and ``bench_attention.py``."""
 
@@ -35,7 +36,8 @@ missing = {{"kgat_tpu_torch.parallel.partition", "kgat_tpu_torch.parallel.dp",
            "kgat_tpu_torch.ops.hopper.remote_ring",
            "kgat_tpu_torch.explain", "kgat_tpu_torch.native",
            "kgat_tpu_torch.bench",
-           "kgat_tpu_torch.bench_attention"}} - set(names)
+           "kgat_tpu_torch.bench_attention",
+           "kgat_tpu_torch.graft_entry"}} - set(names)
 # The native host layer builds and loads its library at first use only.
 from kgat_tpu_torch import native
 assert native.library.cache_info().currsize == 0
@@ -53,5 +55,5 @@ def test_port_imports_without_jax():
                           env=torch_threads.one_thread_env())
     assert proc.returncode == 0, proc.stderr
     n_modules, rest = proc.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 31, proc.stdout
+    assert int(n_modules) >= 35, proc.stdout
     assert rest.strip() == "[] []", proc.stdout

@@ -9,8 +9,13 @@
 #
 # STAGE is one of: mid-plateau (seeds 1234, 1, 2), ab-pretrain, smoke-gcn,
 # yelp2018-files (seeds 1234, 1, 2), lastfm-bi-ev, amazon-graphsage-ev,
-# amazon-c6-cold. The
-# last four read the synthetic exports at the Makefile's published sizes,
+# amazon-c6-cold, mid-plateau-sadam, amazon-c5, lastfm-bi-full,
+# amazon-graphsage-full, amazon-c6-full, and yelp2018-files-tpuprec
+# (yelp2018-files' three seeds through tools/tpu_default_precision.py,
+# which computes three products as a TPU's DEFAULT float32 matmul does;
+# run it with SUFFIX empty). The stages from yelp2018-files on, but for
+# mid-plateau-sadam, read the synthetic exports at the Makefile's
+# published sizes,
 # which the port's synthetic_dataset / save_dataset write into datasets/
 # when they are missing. Each run logs to runs/torch-<name>$SUFFIX.jsonl
 # ($SUFFIX default empty; "-co" names the runs at the coalesced, bf16-
@@ -48,8 +53,9 @@ save_dataset(synthetic_dataset(seed=0, n_users=u, n_items=i, n_entities=e,
 " "$1"
 }
 
-# run NAME ARGS...: one trainer run, continued with --resume if its log
-# exists unfinished.
+# run NAME ARGS...: one trainer run (${TRAINER[@]}), continued with
+# --resume if its log exists unfinished.
+TRAINER=(python -m kgat_tpu_torch.train)
 run() {
   local name=$1$SUFFIX; shift
   local log="runs/$name.jsonl" extra=()
@@ -58,7 +64,7 @@ run() {
   fi
   [ -f "$log" ] && extra=(--resume)
   note "$name: start ${extra[*]}"
-  timeout -k 30 "$LIMIT" python -m kgat_tpu_torch.train "$@" \
+  timeout -k 30 "$LIMIT" "${TRAINER[@]}" "$@" \
     --run-name "$name" "${extra[@]}" >> "$OUT/$name.log" 2>&1
   local rc=$?
   note "$name: rc=$rc"
@@ -114,6 +120,42 @@ for stage in "$@"; do
       run torch-amazon-c6-cold --dataset amazon-book --ops-backend pallas \
         --compute-dtype bf16 --epochs 20 --eval-every 5 \
         --graph-cache runs/gcache ;;
+    mid-plateau-sadam)
+      run torch-mid-plateau-sadam "${MID[@]}" --sparse-adam ;;
+    amazon-c5)
+      export_dataset amazon-book || failed=$((failed + 1))
+      if [ ! -f runs/torch-amazon-mf.npz ]; then
+        note "torch-amazon-mf: BPR-MF pretrain"
+        timeout -k 30 "$LIMIT" python -m kgat_tpu_torch.models.bprmf \
+          --dataset amazon-book --out runs/torch-amazon-mf.npz \
+          > "$OUT/torch-amazon-mf.log" 2>&1 || failed=$((failed + 1))
+      fi
+      run torch-amazon-c5 --dataset amazon-book --ops-backend pallas \
+        --compute-dtype bf16 --use-pretrain runs/torch-amazon-mf.npz \
+        --epochs 60 --eval-every 5 --graph-cache runs/gcache ;;
+    lastfm-bi-full)
+      export_dataset last-fm || failed=$((failed + 1))
+      run torch-lastfm-bi-full --preset lastfm-bi --compute-dtype bf16 \
+        --epochs 90 --eval-every 5 --graph-cache runs/gcache ;;
+    amazon-graphsage-full)
+      export_dataset amazon-book || failed=$((failed + 1))
+      run torch-amazon-graphsage-full --preset amazon-graphsage \
+        --compute-dtype bf16 --epochs 35 --eval-every 5 \
+        --graph-cache runs/gcache ;;
+    amazon-c6-full)
+      export_dataset amazon-book || failed=$((failed + 1))
+      run torch-amazon-c6-full --dataset amazon-book --ops-backend pallas \
+        --compute-dtype bf16 --epochs 35 --eval-every 5 \
+        --graph-cache runs/gcache ;;
+    yelp2018-files-tpuprec)
+      export_dataset yelp2018 || failed=$((failed + 1))
+      TRAINER=(python tools/tpu_default_precision.py)
+      for seed in 1234 1 2; do
+        run "torch-yelp2018-files-tpuprec-s$seed" --dataset yelp2018 \
+          --data-root datasets --ops-backend pallas --compute-dtype bf16 \
+          --epochs 2 --eval-every 2 --graph-cache runs/gcache --seed "$seed"
+      done
+      TRAINER=(python -m kgat_tpu_torch.train) ;;
     *)
       echo "unknown stage $stage" >&2; failed=$((failed + 1)) ;;
   esac
