@@ -1,0 +1,9 @@
+"""train.kg_step_ms: host ms of a KG step, the window's KG phases (each
+ending in a synchronisation) over their steps."""
+
+
+def read(run):
+    span = run["spans"].get("kg_phase")
+    if not span or span[1] == 0:
+        return None
+    return span[0] / span[1] * 1e3
