@@ -29,6 +29,7 @@ from kgat_tpu_torch.graph import (GRAPH_CACHE_VERSION, REL_TILE, CKGMeta,
                                   Graph, build_ckg, coalesced, load_graph,
                                   save_graph)
 from kgat_tpu_torch.ops.row_split import CHUNK
+from kgat_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -67,27 +68,28 @@ class Dataset:
         (one without the coalesced CSRs, too), or one that cannot be read,
         is rebuilt and written anew.
         """
-        path = None
-        if cache_dir is not None:
-            path = self.graph_cache_path(cache_dir, rel_tile=rel_tile)
-            if os.path.exists(path):
-                try:
-                    g, meta = load_graph(path)
-                    if meta is not None:
-                        return g, meta
-                except (ValueError, KeyError, OSError, EOFError,
-                        zipfile.BadZipFile):
-                    pass  # stale or damaged: rebuilt below
-        g, meta = build_ckg(
-            self.cf_train, self.kg_triples,
-            n_users=self.n_users, n_entities=self.n_entities,
-            n_items=self.n_items, n_relations_kg=self.n_relations_kg,
-            rel_tile=rel_tile)
-        if path is not None:
-            coalesced(g)
-            os.makedirs(cache_dir, exist_ok=True)
-            save_graph(path, g, meta)
-        return g, meta
+        with trace.span("setup.graph"):
+            path = None
+            if cache_dir is not None:
+                path = self.graph_cache_path(cache_dir, rel_tile=rel_tile)
+                if os.path.exists(path):
+                    try:
+                        g, meta = load_graph(path)
+                        if meta is not None:
+                            return g, meta
+                    except (ValueError, KeyError, OSError, EOFError,
+                            zipfile.BadZipFile):
+                        pass  # stale or damaged: rebuilt below
+            g, meta = build_ckg(
+                self.cf_train, self.kg_triples,
+                n_users=self.n_users, n_entities=self.n_entities,
+                n_items=self.n_items, n_relations_kg=self.n_relations_kg,
+                rel_tile=rel_tile)
+            if path is not None:
+                coalesced(g)
+                os.makedirs(cache_dir, exist_ok=True)
+                save_graph(path, g, meta)
+            return g, meta
 
     def graph_cache_path(self, cache_dir: str, *,
                          rel_tile: int = REL_TILE) -> str:

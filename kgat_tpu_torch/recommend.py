@@ -31,6 +31,7 @@ from kgat_tpu_torch.graph import CKGMeta, Graph
 from kgat_tpu_torch.models import kgat
 from kgat_tpu_torch.models.kgat import KGAT, KGATConfig
 from kgat_tpu_torch.ops import BACKENDS
+from kgat_tpu_torch.utils import trace
 from kgat_tpu_torch.utils.checkpoint import load_params
 
 
@@ -49,7 +50,8 @@ def disable_tf32() -> None:
 
 def _forward(cfg: KGATConfig, model: KGAT, graph: Graph) -> torch.Tensor:
     """The serving forward (no gradient): attention, then propagation."""
-    with torch.no_grad():
+    with trace.span("recommend.forward", device=model.entity_embed.device), \
+            torch.no_grad():
         return model(graph, cfg)
 
 
@@ -102,9 +104,10 @@ class Recommender:
 
     def recommend(self, users: Sequence[int], *, k: int = 20,
                   block: int = 2048):
-        users = _validate(self.model, self.meta, self.cfg, users)
-        return _blocked_topk(self.all_embed, self.meta, users, k,
-                             self.train_user_dict, block)
+        with trace.span("recommend.request"):
+            users = _validate(self.model, self.meta, self.cfg, users)
+            return _blocked_topk(self.all_embed, self.meta, users, k,
+                                 self.train_user_dict, block)
 
 
 def recommend(model: KGAT, graph: Graph, meta: CKGMeta, cfg: KGATConfig,
@@ -119,9 +122,11 @@ def recommend(model: KGAT, graph: Graph, meta: CKGMeta, cfg: KGATConfig,
     -inf (fewer than k unmasked items) are returned as they are; the CLI
     drops them.
     """
-    users = _validate(model, meta, cfg, users)
-    all_embed = _forward(cfg, model, graph)
-    return _blocked_topk(all_embed, meta, users, k, train_user_dict, block)
+    with trace.span("recommend.request"):
+        users = _validate(model, meta, cfg, users)
+        all_embed = _forward(cfg, model, graph)
+        return _blocked_topk(all_embed, meta, users, k, train_user_dict,
+                             block)
 
 
 def _score_block(all_embed: torch.Tensor, user_nodes: torch.Tensor,
@@ -140,24 +145,34 @@ def _score_block(all_embed: torch.Tensor, user_nodes: torch.Tensor,
 
 def _blocked_topk(all_embed: torch.Tensor, meta: CKGMeta, users: np.ndarray,
                   k: int, train_user_dict: Optional[dict], block: int):
+    """Each block of users in four stages, each a span: the mask pairs
+    built on the host, the users and pairs copied to the device, the
+    scoring enqueued, and the top k copied back (the first copy waits for
+    the block)."""
     device = all_embed.device
     out_items = np.empty((len(users), k), np.int64)
     out_scores = np.empty((len(users), k), np.float32)
     for start in range(0, len(users), block):
         u_blk = users[start:start + block]
-        nodes = torch.as_tensor(meta.user_node(u_blk), device=device)
-        pairs = np.zeros((0, 2), np.int64)
-        if train_user_dict:
-            per_user = [np.asarray(train_user_dict.get(int(u), ()),
-                                   np.int64) for u in u_blk]
-            rows = np.repeat(np.arange(len(u_blk)),
-                             [len(t) for t in per_user])
-            pairs = np.stack([rows, np.concatenate(per_user)], axis=1)
-        top_items, top_scores = _score_block(
-            all_embed, nodes, torch.as_tensor(pairs, device=device),
-            meta.n_items, k)
-        out_items[start:start + len(u_blk)] = top_items.cpu().numpy()
-        out_scores[start:start + len(u_blk)] = top_scores.cpu().numpy()
+        with trace.span("recommend.mask"):
+            pairs = np.zeros((0, 2), np.int64)
+            if train_user_dict:
+                per_user = [np.asarray(train_user_dict.get(int(u), ()),
+                                       np.int64) for u in u_blk]
+                rows = np.repeat(np.arange(len(u_blk)),
+                                 [len(t) for t in per_user])
+                pairs = np.stack([rows, np.concatenate(per_user)], axis=1)
+        with trace.span("recommend.upload"):
+            nodes = torch.as_tensor(meta.user_node(u_blk), device=device)
+            pairs_t = torch.as_tensor(pairs, device=device)
+        with trace.span("recommend.score"):
+            top_items, top_scores = _score_block(all_embed, nodes, pairs_t,
+                                                 meta.n_items, k)
+        with trace.span("recommend.fetch"):
+            out_items[start:start + len(u_blk)] = top_items.cpu().numpy()
+            out_scores[start:start + len(u_blk)] = top_scores.cpu().numpy()
+        trace.count("recommend.users", len(u_blk))
+        trace.count("recommend.mask_pairs", len(pairs))
     return out_items, out_scores
 
 

@@ -95,6 +95,7 @@ from kgat_tpu_torch.recommend import disable_tf32
 from kgat_tpu_torch.sampler import (CFSampleTable, HostCFSampler,
                                     HostKGSampler, KGSampleTable,
                                     sample_cf_batch, sample_kg_batch)
+from kgat_tpu_torch.utils import trace
 from kgat_tpu_torch.utils.checkpoint import (load_checkpoint_sharded,
                                              save_checkpoint,
                                              save_checkpoint_sharded)
@@ -249,14 +250,15 @@ class Trainer:
                                 quiet=not p0, resume=cfg.resume)
 
         # Samplers: CF over train interactions; KG over all CKG triples.
-        self.cf_table = CFSampleTable.build(
-            self.ds.cf_train, self.meta.n_users, self.meta.n_items,
-            device=dev)
-        ckg_triples = np.stack([graph.dst.numpy(), graph.etype.numpy(),
-                                graph.src.numpy()], axis=1)
-        self.kg_table = KGSampleTable.build(
-            ckg_triples, n_entities=self.meta.n_nodes,
-            n_relations=self.meta.n_relations, device=dev)
+        with trace.span("setup.tables"):
+            self.cf_table = CFSampleTable.build(
+                self.ds.cf_train, self.meta.n_users, self.meta.n_items,
+                device=dev)
+            ckg_triples = np.stack([graph.dst.numpy(), graph.etype.numpy(),
+                                    graph.src.numpy()], axis=1)
+            self.kg_table = KGSampleTable.build(
+                ckg_triples, n_entities=self.meta.n_nodes,
+                n_relations=self.meta.n_relations, device=dev)
         self.eval_plan = evaluation.make_eval_plan(
             self.ds.train_user_dict, self.ds.test_user_dict,
             self.meta.n_items, block=cfg.test_block)
@@ -531,19 +533,28 @@ class Trainer:
             copy_weights_(self._step_att, att)
 
     def train_one_epoch(self) -> Tuple[float, float]:
-        att = self._att if self._att is not None else self.attention()
+        """One epoch: the CF phase, the KG phase (each ending in its loss's
+        read-back), then the attention recompute; each is a span timed on
+        the device's stream (``utils.trace``)."""
+        att = self._att
+        if att is None:
+            with trace.span("train.attention", device=self.device):
+                att = self.attention()
         self._att = None  # params are about to change
         try:
             if not self.partitioned and self.cfg.sampler == "host":
                 return self._host_sampled_epoch(att)
             self.stage(att)
-            cf = float(self.cf_steps.run(self.n_cf_batches))
-            kg = float(self.kg_steps.run(self.n_kg_batches))
+            with trace.span("train.cf_phase", device=self.device):
+                cf = float(self.cf_steps.run(self.n_cf_batches))
+            with trace.span("train.kg_phase", device=self.device):
+                kg = float(self.kg_steps.run(self.n_kg_batches))
             return cf / self.n_cf_batches, kg / self.n_kg_batches
         finally:
             # Reference order (SURVEY.md §3.1): attention recomputed after
             # the KG phase, reused by evaluate() and the next epoch.
-            self._att = self.attention()
+            with trace.span("train.attention", device=self.device):
+                self._att = self.attention()
 
     def _host_sampled_epoch(self, att) -> Tuple[float, float]:
         """One eager step per batch of the host samplers, weight None

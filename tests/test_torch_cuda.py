@@ -724,6 +724,89 @@ def test_capture_with_a_host_sync_raises(dev):
     torch.cuda.synchronize()
 
 
+def _graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The number of nodes of a captured graph, read through libcuda."""
+    import ctypes
+    n = ctypes.c_size_t(0)
+    code = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    assert code == 0
+    return n.value
+
+
+def test_spans_leave_a_captured_step_as_it_was(dev, monkeypatch):
+    """Spans inside a captured step's body (host and device) and around
+    its run record nothing while the capture records, and leave the graph
+    its nodes and calls: the same nodes, calls, losses and parameters as
+    the same trainer without spans. No span synchronises: the run makes
+    as many synchronising calls with spans as without."""
+    from kgat_tpu_torch.utils import trace
+    plain, spanned = _trainer(), _trainer()
+    body = spanned.cf_steps.body
+
+    def traced_body():
+        with trace.span("test.body"), trace.span("test.dev", device=dev):
+            return body()
+    spanned.cf_steps.body = traced_body
+    syncs = []
+
+    def counted(owner, name):
+        real = getattr(owner, name)
+
+        def call(*a, **k):
+            syncs.append(name)
+            return real(*a, **k)
+        monkeypatch.setattr(owner, name, call)
+    counted(torch.cuda, "synchronize")
+    counted(torch.cuda.Event, "synchronize")
+    counted(torch.cuda.Stream, "synchronize")
+    trace.reset()
+    losses, made = [], []
+    for tr in (plain, spanned):
+        syncs.clear()
+        with trace.span("test.run", device=dev):
+            loss = tr.cf_steps.run(4)
+        made.append(list(syncs))
+        losses.append(float(loss))
+    assert made[0] == made[1]
+    s = trace.summary()["spans"]
+    # The warm-up step ran the body eagerly; the capture recorded nothing.
+    assert s["test.body"]["count"] == 1 and s["test.dev"]["count"] == 1
+    assert s["test.dev"]["device_count"] == 1
+    assert s["test.run"]["count"] == 2 and s["test.run"]["device_count"] == 2
+    assert spanned.cf_steps.replays == plain.cf_steps.replays == 3
+    assert spanned.cf_steps.calls == plain.cf_steps.calls
+    assert _graph_nodes(spanned.cf_steps.graph) == _graph_nodes(
+        plain.cf_steps.graph)
+    assert losses[0] == pytest.approx(losses[1], rel=1e-6)
+    for a, b in zip(plain.model.parameters(), spanned.model.parameters()):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
+    trace.reset()
+
+
+def test_a_device_span_agrees_with_cuda_events(dev):
+    """A device span's stream time against a pair of CUDA events around the
+    same work (some 50 ms of products): within 5%."""
+    from kgat_tpu_torch.utils import trace
+    a = torch.randn(2048, 2048, device=dev)
+    for _ in range(3):
+        a @ a
+    tr = trace.Tracer()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    with tr.span("work", device=dev):
+        for _ in range(50):
+            a = (a @ a) * 1e-3
+    e1.record()
+    torch.cuda.synchronize()
+    s = tr.summary()["spans"]["work"]
+    want = e0.elapsed_time(e1) * 1e-3
+    assert want > 0.01
+    assert s["device_count"] == 1
+    assert s["device_seconds"] == pytest.approx(want, rel=0.05)
+
+
 # ---------------------------------------------------------------------------
 # The partitioned trainer's captured steps.
 # ---------------------------------------------------------------------------
