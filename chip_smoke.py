@@ -214,7 +214,7 @@ from kgat_tpu_torch.ops.hopper import build
 from kgat_tpu_torch.ops.row_split import CHUNK, build_row_split
 from kgat_tpu_torch.ops.hopper import remote_ring
 from kgat_tpu_torch.ops.hopper.remote_ring import reduce_send, ring_shift
-from kgat_tpu_torch.ops.hopper import sddmm
+from kgat_tpu_torch.ops.hopper import sddmm, transr
 from kgat_tpu_torch.ops.hopper.sddmm import (sddmm_transr, sddmm_transr_bwd,
                                              sddmm_transr_bwd_plain,
                                              sddmm_transr_plain)
@@ -911,10 +911,12 @@ def single_device_nodes(graph, staged):
     """The CUDA launches of a single-device step's captured wrapper calls
     (``calls``: name -> count): K1 forward and on the reverse CSR, each
     as many as the row split of the CSR the staged weights ``staged``
-    reduce over needs (the graph's, or its coalesced CSRs)."""
+    reduce over needs (the graph's, or its coalesced CSRs); the KG step's
+    TransR op, ``transr.CUDA_LAUNCHES``."""
     csr = spmm_csr_of(graph, staged)
     per_call = {"spmm_csr": csr.split.cuda_launches,
-                "spmm_csr_rev": csr.rev_split.cuda_launches}
+                "spmm_csr_rev": csr.rev_split.cuda_launches,
+                **transr.CUDA_LAUNCHES}
     return lambda calls: sum(n * per_call[k] for k, n in calls.items())
 
 
@@ -1500,6 +1502,29 @@ def replayed_step(steps):
     return float(steps.run(1))
 
 
+def transr_op_ms(trainer, timer):
+    """(the op, the plain path): ms of the KG loss's TransR projection,
+    forward and backward, on a batch of the trainer's KG sampler, by
+    CUDA-graph replay. The plain path gathers w_rel[r] and rel_embed[r],
+    multiplies and sums the tables' gradients with autograd's index_put."""
+    model = trainer.model
+    h, r, tp, tn, _ = trainer.sample_kg()
+    emb = model.entity_embed.detach()
+    leaves = [t.clone().requires_grad_() for t in (
+        emb[h], emb[tp], emb[tn], model.rel_embed.detach(),
+        model.w_rel.detach())]
+    for t in leaves:
+        t.grad = torch.zeros_like(t)
+    gen = torch.Generator(device=r.device).manual_seed(0)
+    cots = [torch.randn(r.shape[0], model.rel_embed.shape[1], generator=gen,
+                        device=r.device) for _ in range(4)]
+
+    def op(project):
+        return lambda: torch.autograd.backward(project(*leaves, r), cots)
+    return (timer.replay_ms(op(transr.transr_project), 20),
+            timer.replay_ms(op(transr.transr_forward_plain), 20))
+
+
 def phase_train_steps(trainer, sizes, check, timer, dev) -> str:
     """The first CF and KG steps, eager on the kernel path and replayed
     from their CUDA graphs, each against the plain path in float64 on the
@@ -1606,6 +1631,7 @@ def phase_train_steps(trainer, sizes, check, timer, dev) -> str:
     cf_plain_ms = timer.host_ms(plain_cf_step, 3)
     kg_ms = timer.host_ms(lambda: trainer.kg_step(*trainer.sample_kg()), 10)
     kg_replay_ms = timer.host_ms(lambda: replayed_step(trainer.kg_steps), 20)
+    transr_ms = transr_op_ms(trainer, timer)
     build.launch_counts.clear()
     trainer._att = trainer.attention()
     recompute_launches = dict(build.launch_counts)
@@ -1629,7 +1655,9 @@ def phase_train_steps(trainer, sizes, check, timer, dev) -> str:
             f"{kg_losses[0]:.5f} -> {kg_losses[-1]:.5f}; CF step (sample + "
             f"step) median {cf_ms:.2f} ms eager, {cf_replay_ms:.2f} ms "
             f"replayed (plain path {cf_plain_ms:.2f} ms), KG step "
-            f"{kg_ms:.2f} ms eager, {kg_replay_ms:.2f} ms replayed, "
+            f"{kg_ms:.2f} ms eager, {kg_replay_ms:.2f} ms replayed, its "
+            f"TransR op forward and backward {transr_ms[0]:.4f} ms by "
+            f"replay (plain path {transr_ms[1]:.4f} ms), "
             f"attention recompute {att_ms:.2f} ms (launches "
             f"{recompute_launches}), evaluate {eval_s:.2f} s: recall@20 "
             f"{metrics['recall']:.4f}, ndcg@20 {metrics['ndcg']:.4f}")
@@ -1739,11 +1767,11 @@ def partitioned_launches(exchange, transport, n_layers, n_parts,
 
 
 def partitioned_nodes(part, n_layers):
-    """The CUDA launches of one partitioned CF step's wrapper calls, for
-    the kernel nodes of its captured graph: each K1, K6 and K8 call as
-    many as its CSR's row split needs (the all-gather's: each shard's
-    coalesced CSRs when coalescing), each K7 call one (a KG step makes no
-    wrapper call)."""
+    """The CUDA launches of one partitioned step's wrapper calls, for the
+    kernel nodes of its captured graph: in a CF step each K1, K6 and K8
+    call as many as its CSR's row split needs (the all-gather's: each
+    shard's coalesced CSRs when coalescing), each K7 call one; in a KG
+    step the TransR op's, ``transr.CUDA_LAUNCHES``."""
     n, P = 0, part.n_parts
     for d in range(part.n_rows):
         for p in range(P):
@@ -1757,7 +1785,12 @@ def partitioned_nodes(part, n_layers):
                 g = (part.halos if part.a2a else part.shards)[d][p].graph
                 g = g.co if part.coalesce else g
                 n += g.split.cuda_launches + g.rev_split.cuda_launches
-    return lambda calls: n_layers * n if calls else 0
+
+    def nodes(calls):
+        kg = {k: c for k, c in calls.items() if k in transr.CUDA_LAUNCHES}
+        return (n_layers * n if len(kg) < len(calls) else 0) + sum(
+            c * transr.CUDA_LAUNCHES[k] for k, c in kg.items())
+    return nodes
 
 
 def expect_exact(dev, launches, want, what):
@@ -2253,14 +2286,18 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
     ev = next(e for e in events if e["event"] == "eval")
     if epoch["captured"] != (dev.type == "cuda"):
         raise AssertionError(f"partitioned CLI epoch: {epoch}")
-    n_cf = next(e for e in events if e["event"] == "start")["cf_batches"]
+    start = next(e for e in events if e["event"] == "start")
+    n_cf = start["cf_batches"]
     step = partitioned_launches("ring", "fused", L, P)
     evalf = partitioned_launches("ring", "fused", L, P, backward=False)
     # Per CF step a forward and backward; the eval forward once; K2 and K3
-    # on every shard at the epoch's two attention recomputes.
+    # on every shard at the epoch's two attention recomputes; the TransR
+    # op's wrappers once per KG step.
     want_launches = {k: n_cf * step.get(k, 0) + evalf.get(k, 0)
                      for k in {*step, *evalf}}
     want_launches.update(sddmm_transr=2 * P, segment_softmax_csr=2 * P)
+    want_launches.update({k: start["kg_batches"]
+                          for k in transr.CUDA_LAUNCHES})
     expect_exact(dev, launches, want_launches, "partitioned trainer CLI")
     print(f"[8/15] partitioned trainer CLI (python -m kgat_tpu_torch.train "
           f"{' '.join(argv[argv.index('--n-devices'):])}): 1 epoch of "

@@ -32,6 +32,8 @@ from torch import nn
 
 from kgat_tpu_torch.graph import CKGMeta, EdgeWeights, Graph, stage_weights
 from kgat_tpu_torch.ops import BACKENDS, get_backend
+from kgat_tpu_torch.ops.hopper import transr
+from kgat_tpu_torch.utils import trace
 
 AGGREGATORS = ("gcn", "graphsage", "bi-interaction")
 ATT_IMPLS = ("auto", "dense", "relblock")
@@ -401,8 +403,15 @@ def kg_pair_terms_rows(eh: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,
     """Row-based TransR core: per-pair losses and the 0.5 * sum-of-squares
     regularizer from gathered rows — eh/ep/en (B, d) head, positive and
     negative tail rows, e_r (B, k), w_r (B, d, k)."""
-    proj = lambda e: torch.einsum("bd,bdk->bk", e, w_r)  # noqa: E731
-    ph, pp, pn = proj(eh), proj(ep), proj(en)
+    return kg_pair_terms_projected(*transr.project_rows(eh, ep, en, w_r),
+                                   e_r)
+
+
+def kg_pair_terms_projected(ph: torch.Tensor, pp: torch.Tensor,
+                            pn: torch.Tensor, e_r: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`kg_pair_terms_rows` from the projected rows ph/pp/pn (B, k)
+    = eh/ep/en W_r and e_r (B, k)."""
     g_pos = ((ph + e_r - pp) ** 2).sum(-1)
     g_neg = ((ph + e_r - pn) ** 2).sum(-1)
     pair = -F.logsigmoid(g_neg - g_pos)
@@ -411,12 +420,21 @@ def kg_pair_terms_rows(eh: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,
 
 
 def kg_pair_terms(model: KGAT, h: torch.Tensor, r: torch.Tensor,
-                  t_pos: torch.Tensor, t_neg: torch.Tensor
+                  t_pos: torch.Tensor, t_neg: torch.Tensor, cfg: KGATConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """TransR per-pair loss terms and regularizer sum for index tensors."""
-    emb = model.entity_embed
-    return kg_pair_terms_rows(emb[h], emb[t_pos], emb[t_neg],
-                              model.rel_embed[r], model.w_rel[r])
+    """TransR per-pair loss terms and regularizer sum for index tensors.
+    On the hopper backend the projection and the relation tables'
+    gradients are one op, ``ops.hopper.transr.transr_project`` (its
+    kernels on CUDA, which take float32 tables alone); on the ref backend
+    the rows of ``w_rel`` and ``rel_embed`` are gathered per pair, counted
+    as ``kg.transr_plain``."""
+    emb, rel, w_rel = model.entity_embed, model.rel_embed, model.w_rel
+    eh, ep, en = emb[h], emb[t_pos], emb[t_neg]
+    if cfg.ops_backend == "hopper":
+        return kg_pair_terms_projected(*transr.transr_project(
+            eh, ep, en, rel, w_rel, r))
+    trace.count("kg.transr_plain")
+    return kg_pair_terms_rows(eh, ep, en, rel[r], w_rel[r])
 
 
 def kg_loss(model: KGAT, h: torch.Tensor, r: torch.Tensor,
@@ -426,5 +444,5 @@ def kg_loss(model: KGAT, h: torch.Tensor, r: torch.Tensor,
     ||W_r e_h + e_r - W_r e_t||^2, minimise -log sigmoid(g(h,r,t-) -
     g(h,r,t+)), plus ``reg_kg`` times the mean regularizer. No graph ops
     (SURVEY.md §3.4)."""
-    pair, ssq = kg_pair_terms(model, h, r, t_pos, t_neg)
+    pair, ssq = kg_pair_terms(model, h, r, t_pos, t_neg, cfg)
     return weighted_mean(pair, weight) + cfg.reg_kg * ssq / h.shape[0]

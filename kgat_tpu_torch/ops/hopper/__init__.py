@@ -9,6 +9,8 @@
   K6 segment_sum.segment_sum_csr    <- kgat_tpu/ops/pallas/segment_sum.py::accum_step
   K7 remote_ring.ring_shift         <- kgat_tpu/ops/pallas/remote_ring.py::_shift_kernel
   K8 remote_ring.reduce_send        <- kgat_tpu/ops/pallas/remote_ring.py::_reduce_send_kernel
+     transr.transr_project          (no TPU kernel: the KG loss's TransR
+                                    projection and its relation gradients)
 
 K1, K6, K8 and K4's fold share one row reduction (``csrc/row_reduce.cuh``),
 which walks the work units of a CSR's row split (``ops/row_split.py``);

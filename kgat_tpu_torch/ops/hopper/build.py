@@ -74,6 +74,15 @@ _SIGNATURES = {
     # part_er, partials, d_emb, d_w, d_er, n_tiles, n_rel, d, k, stream
     "kgat_sddmm_transr_bwd": ((_P,) * 5 + _SPLIT * 2 + (_P,) * 13
                               + (_I,) * 4 + (_P,)),
+    # The KG step's TransR op: r, n, n_rel, unit_rows, n_units, perm,
+    # rel_offsets, units, unit_offsets, stream
+    "kgat_transr_plan": (_P,) + (_I,) * 4 + (_P,) * 5,
+    # units, n_units, perm, eh, ep, en, rel_embed, w_rel, ph, pp, pn, er,
+    # d, k, stream
+    "kgat_transr_fwd": (_P, _I) + (_P,) * 10 + (_I, _I, _P),
+    # units, n_units, unit_offsets, perm, eh, ep, en, w_rel, gph, gpp, gpn,
+    # ger, geh, gep, gen, partials, d_w, d_er, n_rel, d, k, stream
+    "kgat_transr_bwd": (_P, _I) + (_P,) * 16 + (_I,) * 3 + (_P,),
 }
 
 

@@ -22,6 +22,7 @@ The lazy step has static shapes and no host synchronisation (no
 
 from __future__ import annotations
 
+import dataclasses
 import types
 from typing import Dict, Iterable, Optional, Tuple
 
@@ -149,9 +150,10 @@ def sparse_kg_step_plain(model: KGAT, opt: torch.optim.Adam,
                          dtype: torch.dtype = torch.float64
                          ) -> Tuple[float, Dict[str, tuple], np.ndarray]:
     """The dense-state oracle of :func:`sparse_kg_step`, in ``dtype``:
-    ``kg_loss``'s gradient over the whole tables, then Adam on the rows
-    the batch names (found with ``torch.unique``) and dense Adam on the
-    relation tables, at count + 1. Leaves ``model`` and ``opt`` as they
+    ``kg_loss``'s gradient over the whole tables (the ref backend's
+    gathered path: the hopper backend's kernels take float32 alone), then
+    Adam on the rows the batch names (found with ``torch.unique``) and
+    dense Adam on the relation tables, at count + 1. Leaves ``model`` and ``opt`` as they
     are. Returns (loss, {name: (param, exp_avg, exp_avg_sq)} for
     ``entity_embed``, ``rel_embed`` and ``w_rel``, the touched rows)."""
     lr, b1, b2, eps = _hyper(opt)
@@ -160,8 +162,8 @@ def sparse_kg_step_plain(model: KGAT, opt: torch.optim.Adam,
               for n in names}
     with torch.enable_grad():
         loss = kg_loss(types.SimpleNamespace(**params), h, r, t_pos, t_neg,
-                       cfg, weight=None if weight is None
-                       else weight.to(dtype))
+                       dataclasses.replace(cfg, ops_backend="ref"),
+                       weight=None if weight is None else weight.to(dtype))
         grads = torch.autograd.grad(loss, [params[n] for n in names])
     count = float(adam_count(opt) + 1)
     touched = torch.unique(torch.cat([h, t_pos, t_neg]))

@@ -181,7 +181,7 @@ def kg_block_loss(model, h, r, t_pos, t_neg, cfg, weight, block: slice
     B = h.shape[0]
     w = torch.ones(B, device=h.device) if weight is None else weight
     pair, ssq = kgat.kg_pair_terms(model, h[block], r[block], t_pos[block],
-                                   t_neg[block])
+                                   t_neg[block], cfg)
     return ((pair * w[block]).sum() / w.sum().clamp(min=1.0)
             + cfg.reg_kg * ssq / B)
 

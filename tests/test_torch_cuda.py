@@ -7,6 +7,7 @@ there without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import copy
 import dataclasses
 import math
 import subprocess
@@ -20,7 +21,7 @@ from kgat_tpu_torch.data import synthetic_dataset
 from kgat_tpu_torch.graph import EdgeWeights, build_graph
 from kgat_tpu_torch.models import kgat
 from kgat_tpu_torch.ops import hopper_backend, ref
-from kgat_tpu_torch.ops.hopper import build
+from kgat_tpu_torch.ops.hopper import build, transr
 from kgat_tpu_torch.ops.row_split import CHUNK, build_row_split
 from kgat_tpu_torch.ops.hopper.sddmm import (sddmm_transr, sddmm_transr_bwd,
                                              sddmm_transr_bwd_plain,
@@ -661,10 +662,14 @@ def test_replayed_steps_match_eager_steps(dev, sparse):
                     assert torch.equal(new, old), name
             else:
                 torch.testing.assert_close(p.grad, g, rtol=1e-4, atol=1e-8)
-    # Replays launch nothing through the wrappers: only the eager CF step
-    # above counted its K1 launches.
-    assert dict(build.launch_counts) == {"spmm_csr": 2, "spmm_csr_rev": 2}
+    # Replays launch nothing through the wrappers: only the eager steps
+    # above counted their launches, K1's and (with dense Adam) the TransR
+    # op's.
+    kg = {} if sparse else {k: 1 for k in transr.CUDA_LAUNCHES}
+    assert dict(build.launch_counts) == {"spmm_csr": 2, "spmm_csr_rev": 2,
+                                         **kg}
     assert tr.cf_steps.calls == {"spmm_csr": 2, "spmm_csr_rev": 2}
+    assert tr.kg_steps.calls == kg
 
 
 def test_two_replays_draw_different_batches(dev):
@@ -805,6 +810,220 @@ def test_a_device_span_agrees_with_cuda_events(dev):
     assert want > 0.01
     assert s["device_count"] == 1
     assert s["device_seconds"] == pytest.approx(want, rel=0.05)
+
+
+# ---------------------------------------------------------------------------
+# The KG step's TransR op (ops/hopper/transr.py).
+# ---------------------------------------------------------------------------
+
+def _skewed_relations(n, n_rel, heavy, share, absent, seed):
+    rs = np.random.default_rng(seed)
+    others = [q for q in range(n_rel) if q not in (heavy, *absent)]
+    r = rs.choice(others, n)
+    r[rs.random(n) < share] = heavy
+    return torch.from_numpy(r)
+
+
+# (B, R, relations, d, k): 80% of the rows in one relation, a run of some
+# 50 units, two relations absent; one relation; B not a multiple of U at
+# the Yelp2018 cell's relation count; the trainer test's and graft's widths.
+TRANSR_CASES = {
+    "skewed": (2048, 20, lambda: _skewed_relations(2048, 20, 18, 0.8,
+                                                   (3, 7), 0), 64, 64),
+    "one_relation": (500, 1, lambda: torch.zeros(500, dtype=torch.long),
+                     64, 64),
+    "ragged": (1007, 86, lambda: _skewed_relations(1007, 86, 84, 0.18,
+                                                   (0,), 1), 64, 64),
+    "d32": (300, 6, lambda: _skewed_relations(300, 6, 1, 0.5, (4,), 2),
+            32, 32),
+    "d16_k8": (200, 5, lambda: _skewed_relations(200, 5, 0, 0.6, (), 3),
+               16, 8),
+}
+
+
+def _transr_inputs(case, seed=0):
+    """The case's relations and float32 rows, tables and cotangents."""
+    n, n_rel, make, d, k = TRANSR_CASES[case]
+    gen = torch.Generator().manual_seed(seed)
+    rows = [torch.randn(n, d, generator=gen) * 0.3 for _ in range(3)]
+    tables = [torch.randn(n_rel, k, generator=gen) * 0.3,
+              torch.randn(n_rel, d, k, generator=gen) * 0.2]
+    cots = [torch.randn(n, k, generator=gen) for _ in range(4)]
+    return make(), n_rel, rows, tables, cots
+
+
+def _transr_op(r, rows, tables, cots):
+    """The op's four outputs and the five gradients, on the inputs'
+    device."""
+    leaves = [t.clone().requires_grad_() for t in rows + tables]
+    outs = transr.transr_project(*leaves, r)
+    torch.autograd.backward(outs, cots)
+    return [o.detach() for o in outs], [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("case", TRANSR_CASES)
+def test_transr_matches_float64_plain(dev, case):
+    """The plan equals its plain version; the four outputs and the five
+    gradients (the rows', rel_embed's and w_rel's summed by relation)
+    against the plain versions in float64, within n 2^-23 sum|terms| per
+    output of n terms (e_r exactly); zeros for an absent relation."""
+    r, n_rel, rows, tables, cots = _transr_inputs(case)
+    rd = r.to(dev)
+    plan = transr.transr_plan(rd, n_rel)
+    want_plan = transr.transr_plan_plain(r, n_rel)
+    for a, b in zip(plan.tensors, want_plan.tensors):
+        assert torch.equal(a.cpu(), b)
+    build.launch_counts.clear()
+    outs, grads = _transr_op(rd, [t.to(dev) for t in rows],
+                             [t.to(dev) for t in tables],
+                             [t.to(dev) for t in cots])
+    torch.cuda.synchronize()
+    assert dict(build.launch_counts) == {k: 1 for k in transr.CUDA_LAUNCHES}
+    r64 = [t.double() for t in rows + tables]
+    a64 = [t.abs() for t in r64]
+    c64 = [t.double() for t in cots]
+    n, d = rows[0].shape
+    k = tables[0].shape[1]
+    want = transr.transr_forward_plain(*r64, r)
+    terms = transr.transr_forward_plain(*a64, r)
+    for i, what in enumerate(("ph", "pp", "pn")):
+        _assert_within(outs[i].cpu(), want[i],
+                       _higham(want[i], terms[i], torch.full((n,), d)), what)
+    assert torch.equal(outs[3].cpu(), tables[0][r])
+    want = transr.transr_backward_plain(*r64[:3], r64[4], r, *c64)
+    terms = transr.transr_backward_plain(*a64[:3], a64[4], r,
+                                         *(t.abs() for t in c64))
+    counts = torch.bincount(r, minlength=n_rel).double()
+    for got, w, t, rows_n, what in zip(
+            grads, want, terms,
+            (torch.full((n,), k),) * 3 + (counts, 3 * counts),
+            ("d eh", "d ep", "d en", "d rel_embed", "d w_rel")):
+        got, w, t = (x.reshape(x.shape[0], -1) for x in (got.cpu(), w, t))
+        _assert_within(got, w, _higham(w, t, rows_n.double()), what)
+    absent = counts == 0
+    assert not grads[3].cpu()[absent].any()
+    assert not grads[4].cpu()[absent].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16,
+                                   torch.float16])
+def test_transr_raises_for_tables_not_float32(dev, dtype):
+    """On the hopper backend, CUDA tables of another dtype than float32
+    raise: the op takes no plain path on the card."""
+    cfg = kgat.KGATConfig(embed_dim=16, relation_dim=8, ops_backend="hopper")
+    model = kgat.init_params(50, 4, cfg,
+                             generator=torch.Generator().manual_seed(0),
+                             device=dev).to(dtype)
+    gen = torch.Generator().manual_seed(1)
+    h, r, tp, tn = (torch.randint(0, n, (32,), generator=gen).to(dev)
+                    for n in (50, 4, 50, 50))
+    with pytest.raises(ValueError, match="transr_forward"):
+        kgat.kg_loss(model, h, r, tp, tn, cfg)
+
+
+def test_transr_is_bit_identical_and_replays_from_a_graph(dev):
+    """Two eager calls give the same bits, and a call captured in a CUDA
+    graph and replayed gives those bits too."""
+    r, _, rows, tables, cots = _transr_inputs("skewed")
+    r = r.to(dev)
+    rows, tables, cots = ([t.to(dev) for t in ts]
+                          for ts in (rows, tables, cots))
+    first = _transr_op(r, rows, tables, cots)
+    second = _transr_op(r, rows, tables, cots)
+    leaves = [t.clone().requires_grad_() for t in rows + tables]
+
+    def step():
+        for t in leaves:
+            t.grad = None
+        outs = transr.transr_project(*leaves, r)
+        torch.autograd.backward(outs, cots)
+        return [o.detach() for o in outs]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    for t in leaves:
+        t.grad = torch.zeros_like(t)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = transr.transr_project(*leaves, r)
+        torch.autograd.backward(outs, cots)
+    for t in leaves:
+        t.grad.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    replayed = ([o.detach() for o in outs], [t.grad for t in leaves])
+    for other in (second, replayed):
+        for a, b in zip(first[0] + first[1], other[0] + other[1]):
+            assert torch.equal(a, b)
+
+
+def test_replayed_kg_step_gathers_only_entity_rows(dev):
+    """The trainer's captured KG step takes the kernel route: the TransR
+    op's four kernels, three indexing_backward launches (the entity rows
+    h, t+ and t-; none for w_rel or rel_embed), no kernel named like K1's
+    (the benchmark's K1 roofline reads those names); the route counted at
+    the warm-up and the capture, never the plain one."""
+    from chip_smoke import graph_kernel_names
+    from kgat_tpu_torch.utils import trace
+    tr = _trainer()
+    before = trace.summary()["counts"]
+    tr.kg_steps.capture()
+    after = trace.summary()["counts"]
+    assert after.get("kg.transr_kernel", 0) == before.get(
+        "kg.transr_kernel", 0) + 2
+    assert after.get("kg.transr_plain", 0) == before.get("kg.transr_plain", 0)
+    names = graph_kernel_names(tr.kg_steps.graph.raw_cuda_graph())
+    count = lambda s: sum(s in n for n in names)  # noqa: E731
+    assert count("indexing_backward_kernel") == 3
+    assert count("csr_units_kernel") == count("fixup_kernel") == 0
+    for name in ("transr_plan_kernel", "transr_fwd_kernel",
+                 "transr_bwd_units_kernel", "transr_bwd_fold_kernel"):
+        assert count(name) == 1, name
+    assert tr.kg_steps.calls == {k: 1 for k in transr.CUDA_LAUNCHES}
+    tr.kg_steps.replay()
+    torch.cuda.synchronize()
+
+
+def test_kg_loss_kernel_route_writes_no_relation_matrices(dev):
+    """At the benchmark's KG batch and widths, the kernel route's loss and
+    gradients against the float64 plain path, and its peak memory: under
+    one (B, d, k) float32 tensor more than the parameters hold, where the
+    plain float32 path allocates several."""
+    cfg = kgat.KGATConfig(ops_backend="hopper")
+    n_nodes, n_rel, B = 5000, 20, 2048
+    model = kgat.init_params(n_nodes, n_rel, cfg,
+                             generator=torch.Generator().manual_seed(0),
+                             device=dev)
+    gen = torch.Generator().manual_seed(1)
+    h, tp, tn = (torch.randint(0, n_nodes, (B,), generator=gen).to(dev)
+                 for _ in range(3))
+    r = _skewed_relations(B, n_rel, 18, 0.4, (), 4).to(dev)
+    params = [model.entity_embed, model.rel_embed, model.w_rel]
+
+    def run(c, m=model, ps=params):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = kgat.kg_loss(m, h, r, tp, tn, c)
+        grads = torch.autograd.grad(loss, ps)
+        torch.cuda.synchronize()
+        return loss.detach(), grads, torch.cuda.max_memory_allocated() - base
+    build.launch_counts.clear()
+    loss, grads, peak = run(cfg)
+    assert dict(build.launch_counts) == {k: 1 for k in transr.CUDA_LAUNCHES}
+    plain = dataclasses.replace(cfg, ops_backend="ref")
+    _, _, peak_plain = run(plain)
+    m64 = copy.deepcopy(model).double()
+    loss64, grads64, _ = run(plain, m64, [m64.entity_embed, m64.rel_embed,
+                                          m64.w_rel])
+    bdk = B * cfg.embed_dim * cfg.relation_dim * 4
+    assert peak < bdk <= peak_plain / 2, (peak, peak_plain)
+    assert abs(float(loss) - float(loss64)) <= 1e-5 * abs(float(loss64))
+    for g, g64 in zip(grads, grads64):
+        err = float((g.double() - g64).abs().max())
+        assert err <= 1e-4 * float(g64.abs().max())
 
 
 # ---------------------------------------------------------------------------

@@ -95,6 +95,24 @@ def test_kg_terms_project_with_rounded_operands():
     torch.testing.assert_close(ssq, want[1], rtol=1e-5, atol=1e-6)
 
 
+def test_hopper_kg_route_projects_with_rounded_operands(monkeypatch):
+    """On the hopper backend the KG loss goes through the TransR op; the
+    tool's replacement of it gives the tool's rounded KG terms, as on the
+    ref backend."""
+    monkeypatch.setattr(tdp.transr, "transr_project", tdp.transr_project)
+    cfg = KGATConfig(embed_dim=16, relation_dim=8, ops_backend="hopper")
+    model = kgat.init_params(30, 5, cfg,
+                             generator=torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(4)
+    h, r, tp, tn = (torch.randint(0, n, (12,), generator=g)
+                    for n in (30, 5, 30, 30))
+    pair, ssq = kgat.kg_pair_terms(model, h, r, tp, tn, cfg)
+    emb = model.entity_embed
+    want = tdp.kg_pair_terms_rows(emb[h], emb[tp], emb[tn],
+                                  model.rel_embed[r], model.w_rel[r])
+    assert torch.equal(pair, want[0]) and torch.equal(ssq, want[1])
+
+
 def test_trainer_runs_through_the_tool(tmp_path):
     """One CPU epoch through the script, whose log ends in an eval and a
     ``done`` event, with the three replacements installed in its process

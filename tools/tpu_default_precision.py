@@ -10,11 +10,13 @@ products run at DEFAULT there:
   here ``kgat_tpu_torch.models.kgat.aggregate``;
 * the TransR projection of the KG loss (``kgat_tpu/models/kgat.py:319``),
   here ``kg_pair_terms_rows`` (and its copy in ``optim``, which the
-  ``--sparse-adam`` KG step calls);
+  ``--sparse-adam`` KG step calls) and, on the hopper backend, the op
+  ``ops/hopper/transr.py::transr_project``, whose kernels compute in
+  float32 (here the per-pair gather and one-pass products);
 * the evaluation's scores (``kgat_tpu/eval.py:88``), here
   ``kgat_tpu_torch.eval.evaluate``.
 
-This script replaces those three functions, in its own process, by
+This script replaces those functions, in its own process, by
 versions whose products round both operands to bf16 (round to nearest
 even) and multiply in float32, forward and backward: the product of two
 bf16 values is exact in float32, so this is the MXU's one pass with
@@ -43,6 +45,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from kgat_tpu_torch import eval as evaluation  # noqa: E402
 from kgat_tpu_torch import optim, train  # noqa: E402
 from kgat_tpu_torch.models import kgat  # noqa: E402
+from kgat_tpu_torch.ops.hopper import transr  # noqa: E402
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -102,6 +105,14 @@ def kg_pair_terms_rows(eh, ep, en, e_r, w_r):
     return pair, ssq
 
 
+def transr_project(eh, ep, en, rel_embed, w_rel, r):
+    """``transr.transr_project`` with the TransR projection at DEFAULT
+    precision, on the per-pair gather of the plain path."""
+    w_r = w_rel[r]
+    proj = lambda e: one_pass("bd,bdk->bk", e, w_r)  # noqa: E731
+    return proj(eh), proj(ep), proj(en), rel_embed[r]
+
+
 _evaluate = evaluation.evaluate
 
 
@@ -113,9 +124,10 @@ def evaluate(all_embed, meta, plan, k=20, ks=()):
 
 
 def install() -> None:
-    """Replaces the three functions in the modules that call them."""
+    """Replaces the functions in the modules that call them."""
     kgat.aggregate = aggregate
     kgat.kg_pair_terms_rows = optim.kg_pair_terms_rows = kg_pair_terms_rows
+    transr.transr_project = transr_project
     evaluation.evaluate = evaluate
 
 
