@@ -14,6 +14,11 @@ batch left out (its weight set to 0, the mean over the rest). Prints,
 and writes to ``--out``, every reading and, for each number, the largest
 of the program's and the smallest of each stand-in's.
 
+A cell whose traffic has ``processes`` > 1 runs here as it does in a
+benchmark run, one process per card (``launch.group``): every process
+drives its share of each seed's first steps, and process 0 alone reads
+the reference, the control and the fault, while the others wait for it.
+
 The benchmark's runs never run this; its readings and the limits set
 from them are in PERF.md.
 """
@@ -27,8 +32,12 @@ import time
 
 import torch
 
-from benchmark import checks, reference, run, train_cell, weights
+from benchmark import checks, launch, reference, run, train_cell, weights
 from benchmark.spec import Spec
+
+
+# A group's peers wait this long for process 0's readings of a seed.
+GROUP_TIMEOUT_S = 1800
 
 
 def _seeds(text: str):
@@ -50,7 +59,9 @@ def _summary(readings: dict) -> dict:
 def train(ctx, seeds, control_seeds) -> dict:
     s = train_cell.setup(ctx, ctx.stages.mark)
     t, data = s["trainer"], s["data"]
-    g = train_cell.reference_graph(data, ctx.config["model"], ctx.device)
+    lead = ctx.rank == 0
+    g = (train_cell.reference_graph(data, ctx.config["model"], ctx.device)
+         if lead else None)
     shapes = weights.leaf_shapes(ctx.config["model"], data.n_nodes,
                                  data.n_relations)
     readings = {"program": {}, "control": {}, "half_batch": {},
@@ -61,37 +72,67 @@ def train(ctx, seeds, control_seeds) -> dict:
             first, init = s["first"], s["init"]
         else:
             init = weights.make(seed, 0, shapes, t.device)
-            weights.copy_into(t.model, init)
-            for st in t.opt.state.values():
-                for v in st.values():
-                    v.zero_()
-            t.generator.manual_seed(weights.derive(seed, 1))
+            _restart(t, init, seed)
             first = train_cell.FirstSteps(t)
             first.run()
-        readings["program"][seed] = train_cell.compare(ctx, data, first,
-                                                       init, g)
-        ref = train_cell.follow(ctx, data, first, init, g, ctx.precision)
-        _leaves(seed, first, ref, init)
-        prog = {"params": first.params}
-        readings["change_worst"][seed] = {
-            "change_worst_gap": checks.change_gaps(prog, ref, init)["worst"]}
-        if seed not in control_seeds:
-            continue
-        again = train_cell.follow(ctx, data, first, init, g, ctx.precision)
-        readings["reference_again"][seed] = checks.train_numbers(
-            again, ref, init)
-        low = train_cell.follow(ctx, data, first, init, g,
-                                ctx.precision.lower())
-        readings["control"][seed] = checks.train_numbers(low, ref, init)
-        readings["change_worst_control"][seed] = {
-            "change_worst_gap": checks.change_gaps(low, ref, init)["worst"]}
-        half = _Half(first)
-        cut = train_cell.follow(ctx, data, half, init, g, ctx.precision)
-        readings["half_batch"][seed] = checks.train_numbers(cut, ref, init)
-        print(f"seed {seed}: {readings['program'][seed]} control "
-              f"{readings['control'][seed]} half "
-              f"{readings['half_batch'][seed]}", file=sys.stderr, flush=True)
+        if lead:
+            _read(ctx, data, first, init, g, seed, seed in control_seeds,
+                  readings)
+        if t.grouped:
+            from kgat_tpu_torch.parallel import multihost
+            multihost.barrier(t.device)
+    # Every process drops its captured steps before its group ends, as a
+    # benchmark run does (``train_cell.free``).
+    del t
+    train_cell.free(s)
     return readings
+
+
+def _restart(t, init, seed) -> None:
+    """The trainer as a fresh run of ``seed`` would start its first steps:
+    its weights, Adam's state zeroed, its generators seeded as
+    ``train_cell.trainer_config`` and the trainer seed them."""
+    weights.copy_into(t.model, init)
+    for st in t.opt.state.values():
+        for v in st.values():
+            v.zero_()
+    base = weights.derive(seed, 1)
+    t.generator.manual_seed(base)
+    for i, gen in enumerate(t.part_generators):
+        if gen is not None:
+            gen.manual_seed(base + 1 + i)
+
+
+def _read(ctx, data, first, init, g, seed, control: bool,
+          readings) -> None:
+    """One seed's readings: the program's, and on a control seed the
+    control's, the fault's and the reference's against itself."""
+    readings["program"][seed] = train_cell.compare(ctx, data, first, init, g)
+    ref = train_cell.follow(ctx, data, first, init, g, ctx.precision)
+    _leaves(seed, first, ref, init)
+    print(f"seed {seed} loss gap by step: " + ", ".join(
+        f"{k} {abs(a - b) / abs(b):.3g} (loss {b:.6g})" for k, a, b in zip(
+            train_cell.CHECK_STEPS, first.losses, ref["losses"])),
+        file=sys.stderr, flush=True)
+    prog = {"params": first.params}
+    readings["change_worst"][seed] = {
+        "change_worst_gap": checks.change_gaps(prog, ref, init)["worst"]}
+    if not control:
+        return
+    again = train_cell.follow(ctx, data, first, init, g, ctx.precision)
+    readings["reference_again"][seed] = checks.train_numbers(
+        again, ref, init)
+    low = train_cell.follow(ctx, data, first, init, g,
+                            ctx.precision.lower())
+    readings["control"][seed] = checks.train_numbers(low, ref, init)
+    readings["change_worst_control"][seed] = {
+        "change_worst_gap": checks.change_gaps(low, ref, init)["worst"]}
+    half = _Half(first)
+    cut = train_cell.follow(ctx, data, half, init, g, ctx.precision)
+    readings["half_batch"][seed] = checks.train_numbers(cut, ref, init)
+    print(f"seed {seed}: {readings['program'][seed]} control "
+          f"{readings['control'][seed]} half "
+          f"{readings['half_batch'][seed]}", file=sys.stderr, flush=True)
 
 
 def _leaves(seed, first, ref, init) -> None:
@@ -167,24 +208,16 @@ def serve(ctx, seeds, control_seeds) -> dict:
     return readings
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--workload", required=True)
-    p.add_argument("--seeds", required=True)
-    p.add_argument("--control-seeds", default="")
-    p.add_argument("--out", default=None)
-    a = p.parse_args(argv)
-    spec = Spec()
-    run.cache_env(spec)
-    if not torch.cuda.is_available():
-        print("calibrate: CUDA is not available", file=sys.stderr)
-        return 2
+def calibrate(spec, a, rank: int) -> int:
+    """This process's part: all of it, or its share of a group's."""
     seeds, control = _seeds(a.seeds), set(_seeds(a.control_seeds))
     ctx = run.Context(spec, a.workload, seeds[0], 16.0, False,
-                      torch.device("cuda", 0))
+                      torch.device("cuda", rank), rank=rank)
     t0 = time.perf_counter()
     kind = ctx.traffic["kind"]
     readings = (train if kind == "train" else serve)(ctx, seeds, control)
+    if rank != 0:
+        return 0
     out = {"workload": a.workload, "seconds": time.perf_counter() - t0,
            "device": torch.cuda.get_device_name(0),
            "readings": {k: {str(s): v for s, v in r.items()}
@@ -196,6 +229,39 @@ def main(argv=None) -> int:
             f.write(text)
     print(json.dumps(out["summary"]))
     return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--workload", required=True)
+    p.add_argument("--seeds", required=True)
+    p.add_argument("--control-seeds", default="")
+    p.add_argument("--out", default=None)
+    # Set by launch.group on the processes it starts: this process's rank.
+    p.add_argument("--process-id", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    argv = sys.argv[1:] if argv is None else argv
+    a = p.parse_args(argv)
+    spec = Spec()
+    run.cache_env(spec)
+    if not torch.cuda.is_available():
+        print("calibrate: CUDA is not available", file=sys.stderr)
+        return 2
+    procs = int(spec.traffic(spec.workload(a.workload)["traffic"])
+                .get("processes", 1))
+    if torch.cuda.device_count() < procs:
+        print(f"calibrate: {a.workload} needs {procs} cards", file=sys.stderr)
+        return 2
+    if a.process_id is not None:
+        try:
+            return calibrate(spec, a, a.process_id)
+        finally:
+            launch._end_group()
+    if procs > 1:
+        with launch.group(spec, [sys.executable, "-m", "benchmark.calibrate",
+                                 *argv], procs, GROUP_TIMEOUT_S):
+            return calibrate(spec, a, 0)
+    return calibrate(spec, a, 0)
 
 
 if __name__ == "__main__":

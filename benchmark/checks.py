@@ -1,10 +1,10 @@
 """The comparisons that decide ``correct``, and what each one reads.
 
 Each check is (name, value, limit): the run is correct when every value
-is at most its limit. The limits are the cell's
-(``benchmark/limits/<cell>.json``), set from the program's readings over
-a dozen seeds and the control's (``calibrate.py``); PERF.md gives the
-readings beside each limit.
+is at most its limit, or its limit is null (read, not compared). The
+limits are the cell's (``benchmark/limits/<cell>.json``), set from the
+program's readings over a dozen seeds and the control's
+(``calibrate.py``); PERF.md gives the readings beside each limit.
 
 Training (the trainer's first steps, which set-up drives through the
 window's own call, ``StepGraph.run``):
@@ -189,9 +189,11 @@ def serve_numbers(served_items: np.ndarray, served_scores: np.ndarray,
 def verdict(numbers: Dict[str, float], limits: Optional[Dict[str, float]]
             ) -> Tuple[bool, List[Check]]:
     """(correct, checks): each number beside its limit; a number without a
-    limit, or no limits at all, is not correct."""
-    checks = [(k, v, None if limits is None else limits.get(k))
-              for k, v in numbers.items()]
-    ok = all(lim is not None and math.isfinite(v) and v <= lim
-             for _, v, lim in checks)
+    limit, or no limits at all, is not correct. A limit of None (``null``
+    in the file) marks a number that is read and printed but not compared:
+    one that neither the control nor a fault separates from sound runs."""
+    limits = {} if limits is None else limits
+    checks = [(k, v, limits.get(k)) for k, v in numbers.items()]
+    ok = all(k in limits and (lim is None or (math.isfinite(v) and v <= lim))
+             for k, v, lim in checks)
     return ok, checks

@@ -143,6 +143,10 @@ def result_line(ctx: Context, out: Dict, device_info: Dict) -> Dict:
         device["busy_s"] = sum(d["busy_s"] for d in devs) / len(devs)
         device["window_s"] = sum(d["window_s"] for d in devs) / len(devs)
         line["breakdown"] = devs[0]["breakdown"]
+        if len(devs) > 1:
+            # Each card's own busy and traced seconds, process 0's first.
+            line["processes"] = [{"busy_s": d["busy_s"],
+                                  "window_s": d["window_s"]} for d in devs]
     line["window"] = {k: v for k, v in out["window"].items()}
     line["setup_stages"] = ctx.stages.marks
     line["checks"] = {name: {"value": v, "limit": lim}

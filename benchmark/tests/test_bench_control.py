@@ -35,6 +35,17 @@ def test_the_control_fails_the_comparison(tmp_path):
     assert checks.verdict(sound, ctx.limits)[0], sound
 
 
+def test_a_missing_limit_fails_and_a_null_limit_is_not_compared():
+    numbers = {"loss_gap": 1e-3, "grad_gap": 1e-4}
+    assert not checks.verdict(numbers, None)[0]
+    assert not checks.verdict(numbers, {"grad_gap": 4e-3})[0]
+    assert checks.verdict(numbers, {"loss_gap": None, "grad_gap": 4e-3})[0]
+    assert not checks.verdict(numbers, {"loss_gap": None,
+                                        "grad_gap": 1e-5})[0]
+    assert not checks.verdict({"grad_gap": float("nan")},
+                              {"grad_gap": 4e-3})[0]
+
+
 def test_the_serving_control_fails_the_comparison(tmp_path):
     from benchmark import reference, serve_cell
     root = tiny.make_root(tmp_path)
