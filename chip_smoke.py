@@ -33,7 +33,9 @@ Phases, each announced by a line ``[n/15] ...``:
                batch and dropout masks the replay drew); two replays must
                draw different batches; more steps on a fixed batch, whose
                loss must fall; an attention recompute; evaluate(); ms per
-               step, eager and replayed, and launch counts.
+               step, eager and replayed, and launch counts; the Adam
+               kernel's step over the parameters' shapes by replay, its
+               launches and its bound by bytes, beside torch's Adam.
   7. the trainer CLI — ``kgat_tpu_torch.train`` for one epoch of replayed
                steps (the launches of its K1 calls counted from the
                graphs' kernel nodes times the replays), its losses within
@@ -214,7 +216,7 @@ from kgat_tpu_torch.ops.hopper import build
 from kgat_tpu_torch.ops.row_split import CHUNK, build_row_split
 from kgat_tpu_torch.ops.hopper import remote_ring
 from kgat_tpu_torch.ops.hopper.remote_ring import reduce_send, ring_shift
-from kgat_tpu_torch.ops.hopper import sddmm, transr
+from kgat_tpu_torch.ops.hopper import adam, sddmm, transr
 from kgat_tpu_torch.ops.hopper.sddmm import (sddmm_transr, sddmm_transr_bwd,
                                              sddmm_transr_bwd_plain,
                                              sddmm_transr_plain)
@@ -912,11 +914,12 @@ def single_device_nodes(graph, staged):
     (``calls``: name -> count): K1 forward and on the reverse CSR, each
     as many as the row split of the CSR the staged weights ``staged``
     reduce over needs (the graph's, or its coalesced CSRs); the KG step's
-    TransR op, ``transr.CUDA_LAUNCHES``."""
+    TransR op, ``transr.CUDA_LAUNCHES``; each step's Adam,
+    ``adam.CUDA_LAUNCHES``."""
     csr = spmm_csr_of(graph, staged)
     per_call = {"spmm_csr": csr.split.cuda_launches,
                 "spmm_csr_rev": csr.rev_split.cuda_launches,
-                **transr.CUDA_LAUNCHES}
+                **transr.CUDA_LAUNCHES, **adam.CUDA_LAUNCHES}
     return lambda calls: sum(n * per_call[k] for k, n in calls.items())
 
 
@@ -1525,6 +1528,100 @@ def transr_op_ms(trainer, timer):
             timer.replay_ms(op(transr.transr_forward_plain), 20))
 
 
+def adam_bound(p, m0, v0, g, m, v, count, lr):
+    """Elementwise bounds on a float32 Adam step's distance from optax's
+    arithmetic in float64 (``optim._adam``: new ``p``, ``m``, ``v`` from
+    ``m0``, ``v0`` and ``g`` at ``count``), in ``optim._adam``'s order
+    (p, m, v), as ``tests/test_torch_cuda.py`` holds the kernel: m and v
+    within 8 roundings of their terms' magnitudes (b1 |m0| + (1 - b1) |g|,
+    b2 v0 + (1 - b2) g^2); p within 4 roundings of itself, 32 of the
+    update's size lr |u|, u = m^ / (sqrt(v^) + eps) (a handful of
+    operations), and the update that m's bound makes (m may cancel to far
+    below its terms)."""
+    b1, b2 = optim.B1, optim.B2
+    c1 = 1 - b1 ** count
+    denom = (v / (1 - b2 ** count)).sqrt() + optim.EPS
+    m_bound = 8 * U * (b1 * m0.abs() + (1 - b1) * g.abs())
+    return (4 * U * p.abs() + 32 * U * lr * (m / c1 / denom).abs()
+            + lr * m_bound / c1 / denom, m_bound,
+            8 * U * (b2 * v0 + (1 - b2) * g ** 2))
+
+
+def adam_step_ms(trainer, timer, dev, check):
+    """One Adam step over tensors of the trainer's parameters' shapes:
+    (ms of ``optim.make_optimizer``'s step, of torch's capturable
+    multi-tensor Adam, of torch's fused Adam, the values, the step's CUDA
+    launches of the port's kernels, its bound in ms by bytes, the worst
+    error of two checked steps as a share of :func:`adam_bound`). Each
+    timed by CUDA-graph replay; the torch steps on the card only (None on
+    the CPU, where ``make_optimizer`` is torch's and nothing launches).
+
+    Before the timing, two steps from nonzero moments are held against
+    ``optim._adam`` in float64, every parameter's value and moments: the
+    first with each gradient in a tensor of its own (the kernel's float4
+    route), the second with the gradients as views of one flat buffer one
+    value off a 16-byte boundary, as ``multihost.GradSum`` may lay them
+    out (its scalar route, and a new plan). The shared count must read 1,
+    then 2, exactly."""
+    gen = torch.Generator().manual_seed(0)
+    rand = lambda shape: torch.randn(shape, generator=gen).to(dev)  # noqa
+    params = [rand(p.shape).requires_grad_()
+              for p in trainer.model.parameters()]
+    n = sum(p.numel() for p in params)
+    lr = trainer.cfg.lr
+    opt = optim.make_optimizer(params, lr)
+    own = [p.grad for p in params]
+    flat = torch.empty(n + 1, device=dev)
+    offsets = np.cumsum([1] + [p.numel() for p in params])
+    views = [flat[a:b].view_as(p)
+             for a, b, p in zip(offsets[:-1], offsets[1:], params)]
+    for p in params:
+        opt.state[p]["exp_avg"].copy_(0.1 * rand(p.shape))
+        opt.state[p]["exp_avg_sq"].copy_(1e-3 * rand(p.shape) ** 2)
+    share = 0.0
+    for count, grads in ((1, own), (2, views)):
+        for p, g in zip(params, grads):
+            p.grad = g
+            g.copy_(rand(p.shape))
+        before = [(p.detach().double(), p.grad.double(),
+                   opt.state[p]["exp_avg"].double(),
+                   opt.state[p]["exp_avg_sq"].double()) for p in params]
+        opt.step()
+        for i, (p, (p0, g0, m0, v0)) in enumerate(zip(params, before)):
+            st = opt.state[p]
+            if float(st["step"]) != count:
+                raise AssertionError(f"Adam step {count}: parameter {i}'s "
+                                     f"count reads {float(st['step'])}")
+            want = optim._adam(p0, g0, m0, v0, float(count), lr, optim.B1,
+                               optim.B2, optim.EPS)
+            for what, got, w, bound in zip(
+                    ("value", "exp_avg", "exp_avg_sq"),
+                    (p.detach(), st["exp_avg"], st["exp_avg_sq"]), want,
+                    adam_bound(want[0], m0, v0, g0, want[1], want[2],
+                               float(count), lr)):
+                share = max(share, check.bounded(
+                    "Adam step", f"parameter {i} {what} step {count}", got,
+                    w, bound)[2])
+        del before
+    for p, g in zip(params, own):
+        p.grad = g
+    ms = [timer.replay_ms(opt.step, 20)]
+    launches = timer.kernel_launches(opt.step)
+    if launches is not None and launches != adam.CUDA_LAUNCHES["adam"]:
+        raise AssertionError(f"Adam step: {launches} CUDA launches")
+    for kw in (dict(foreach=True), dict(fused=True)):
+        if dev.type != "cuda":
+            ms.append(None)
+            continue
+        lib = torch.optim.Adam(params, lr=trainer.cfg.lr,
+                               betas=(optim.B1, optim.B2), eps=optim.EPS,
+                               capturable=True, **kw)
+        ms.append(timer.replay_ms(lib.step, 20))
+        del lib
+    bound = adam.BYTES_PER_VALUE * n / HBM_BYTES_PER_S * 1e3
+    return (*ms, n, launches, bound, share)
+
+
 def phase_train_steps(trainer, sizes, check, timer, dev) -> str:
     """The first CF and KG steps, eager on the kernel path and replayed
     from their CUDA graphs, each against the plain path in float64 on the
@@ -1632,6 +1729,11 @@ def phase_train_steps(trainer, sizes, check, timer, dev) -> str:
     kg_ms = timer.host_ms(lambda: trainer.kg_step(*trainer.sample_kg()), 10)
     kg_replay_ms = timer.host_ms(lambda: replayed_step(trainer.kg_steps), 20)
     transr_ms = transr_op_ms(trainer, timer)
+    (adam_ms, multi_ms, fused_ms, n_values, adam_launches, adam_ms_bound,
+     adam_share) = adam_step_ms(trainer, timer, dev, check)
+    torch_ms = ("" if multi_ms is None else
+                f"; torch's capturable multi-tensor Adam {multi_ms:.4f} ms, "
+                f"fused {fused_ms:.4f} ms")
     build.launch_counts.clear()
     trainer._att = trainer.attention()
     recompute_launches = dict(build.launch_counts)
@@ -1657,7 +1759,11 @@ def phase_train_steps(trainer, sizes, check, timer, dev) -> str:
             f"replayed (plain path {cf_plain_ms:.2f} ms), KG step "
             f"{kg_ms:.2f} ms eager, {kg_replay_ms:.2f} ms replayed, its "
             f"TransR op forward and backward {transr_ms[0]:.4f} ms by "
-            f"replay (plain path {transr_ms[1]:.4f} ms), "
+            f"replay (plain path {transr_ms[1]:.4f} ms), Adam step over "
+            f"{n_values} values {adam_ms:.4f} ms by replay ({adam_launches} "
+            f"CUDA launches; bound {adam_ms_bound:.4f} ms by bytes, "
+            f"{adam.BYTES_PER_VALUE} a value{torch_ms}; two steps against "
+            f"float64 worst {adam_share:.3f} of their bound), "
             f"attention recompute {att_ms:.2f} ms (launches "
             f"{recompute_launches}), evaluate {eval_s:.2f} s: recall@20 "
             f"{metrics['recall']:.4f}, ndcg@20 {metrics['ndcg']:.4f}")
@@ -1771,7 +1877,8 @@ def partitioned_nodes(part, n_layers):
     kernel nodes of its captured graph: in a CF step each K1, K6 and K8
     call as many as its CSR's row split needs (the all-gather's: each
     shard's coalesced CSRs when coalescing), each K7 call one; in a KG
-    step the TransR op's, ``transr.CUDA_LAUNCHES``."""
+    step the TransR op's, ``transr.CUDA_LAUNCHES``; in each, Adam's,
+    ``adam.CUDA_LAUNCHES``."""
     n, P = 0, part.n_parts
     for d in range(part.n_rows):
         for p in range(P):
@@ -1787,9 +1894,10 @@ def partitioned_nodes(part, n_layers):
                 n += g.split.cuda_launches + g.rev_split.cuda_launches
 
     def nodes(calls):
-        kg = {k: c for k, c in calls.items() if k in transr.CUDA_LAUNCHES}
+        own = {**transr.CUDA_LAUNCHES, **adam.CUDA_LAUNCHES}
+        kg = {k: c for k, c in calls.items() if k in own}
         return (n_layers * n if len(kg) < len(calls) else 0) + sum(
-            c * transr.CUDA_LAUNCHES[k] for k, c in kg.items())
+            c * own[k] for k, c in kg.items())
     return nodes
 
 
@@ -2027,8 +2135,9 @@ def replay_against_eager(tmp, ds, sizes, dev, timer, exchange, transport):
     build.launch_counts.clear()
     for steps in (tr.cf_steps, tr.kg_steps):
         steps.run(1)            # the warm-up step, then the capture
-    if dev.type == "cuda" and tr.cf_steps.calls != partitioned_launches(
-            exchange, transport, L, P_PARTS):
+    if dev.type == "cuda" and tr.cf_steps.calls != {
+            **partitioned_launches(exchange, transport, L, P_PARTS),
+            **adam.CUDA_LAUNCHES}:
         raise AssertionError(f"{exchange}/{transport}: captured calls "
                              f"{tr.cf_steps.calls}")
     params = list(tr.model.parameters())
@@ -2237,8 +2346,10 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
     kg_grads = torch.autograd.grad(kg_loss, params, allow_unused=True)
     kg_loss_p, grads_p, terms = plain_grads(model, lambda m: kgat.kg_loss(
         m, *kg_batch[:4], plain, weight=kg_batch[4]))
+    # The entity rows' gradient comes back sparse (kgat.gather_rows).
     kg_errs = compare_step("KG partitioned", kg_loss.item(), kg_loss_p,
-                           names, [torch.zeros_like(p) if gp is None else gp
+                           names, [torch.zeros_like(p) if gp is None
+                                   else gp.to_dense()
                                    for p, gp in zip(params, kg_grads)],
                            grads_p, terms, check, length)
     print(f"[8/15] KG step (batch {kg_batch[0].numel()}) against the float64 "
@@ -2292,12 +2403,13 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
     evalf = partitioned_launches("ring", "fused", L, P, backward=False)
     # Per CF step a forward and backward; the eval forward once; K2 and K3
     # on every shard at the epoch's two attention recomputes; the TransR
-    # op's wrappers once per KG step.
+    # op's wrappers once per KG step; Adam once per step.
     want_launches = {k: n_cf * step.get(k, 0) + evalf.get(k, 0)
                      for k in {*step, *evalf}}
     want_launches.update(sddmm_transr=2 * P, segment_softmax_csr=2 * P)
     want_launches.update({k: start["kg_batches"]
                           for k in transr.CUDA_LAUNCHES})
+    want_launches["adam"] = n_cf + start["kg_batches"]
     expect_exact(dev, launches, want_launches, "partitioned trainer CLI")
     print(f"[8/15] partitioned trainer CLI (python -m kgat_tpu_torch.train "
           f"{' '.join(argv[argv.index('--n-devices'):])}): 1 epoch of "

@@ -206,8 +206,8 @@ def fixed_batch(meta, batch: int, device):
 class CFStep:
     """One CF training step as the trainer takes it (``train.Trainer``'s
     ``cf_step``): ``.grad`` zeroed in place, ``loss()`` (which draws its
-    dropout masks), backward, one Adam step of ``optim.make_optimizer``
-    (capturable where the step is captured). :meth:`replayed` runs it
+    dropout masks), backward, one Adam step of ``optim.make_optimizer``.
+    :meth:`replayed` runs it
     through a :class:`train.StepGraph` holding ``generators``: on CUDA
     the first call runs the eager warm-up step and captures the second,
     and every later call is one replay; on the CPU, or with ``capture``
@@ -217,8 +217,7 @@ class CFStep:
                  generators: Sequence[torch.Generator], device: torch.device,
                  capture: bool = True):
         self.loss = loss
-        self.opt = make_optimizer(model.parameters(), LR, capturable=(
-            capture and device.type == "cuda"))
+        self.opt = make_optimizer(model.parameters(), LR)
         self.steps = StepGraph(self.body, generators, device,
                                capture=capture)
 

@@ -73,7 +73,7 @@ def train_bprmf(cf_train: np.ndarray, n_users: int, n_items: int, *,
     params = init_mf_params(n_users, n_items, dim,
                             generator=torch.Generator().manual_seed(seed),
                             device=dev)
-    opt = make_optimizer(params.values(), lr, capturable=dev.type == "cuda")
+    opt = make_optimizer(params.values(), lr)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def step() -> torch.Tensor:

@@ -419,6 +419,19 @@ def kg_pair_terms_projected(ph: torch.Tensor, pp: torch.Tensor,
     return pair, ssq
 
 
+def gather_rows(table: torch.Tensor, ids: Sequence[torch.Tensor]
+                ) -> Tuple[torch.Tensor, ...]:
+    """The rows of ``table`` at each index tensor of ``ids``, gathered at
+    once. Their gradient reaches ``table`` as a sparse COO tensor of the
+    gathered rows, duplicate ids left unsummed, which autograd adds into a
+    dense ``.grad`` in place, row by row (an ``index_add_``): no (rows, d)
+    temporary, no whole-table add, and ``.grad`` keeps its address.
+    Without a ``.grad`` to add into, ``table.grad`` (or
+    ``torch.autograd.grad``'s result) is that sparse tensor."""
+    rows = F.embedding(torch.cat(list(ids)), table, sparse=True)
+    return rows.split([i.numel() for i in ids])
+
+
 def kg_pair_terms(model: KGAT, h: torch.Tensor, r: torch.Tensor,
                   t_pos: torch.Tensor, t_neg: torch.Tensor, cfg: KGATConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -427,14 +440,26 @@ def kg_pair_terms(model: KGAT, h: torch.Tensor, r: torch.Tensor,
     gradients are one op, ``ops.hopper.transr.transr_project`` (its
     kernels on CUDA, which take float32 tables alone); on the ref backend
     the rows of ``w_rel`` and ``rel_embed`` are gathered per pair, counted
-    as ``kg.transr_plain``."""
+    as ``kg.transr_plain``.
+
+    The hopper backend on CUDA gathers the 3B entity rows at once, with a
+    sparse gradient (:func:`gather_rows`), so ``torch.autograd.grad``
+    returns ``entity_embed``'s gradient as a sparse tensor there. CPU
+    tensors and the ref backend gather one index tensor at a time, with
+    dense gradients: the hopper route on the CPU is held to the ref route
+    bit for bit (``tests/test_torch_transr.py::
+    test_plain_route_is_the_gathered_path``), and CPU callers read a dense
+    gradient (``tests/test_torch_multihost.py::
+    test_kg_step_matches_kgat_tpu``)."""
     emb, rel, w_rel = model.entity_embed, model.rel_embed, model.w_rel
-    eh, ep, en = emb[h], emb[t_pos], emb[t_neg]
+    rows = (gather_rows(emb, (h, t_pos, t_neg))
+            if emb.is_cuda and cfg.ops_backend == "hopper"
+            else (emb[h], emb[t_pos], emb[t_neg]))
     if cfg.ops_backend == "hopper":
         return kg_pair_terms_projected(*transr.transr_project(
-            eh, ep, en, rel, w_rel, r))
+            *rows, rel, w_rel, r))
     trace.count("kg.transr_plain")
-    return kg_pair_terms_rows(eh, ep, en, rel[r], w_rel[r])
+    return kg_pair_terms_rows(*rows, rel[r], w_rel[r])
 
 
 def kg_loss(model: KGAT, h: torch.Tensor, r: torch.Tensor,

@@ -11,6 +11,8 @@
   K8 remote_ring.reduce_send        <- kgat_tpu/ops/pallas/remote_ring.py::_reduce_send_kernel
      transr.transr_project          (no TPU kernel: the KG loss's TransR
                                     projection and its relation gradients)
+     adam.adam_step                 (no TPU kernel: the trainer's Adam step,
+                                    one launch over every parameter)
 
 K1, K6, K8 and K4's fold share one row reduction (``csrc/row_reduce.cuh``),
 which walks the work units of a CSR's row split (``ops/row_split.py``);
@@ -18,8 +20,9 @@ K3 walks the same units. The caller passes the split that was built with
 the CSR. K2 and K4 share their TF32 products on the tensor cores
 (``csrc/tf32_mma.cuh``).
 
-Each wrapper has a plain PyTorch version beside it (``*_plain``), which it
-uses only for tensors on the CPU. ``build.launch_counts`` counts kernel
+Each wrapper but ``adam_step`` has a plain PyTorch version beside it
+(``*_plain``), which it uses only for tensors on the CPU; Adam's plain
+version is ``optim._adam``, and the CPU keeps ``torch.optim.Adam``. ``build.launch_counts`` counts kernel
 launches per wrapper. ``segment_sum.spmm``, ``sddmm.attention_logits`` and
 ``softmax.segment_softmax`` are the differentiable ops built on them.
 """

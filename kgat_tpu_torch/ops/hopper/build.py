@@ -83,6 +83,10 @@ _SIGNATURES = {
     # units, n_units, unit_offsets, perm, eh, ep, en, w_rel, gph, gpp, gpn,
     # ger, geh, gep, gen, partials, d_w, d_er, n_rel, d, k, stream
     "kgat_transr_bwd": (_P, _I) + (_P,) * 16 + (_I,) * 3 + (_P,),
+    # The trainer's Adam step: tensors, n_tensors, chunk_tensor, n_chunks,
+    # step, ticket, lr, b1, b2, eps, stream; and its values per block.
+    "kgat_adam": (_P, _I, _P, _I, _P, _P) + (ctypes.c_double,) * 4 + (_P,),
+    "kgat_adam_chunk": (),
 }
 
 

@@ -3,7 +3,9 @@
 
 Port of ``kgat_tpu/optim.py``. One ``torch.optim.Adam`` with
 ``optax.adam``'s defaults spans every parameter in both phases
-(:func:`make_optimizer`). ``--sparse-adam`` replaces the KG phase's dense
+(:func:`make_optimizer`); on CUDA its step is one launch of a
+hand-written kernel over every parameter (:class:`KernelAdam`).
+``--sparse-adam`` replaces the KG phase's dense
 Adam pass by :func:`sparse_kg_step`, with TF-LazyAdam semantics: the
 TransR loss touches 3B rows of ``entity_embed`` a batch, and only those
 rows' parameters and moments are updated (duplicate ids' gradients
@@ -31,13 +33,47 @@ import torch
 
 from kgat_tpu_torch.models.kgat import (KGAT, KGATConfig, kg_loss,
                                         kg_pair_terms_rows, weighted_mean)
+from kgat_tpu_torch.ops.hopper import adam
 
 # optax.adam's defaults.
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
-def make_optimizer(params: Iterable[torch.Tensor], lr: float, *,
-                   capturable: bool = False) -> torch.optim.Adam:
+class KernelAdam(torch.optim.Adam):
+    """``torch.optim.Adam`` over parameters on one CUDA device whose step
+    is one launch of ``ops.hopper.adam.adam_step``: optax's arithmetic
+    on each value, gradient and both moments, read once and written once,
+    and the step count advanced on the device in the same launch. Every
+    parameter's state holds one ``step`` tensor, the same for all, beside
+    its own ``exp_avg`` and ``exp_avg_sq``. Nothing is read back to the
+    host, so a CUDA graph captures the step, once a first step outside
+    the capture has built the launch's tables (``adam.plan_for``); they
+    are built again when a parameter's, gradient's or moment's address
+    changes. ``zero_grad`` is torch's, one ``_foreach_zero_`` (hence
+    ``foreach``)."""
+
+    def __init__(self, params, lr: float):
+        super().__init__(params, lr=lr, betas=(B1, B2), eps=EPS,
+                         foreach=True)
+        self._plan: Optional[adam.AdamPlan] = None
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("KernelAdam.step takes no closure")
+        (group,) = self.param_groups
+        params = group["params"]
+        states = [self.state[p] for p in params]
+        self._plan = adam.plan_for(
+            params, [p.grad for p in params],
+            [s["exp_avg"] for s in states], [s["exp_avg_sq"] for s in states],
+            states[0]["step"], self._plan)
+        b1, b2 = group["betas"]
+        adam.adam_step(self._plan, group["lr"], b1, b2, group["eps"])
+
+
+def make_optimizer(params: Iterable[torch.Tensor],
+                   lr: float) -> torch.optim.Adam:
     """One Adam over every parameter with ``optax.adam``'s defaults (b1
     0.9, b2 0.999, eps 1e-8 outside the square root). Each parameter gets a
     zero ``.grad`` now, and the steps zero it in place (``zero_grad(
@@ -46,20 +82,32 @@ def make_optimizer(params: Iterable[torch.Tensor], lr: float, *,
     share one step count. The state (``step``, ``exp_avg``,
     ``exp_avg_sq``) is made now as Adam's first step would make it, so a
     checkpoint loads into it and :func:`sparse_kg_step` finds it before
-    any dense step. ``capturable``: the step counts live on the
-    parameters' device and Adam reads none back to the host, as a CUDA
-    graph needs (on CUDA only)."""
+    any dense step. Parameters on CUDA take :class:`KernelAdam`, whose
+    parameters hold one ``step`` tensor on the device; the CPU keeps
+    ``torch.optim.Adam``, a ``step`` a parameter on the CPU."""
     params = list(params)
-    opt = torch.optim.Adam(params, lr=lr, betas=(B1, B2), eps=EPS,
-                           capturable=capturable)
+    on_card = bool(params) and all(p.is_cuda for p in params)
+    if on_card:
+        opt = KernelAdam(params, lr)
+        shared = torch.zeros((), dtype=torch.float32,
+                             device=params[0].device)
+    else:
+        opt = torch.optim.Adam(params, lr=lr, betas=(B1, B2), eps=EPS)
     for p in params:
         p.grad = torch.zeros_like(p)
         opt.state[p] = {
-            "step": torch.zeros((), dtype=torch.float32,
-                                device=p.device if capturable else "cpu"),
+            "step": shared if on_card else torch.zeros((),
+                                                       dtype=torch.float32),
             "exp_avg": torch.zeros_like(p),
             "exp_avg_sq": torch.zeros_like(p)}
     return opt
+
+
+def _step_counts(opt: torch.optim.Adam) -> list:
+    """Each distinct ``step`` tensor of ``opt``'s state once (one on
+    CUDA, where the parameters share it; one a parameter on the CPU)."""
+    return list({id(s["step"]): s["step"]
+                 for s in opt.state.values()}.values())
 
 
 def adam_count(opt: torch.optim.Adam) -> int:
@@ -72,9 +120,9 @@ def adam_count(opt: torch.optim.Adam) -> int:
 
 def set_adam_count(opt: torch.optim.Adam, count: int) -> None:
     """Sets every parameter's ``step`` to ``count``, in place (on the
-    device when Adam is capturable)."""
-    for s in opt.state.values():
-        s["step"].fill_(float(count))
+    device on CUDA)."""
+    for step in _step_counts(opt):
+        step.fill_(float(count))
 
 
 def _hyper(opt: torch.optim.Adam) -> Tuple[float, float, float, float]:
@@ -123,8 +171,8 @@ def sparse_kg_step(model: KGAT, opt: torch.optim.Adam, h: torch.Tensor,
         first[1:] = ids[1:] != ids[:-1]
         seg = torch.cumsum(first, 0) - 1
         g_seg = torch.zeros_like(g_rows).index_add_(0, seg, g_rows[order])
-        for s in opt.state.values():
-            s["step"] += 1
+        for step in _step_counts(opt):
+            step += 1
         st = opt.state[emb]
         count = st["step"]
         p2, m2, v2 = _adam(emb[ids], g_seg[seg], st["exp_avg"][ids],

@@ -44,7 +44,8 @@ from ``kgat_tpu``'s host samplers, one step per batch) run eagerly. The
 losses stay on the device through an epoch and are read once at its end.
 
 One ``torch.optim.Adam`` with optax's defaults spans every parameter in
-both phases (``optim.make_optimizer``), and every parameter gets a
+both phases (``optim.make_optimizer``; on CUDA one kernel launch a step,
+``optim.KernelAdam``), and every parameter gets a
 gradient at every step (zeros where the phase does not touch it), because
 optax steps leaves with a zero gradient where torch would skip a parameter
 whose ``.grad`` is None. ``--sparse-adam`` runs the KG phase's update
@@ -294,11 +295,7 @@ class Trainer:
         # loss and gradients, which one all-reduce sums.
         self.sync = self.grouped and self.partitioned
         self.captured, self.capture_why = self._capture_mode()
-        # Adam is capturable where the steps are captured, and only there:
-        # its device-side bias corrections add 38 launches to an eager
-        # step, which gains nothing from them.
-        self.opt = make_optimizer(self.model.parameters(), cfg.lr,
-                                  capturable=self.captured)
+        self.opt = make_optimizer(self.model.parameters(), cfg.lr)
         # After each backward under a process group, the gradients and the
         # loss (this process's shares) are summed over the processes in one
         # all-reduce, the psum of kgat_tpu's steps. It also ends the step on

@@ -35,7 +35,7 @@ from kgat_tpu_torch.ops.hopper.softmax import (segment_softmax_csr,
                                                segment_softmax_csr_bwd_plain,
                                                segment_softmax_csr_plain)
 from kgat_tpu_torch.recommend import disable_tf32
-from kgat_tpu_torch import train
+from kgat_tpu_torch import optim, train
 from kgat_tpu_torch.parallel import multihost
 from kgat_tpu_torch.utils.config import TrainConfig
 
@@ -663,13 +663,191 @@ def test_replayed_steps_match_eager_steps(dev, sparse):
             else:
                 torch.testing.assert_close(p.grad, g, rtol=1e-4, atol=1e-8)
     # Replays launch nothing through the wrappers: only the eager steps
-    # above counted their launches, K1's and (with dense Adam) the TransR
-    # op's.
-    kg = {} if sparse else {k: 1 for k in transr.CUDA_LAUNCHES}
-    assert dict(build.launch_counts) == {"spmm_csr": 2, "spmm_csr_rev": 2,
-                                         **kg}
-    assert tr.cf_steps.calls == {"spmm_csr": 2, "spmm_csr_rev": 2}
+    # above counted their launches, K1's, Adam's and (with dense Adam) the
+    # TransR op's.
+    kg = {} if sparse else {"adam": 1,
+                            **{k: 1 for k in transr.CUDA_LAUNCHES}}
+    cf = {"spmm_csr": 2, "spmm_csr_rev": 2, "adam": 1}
+    assert dict(build.launch_counts) == {
+        **cf, **kg, "adam": cf["adam"] + kg.get("adam", 0)}
+    assert tr.cf_steps.calls == cf
     assert tr.kg_steps.calls == kg
+
+
+def _adam_bound(p, m0, v0, g, m, v, count, lr, float32_corrections=False):
+    """Elementwise bounds on the gap between two float32 Adam steps from
+    one state and gradient that round in another order (the kernel,
+    torch's multi-tensor ops): m and v within 8 roundings of their terms'
+    magnitudes (b1 |m0| + (1 - b1) |g|, b2 v0 + (1 - b2) g^2); p within 4
+    roundings of itself, 32 of the update's size lr |u|, u = m^ / (sqrt(v^)
+    + eps) (a handful of operations, each of both paths), and the update
+    that m's bound makes (m may cancel to far below its terms). With
+    ``float32_corrections`` one side forms the bias corrections 1 - b^t in
+    float32 (torch's capturable path: b rounded, its power rounded, then
+    the difference, which cancels): u also within e(b1) + e(b2) / 2 of
+    itself, e(b) = (t + 4) 2^-24 b^t / (1 - b^t) + 2^-23."""
+    b1, b2 = optim.B1, optim.B2
+    d = lambda t: t.double()  # noqa: E731
+    c1 = 1 - b1 ** count
+    denom = (d(v) / (1 - b2 ** count)).sqrt() + optim.EPS
+    u = d(m) / c1 / denom
+    m_bound = 8 * U * (b1 * d(m0).abs() + (1 - b1) * d(g).abs())
+    u_rel = 32 * U
+    if float32_corrections:
+        e = lambda b: ((count + 4) * U * b ** count  # noqa: E731
+                       / (1 - b ** count) + 2 * U)
+        u_rel += e(b1) + e(b2) / 2
+    return (m_bound, 8 * U * (b2 * d(v0) + (1 - b2) * d(g) ** 2),
+            4 * U * d(p).abs() + u_rel * lr * u.abs()
+            + lr * m_bound / c1 / denom)
+
+
+def _old_adam(params, state, lr):
+    """torch's capturable multi-tensor Adam, the trainer's until
+    ``optim.KernelAdam``, over ``params`` from copies of ``state``."""
+    opt = torch.optim.Adam(params, lr=lr, betas=(optim.B1, optim.B2),
+                           eps=optim.EPS, capturable=True, foreach=True)
+    for p in params:
+        opt.state[p] = {k: t.clone() for k, t in state[p].items()}
+    return opt
+
+
+def _three_gather_kg_loss(model, h, r, t_pos, t_neg, weight, cfg):
+    """``kgat.kg_loss`` on the hopper backend as it was before
+    ``kgat.gather_rows``: the entity rows gathered one index tensor at a
+    time, each gather's backward a dense (n_nodes, d) gradient."""
+    emb = model.entity_embed
+    pair, ssq = kgat.kg_pair_terms_projected(*transr.transr_project(
+        emb[h], emb[t_pos], emb[t_neg], model.rel_embed, model.w_rel, r))
+    return kgat.weighted_mean(pair, weight) + cfg.reg_kg * ssq / h.shape[0]
+
+
+def test_replayed_steps_match_eager_steps_with_the_old_adam(dev):
+    """Three rounds of a replayed CF step and a replayed KG step (the Adam
+    kernel; the KG step's entity rows one gather with a sparse gradient),
+    each against an eager step from the same parameters and Adam state on
+    the batch and masks the replay drew, taken the old way: the CF loss,
+    or the KG loss with three gathers, backward, and torch's capturable
+    multi-tensor Adam. ``.grad`` after the step holds the step's gradient
+    on both: within rtol 1e-4, atol 1e-8 (float32; duplicate rows' sums in
+    another order: index_add_'s atomics against index_put's sort), the
+    losses within rtol 1e-5. Adam is then held alone: the old Adam on the
+    replay's own gradient against the replay's parameters, moments and
+    step counts, within :func:`_adam_bound` with the old path's float32
+    bias corrections (the counts exactly). The
+    replays keep ``.grad``'s address."""
+    tr = _trainer()
+    tr.cf_steps.capture()
+    tr.kg_steps.capture()
+    params = list(tr.model.parameters())
+    ptrs = [p.grad.data_ptr() for p in params]
+    lr = tr.cfg.lr
+    for _ in range(3):
+        for steps, kind in ((tr.cf_steps, "cf"), (tr.kg_steps, "kg")):
+            before = _snapshot(tr)
+            steps.loss_sum.zero_()
+            steps.replay()
+            loss = float(steps.loss_sum)
+            grads = [p.grad.clone() for p in params]
+            after = _snapshot(tr)
+            _restore(tr, before)
+            if kind == "cf":
+                *batch, masks = tr.cf_drawn
+                eager = tr.cf_grad(tr._step_att, *batch, masks=masks)
+            else:
+                tr.opt.zero_grad(set_to_none=False)
+                eager = _three_gather_kg_loss(tr.model, *tr.kg_drawn,
+                                              tr.cfg.model)
+                eager.backward()
+            assert abs(float(eager) - loss) <= 1e-5 * abs(loss)
+            for (name, p), g in zip(tr.model.named_parameters(), grads):
+                torch.testing.assert_close(p.grad, g, rtol=1e-4, atol=1e-8,
+                                           msg=f"{kind} {name}")
+            old = _old_adam(params, before[1], lr)
+            with torch.no_grad():
+                for p, g in zip(params, grads):
+                    p.grad.copy_(g)
+            old.step()
+            for i, ((name, p), g) in enumerate(zip(tr.model.named_parameters(),
+                                                   grads)):
+                s0, s1, so = before[1][p], after[1][p], old.state[p]
+                assert torch.equal(s1["step"], so["step"]), name
+                count = float(s1["step"])
+                bounds = _adam_bound(after[0][i], s0["exp_avg"],
+                                     s0["exp_avg_sq"], g, s1["exp_avg"],
+                                     s1["exp_avg_sq"], count, lr,
+                                     float32_corrections=True)
+                for what, got, want, bound in zip(
+                        ("exp_avg", "exp_avg_sq", "param"),
+                        (s1["exp_avg"], s1["exp_avg_sq"], after[0][i]),
+                        (so["exp_avg"], so["exp_avg_sq"], p.detach()),
+                        bounds):
+                    _assert_within(got, want.double(), bound,
+                                   f"{kind} {name} {what}")
+            _restore(tr, after)
+    assert [p.grad.data_ptr() for p in params] == ptrs
+
+
+def test_kernel_adam_matches_optax_arithmetic(dev):
+    """make_optimizer on CUDA (``optim.KernelAdam``: one launch a step, the
+    step count shared and on the card) against optax's arithmetic in
+    float64 (``optim._adam``) over six steps that alternate a CF-like and
+    a KG-like set of reached leaves, each step from the kernel's own
+    state: a leaf the phase does not reach steps with a zero gradient,
+    and every leaf counts every step. The leaves' lengths: a multiple of
+    the kernel's chunk, one past it, 15 (not a multiple of 4) and one
+    whose gradient lies off a 16-byte boundary (a view at an odd offset
+    of a flat buffer, as ``multihost.GradSum`` makes them), which take the
+    scalar path; that gradient moved to another buffer after a step makes
+    a new plan. Tolerance: :func:`_adam_bound`, float32 against
+    float64."""
+    gen = torch.Generator().manual_seed(0)
+    chunk = build.library().kgat_adam_chunk()
+    shapes = {"entity": (64, chunk // 64), "conv": (chunk + 1,),
+              "rel": (3, 5), "odd": (300, 7)}
+    reaches = {"cf": ("entity", "conv", "odd"), "kg": ("entity", "rel")}
+    leaves = {k: torch.randn(s, generator=gen).to(dev).requires_grad_()
+              for k, s in shapes.items()}
+    opt = optim.make_optimizer(leaves.values(), 1e-2)
+    assert isinstance(opt, optim.KernelAdam)
+    assert len({id(st["step"]) for st in opt.state.values()}) == 1
+    n_odd = leaves["odd"].numel()
+    flat = torch.zeros(n_odd + 1, device=dev)
+    leaves["odd"].grad = flat[1:].view(shapes["odd"])
+    build.launch_counts.clear()
+    for step in range(6):
+        if step == 3:
+            flat = torch.zeros(n_odd + 3, device=dev)
+            leaves["odd"].grad = flat[3:].view(shapes["odd"])
+        phase = ("cf", "kg")[step % 2]
+        g = {k: (torch.randn(s, generator=gen) if k in reaches[phase]
+                 else torch.zeros(s)).to(dev) for k, s in shapes.items()}
+        state0 = {k: (t.detach().double(),
+                      opt.state[t]["exp_avg"].double(),
+                      opt.state[t]["exp_avg_sq"].double())
+                  for k, t in leaves.items()}
+        opt.zero_grad(set_to_none=False)
+        for k, t in leaves.items():
+            t.grad.add_(g[k])
+        opt.step()
+        for k in shapes:
+            p0, m0, v0 = state0[k]
+            p64, m64, v64 = optim._adam(p0, g[k].double(), m0, v0,
+                                        step + 1.0, 1e-2, optim.B1, optim.B2,
+                                        optim.EPS)
+            st = opt.state[leaves[k]]
+            assert st["step"].is_cuda and float(st["step"]) == step + 1
+            bounds = _adam_bound(p64, m0, v0, g[k], m64, v64, step + 1.0,
+                                 1e-2)
+            for what, got, want, bound in zip(
+                    ("exp_avg", "exp_avg_sq", "param"),
+                    (st["exp_avg"], st["exp_avg_sq"], leaves[k].detach()),
+                    (m64, v64, p64), bounds):
+                _assert_within(got, want, bound, f"{k} {what} step {step}")
+        if phase == "cf":
+            assert not leaves["rel"].grad.any()
+    assert build.launch_counts == {"adam": 6}
+    assert optim.adam_count(opt) == 6
 
 
 def test_two_replays_draw_different_batches(dev):
@@ -961,10 +1139,13 @@ def test_transr_is_bit_identical_and_replays_from_a_graph(dev):
 
 def test_replayed_kg_step_gathers_only_entity_rows(dev):
     """The trainer's captured KG step takes the kernel route: the TransR
-    op's four kernels, three indexing_backward launches (the entity rows
-    h, t+ and t-; none for w_rel or rel_embed), no kernel named like K1's
-    (the benchmark's K1 roofline reads those names); the route counted at
-    the warm-up and the capture, never the plain one."""
+    op's four kernels, the entity rows h, t+ and t- gathered by one
+    launch (vectorized_gather_kernel, where three gathers made three) and
+    their gradient added into ``.grad`` by one index_add_ (indexFunc; no
+    indexing_backward launch: none for the entity rows, w_rel or
+    rel_embed), no kernel named like K1's (the benchmark's K1
+    roofline reads those names); the route counted at the warm-up and the
+    capture, never the plain one."""
     from chip_smoke import graph_kernel_names
     from kgat_tpu_torch.utils import trace
     tr = _trainer()
@@ -976,20 +1157,24 @@ def test_replayed_kg_step_gathers_only_entity_rows(dev):
     assert after.get("kg.transr_plain", 0) == before.get("kg.transr_plain", 0)
     names = graph_kernel_names(tr.kg_steps.graph.raw_cuda_graph())
     count = lambda s: sum(s in n for n in names)  # noqa: E731
-    assert count("indexing_backward_kernel") == 3
+    assert count("indexing_backward_kernel") == 0, names
+    assert count("vectorized_gather_kernel") == 1, names
+    assert count("indexFunc") == 1, names
     assert count("csr_units_kernel") == count("fixup_kernel") == 0
     for name in ("transr_plan_kernel", "transr_fwd_kernel",
                  "transr_bwd_units_kernel", "transr_bwd_fold_kernel"):
         assert count(name) == 1, name
-    assert tr.kg_steps.calls == {k: 1 for k in transr.CUDA_LAUNCHES}
+    assert tr.kg_steps.calls == {"adam": 1,
+                                 **{k: 1 for k in transr.CUDA_LAUNCHES}}
     tr.kg_steps.replay()
     torch.cuda.synchronize()
 
 
 def test_kg_loss_kernel_route_writes_no_relation_matrices(dev):
     """At the benchmark's KG batch and widths, the kernel route's loss and
-    gradients against the float64 plain path, and its peak memory: under
-    one (B, d, k) float32 tensor more than the parameters hold, where the
+    gradients against the float64 plain path (the entity table's comes
+    back sparse: ``kgat.gather_rows``), and its peak memory: under one
+    (B, d, k) float32 tensor more than the parameters hold, where the
     plain float32 path allocates several."""
     cfg = kgat.KGATConfig(ops_backend="hopper")
     n_nodes, n_rel, B = 5000, 20, 2048
@@ -1021,8 +1206,9 @@ def test_kg_loss_kernel_route_writes_no_relation_matrices(dev):
     bdk = B * cfg.embed_dim * cfg.relation_dim * 4
     assert peak < bdk <= peak_plain / 2, (peak, peak_plain)
     assert abs(float(loss) - float(loss64)) <= 1e-5 * abs(float(loss64))
+    assert grads[0].is_sparse and not grads64[0].is_sparse
     for g, g64 in zip(grads, grads64):
-        err = float((g.double() - g64).abs().max())
+        err = float((g.to_dense().double() - g64).abs().max())
         assert err <= 1e-4 * float(g64.abs().max())
 
 

@@ -324,3 +324,124 @@ def test_adam_step_matches_optax():
                                        atol=1e-7, err_msg=k)
     steps = {int(topt.state[p]["step"]) for p in tp.values()}
     assert steps == {3} and int(state[0].count) == 3
+
+
+# Leaves of the alternating-phase Adam test: the entity table, which both
+# phases reach, a conv weight only the CF-like phase reaches and a relation
+# table only the KG-like phase reaches.
+PHASE_LEAVES = {"entity": (9, 4), "conv": (4, 3), "rel": (3, 4)}
+PHASE_REACHES = {"cf": ("entity", "conv"), "kg": ("entity", "rel")}
+
+
+@pytest.mark.parametrize("entity_route", ["dense", "gathered_rows"])
+def test_adam_alternating_phases_match_optax(entity_route):
+    """make_optimizer's Adam against optax.adam over six steps that
+    alternate a CF-like and a KG-like set of reached leaves: a leaf the
+    phase does not reach steps with a zero gradient (its moments decay,
+    it still moves), and every leaf counts each step, as optax's one
+    count does. ``gathered_rows``: the KG-like phase's entity gradient
+    comes as the trainer's KG step delivers it, through
+    ``kgat.gather_rows`` with a sparse gradient (duplicate ids included)
+    added into the persistent ``.grad``. Tolerance: rtol 1e-5 and, for the
+    parameters, atol 1e-6: optax rounds its bias correction 1 - 0.999^t
+    in float32, which loses three digits, and its updates (of size lr,
+    1e-2) drift from float64's by some 1e-7 a step here; the port's keep
+    within 2e-8."""
+    rs = np.random.default_rng(7)
+    p0 = {k: rs.normal(size=s).astype(np.float32)
+          for k, s in PHASE_LEAVES.items()}
+    opt = optax.adam(1e-2)
+    jp = jax.tree.map(jnp.asarray, p0)
+    state = opt.init(jp)
+    tp = {k: torch.tensor(v, requires_grad=True) for k, v in p0.items()}
+    topt = make_optimizer(tp.values(), 1e-2)
+    grad_ptrs = {k: p.grad.data_ptr() for k, p in tp.items()}
+    for step in range(6):
+        phase = ("cf", "kg")[step % 2]
+        g = {k: np.zeros(s, np.float32) for k, s in PHASE_LEAVES.items()}
+        for k in PHASE_REACHES[phase]:
+            g[k] = rs.normal(size=PHASE_LEAVES[k]).astype(np.float32)
+        topt.zero_grad(set_to_none=False)
+        if phase == "kg" and entity_route == "gathered_rows":
+            ids = [torch.tensor(rs.integers(0, 9, 5)) for _ in range(3)]
+            ids[1][0] = ids[0][0]                    # a duplicate id
+            cots = rs.normal(size=(15, 4)).astype(np.float32)
+            g["entity"][:] = 0.0
+            np.add.at(g["entity"], torch.cat(ids).numpy(), cots)
+            rows = tkgat.gather_rows(tp["entity"], ids)
+            (torch.cat(rows) * torch.tensor(cots)).sum().backward()
+            tp["rel"].grad.add_(torch.tensor(g["rel"]))
+        else:
+            for k in PHASE_REACHES[phase]:
+                tp[k].grad.add_(torch.tensor(g[k]))
+        upd, state = opt.update(jax.tree.map(jnp.asarray, g), state)
+        jp = optax.apply_updates(jp, upd)
+        topt.step()
+        for k in p0:
+            np.testing.assert_allclose(tp[k].detach().numpy(),
+                                       np.asarray(jp[k]), rtol=1e-5,
+                                       atol=1e-6, err_msg=f"{k}, step {step}")
+            assert tp[k].grad.layout == torch.strided
+            assert tp[k].grad.data_ptr() == grad_ptrs[k]
+        for k, jm in (("exp_avg", state[0].mu), ("exp_avg_sq", state[0].nu)):
+            for name, p in tp.items():
+                np.testing.assert_allclose(
+                    topt.state[p][k].numpy(), np.asarray(jm[name]),
+                    rtol=1e-5, atol=1e-12, err_msg=f"{k} {name}")
+        steps = {int(topt.state[p]["step"]) for p in tp.values()}
+        assert steps == {step + 1} == {int(state[0].count)}
+
+
+@pytest.mark.parametrize("grad", ["none", "persistent", "flat_view"])
+def test_one_gather_gives_the_three_gathers_gradient(grad):
+    """``kgat.gather_rows`` over (h, t+, t-) against ``emb[h]``,
+    ``emb[t_pos]``, ``emb[t_neg]``: the same rows, and the same gradient,
+    duplicate ids summed (ids repeat within each tensor and across
+    them), into no ``.grad`` (it is then a sparse tensor), into a
+    persistent dense ``.grad`` or into a view of a flat buffer, as
+    ``multihost.GradSum`` makes them: both keep their address and layout,
+    and the flat buffer's other entries stay as they were. Tolerance:
+    float64, rtol 1e-12 (the duplicates' sums in another order)."""
+    gen = torch.Generator().manual_seed(0)
+    n, d, b = 12, 5, 16
+    base = torch.randn(n, d, generator=gen, dtype=torch.float64)
+    h, tp, tn = (torch.randint(0, n, (b,), generator=gen) for _ in range(3))
+    tp[:4] = h[:4]
+    cots = [torch.randn(b, d, generator=gen, dtype=torch.float64)
+            for _ in range(3)]
+    ref_emb = base.clone().requires_grad_()
+    sum((ref_emb[i] * c).sum() for i, c in zip((h, tp, tn), cots)).backward()
+    emb = base.clone().requires_grad_()
+    flat = None
+    if grad == "persistent":
+        emb.grad = torch.zeros_like(emb)
+    elif grad == "flat_view":
+        flat = torch.full((3 + n * d + 2,), 7.0, dtype=torch.float64)
+        emb.grad = flat[3:3 + n * d].view_as(emb).zero_()
+    ptr = None if emb.grad is None else emb.grad.data_ptr()
+    rows = tkgat.gather_rows(emb, (h, tp, tn))
+    for r, i in zip(rows, (h, tp, tn)):
+        assert torch.equal(r, base[i])
+    sum((r * c).sum() for r, c in zip(rows, cots)).backward()
+    got = emb.grad
+    if ptr is None:
+        assert got.is_sparse
+        got = got.to_dense()
+    else:
+        assert got.layout == torch.strided and got.data_ptr() == ptr
+    torch.testing.assert_close(got, ref_emb.grad, rtol=1e-12, atol=0)
+    if flat is not None:
+        assert (flat[:3] == 7.0).all() and (flat[3 + n * d:] == 7.0).all()
+
+
+def test_the_adam_kernel_refuses_cpu_tensors():
+    """``ops.hopper.adam.plan_for``, the Adam kernel's tables, takes float32
+    tensors on one CUDA device alone: CPU tensors are refused before any
+    build (``optim.make_optimizer`` keeps ``torch.optim.Adam`` there)."""
+    from kgat_tpu_torch.ops.hopper import adam
+    p = torch.zeros(4, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        adam.plan_for([p], [torch.zeros_like(p)], [torch.zeros_like(p)],
+                      [torch.zeros_like(p)], torch.zeros(()))
+    assert type(make_optimizer([p.requires_grad_()], 1e-3)) is \
+        torch.optim.Adam

@@ -28,7 +28,8 @@ from kgat_tpu_torch import train
 from kgat_tpu_torch.data import synthetic_dataset
 from kgat_tpu_torch.models import bprmf
 from kgat_tpu_torch.models import kgat
-from kgat_tpu_torch.optim import (make_optimizer, sparse_kg_step,
+from kgat_tpu_torch.optim import (adam_count, make_optimizer,
+                                  set_adam_count, sparse_kg_step,
                                   sparse_kg_step_plain)
 from kgat_tpu_torch.sampler import HostCFSampler, HostKGSampler
 from kgat_tpu_torch.utils.config import TrainConfig
@@ -236,6 +237,21 @@ def test_sparse_kg_step_keeps_stale_moments_and_steps_every_count():
     opt.step()                              # a dense step, zero gradients
     assert {int(s["step"]) for s in opt.state.values()} == {2}
     assert not torch.equal(model.layers[0]["w1"], before["layers.0.w1"])
+
+
+def test_sparse_kg_step_advances_a_shared_count_once():
+    """Where every parameter's state holds one step tensor (as
+    ``optim.KernelAdam``'s on CUDA), the lazy step advances it once, and
+    set_adam_count sets it: the count stays optax's one count."""
+    _, _, tcfg, model, batch = _sparse_setup()
+    opt = make_optimizer(model.parameters(), 1e-2)
+    shared = torch.zeros(())
+    for s in opt.state.values():
+        s["step"] = shared
+    sparse_kg_step(model, opt, *(torch.as_tensor(x) for x in batch), tcfg)
+    assert adam_count(opt) == 1 and float(shared) == 1.0
+    set_adam_count(opt, 7)
+    assert adam_count(opt) == 7 and float(shared) == 7.0
 
 
 @pytest.mark.parametrize("weighted", [False, True])

@@ -24,7 +24,11 @@ then times one epoch of eager steps (the trainer's steps called one by
 one, uncaptured) and one replayed epoch (``Trainer.train_one_epoch``),
 each with its attention recompute. ``--sparse-adam`` profiles the
 trainer with the lazy KG step. With ``--trace``, it writes one Chrome
-trace per window there. Needs CUDA.
+trace per window there. It also splits one eager CF step and one eager
+KG step by source: each kernel's device time by what launched it
+(``zero_grad``, Adam's ops, each autograd node of the backward, the
+forward's ops), and for each kernel of the replayed steps the sources
+that launch a kernel of that name. Needs CUDA.
 
 Under the environment of a multi-process launch (COORDINATOR_ADDRESS,
 NUM_PROCESSES, PROCESS_ID; ``kgat_tpu_torch/parallel/multihost.py``),
@@ -132,6 +136,96 @@ def profile(name, fn, steps, trace_dir, graph=None):
                                               f"{name}.rank{rank}.json"))
 
 
+_ENGINE = "autograd::engine::evaluate_function: "
+
+
+def _source(evt) -> str:
+    """Where a CPU op of the profile comes from: the optimizer's
+    ``zero_grad`` or ``step`` (with its outermost op, one of Adam's), the
+    outermost autograd node of the backward, or the forward's outermost
+    op."""
+    chain = []
+    while evt is not None:
+        chain.append(evt.name)
+        evt = evt.cpu_parent
+    for name in reversed(chain):
+        if name.startswith("Optimizer.zero_grad"):
+            return "zero_grad"
+        if name.startswith("Optimizer.step"):
+            ops = chain[:chain.index(name)]
+            return f"adam {ops[-1] if ops else ''}"
+        if name.startswith(_ENGINE):
+            return f"backward {name[len(_ENGINE):]}"
+    return f"forward {chain[-1]}"
+
+
+def by_source(name, fn) -> dict:
+    """One traced call of ``fn`` (an eager step): each kernel's device ms
+    by (source, launching op, kernel name), printed largest first, and
+    summed by source. Returns {kernel name: set of sources}."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows, names = {}, {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        for k in getattr(evt, "kernels", []):
+            key = (_source(evt), evt.name, k.name)
+            n, us = rows.get(key, (0, 0.0))
+            rows[key] = (n + 1, us + k.duration)
+            names.setdefault(k.name, set()).add(key[0])
+    # Kernels the profile links to no CPU op (some launched through
+    # ctypes): their launches and time by name, less what was linked.
+    linked = {}
+    for (_, _, kname), (n, us) in rows.items():
+        c, t = linked.get(kname, (0, 0.0))
+        linked[kname] = (c + n, t + us)
+    for e in _device_kernels(prof):
+        c, t = linked.get(e.key, (0, 0.0))
+        if _device_us(e) - t > 0.5:
+            rows[("(no CPU op)", "", e.key)] = (e.count - c,
+                                                _device_us(e) - t)
+            names.setdefault(e.key, set()).add("(no CPU op)")
+    total = sum(us for _, us in rows.values())
+    print(f"{_TAG}== {name} by source: {total / 1e3:.3f} device ms, "
+          f"{sum(n for n, _ in rows.values())} kernels")
+    sums = {}
+    for (src, _, _), (n, us) in rows.items():
+        c, t = sums.get(src, (0, 0.0))
+        sums[src] = (c + n, t + us)
+    for src, (n, us) in sorted(sums.items(), key=lambda r: -r[1][1]):
+        print(f"{_TAG}   {us / 1e3:9.4f} ms  x{n:<4d} {src}")
+    for (src, op, kname), (n, us) in sorted(rows.items(),
+                                            key=lambda r: -r[1][1]):
+        print(f"{_TAG}     {us / 1e3:9.4f} ms  x{n:<4d} {src} | {op} | "
+              f"{kname[:90]}")
+    return names
+
+
+def replay_sources(name, fn, names, graph) -> None:
+    """One traced replay: its kernels by name, with the sources that
+    launch a kernel of that name in the eager step (``by_source``)."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [(e.key, _device_us(e) / 1e3, e.count)
+               for e in _device_kernels(prof)]
+    nodes = len(graph_kernel_names(graph.graph.raw_cuda_graph()))
+    print(f"{_TAG}== {name} replayed by source: "
+          f"{sum(ms for _, ms, _ in kernels):.3f} device ms, {nodes} kernel "
+          f"nodes")
+    for key, ms, n in sorted(kernels, key=lambda r: -r[1]):
+        src = "; ".join(sorted(names.get(key, {"(not in the eager step)"})))
+        print(f"{_TAG}   {ms:9.4f} ms  x{n:<4d} {key[:80]} <- {src}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--steps", type=int, default=3)
@@ -187,12 +281,17 @@ def _main(a) -> int:
         kg()
     profile("cf_step", cf, a.steps, a.trace)
     profile("kg_step", kg, a.steps, a.trace)
+    sources = {"cf": by_source("cf_step", cf), "kg": by_source("kg_step", kg)}
     if trainer.captured:
         trainer.stage(att)
         for steps in (trainer.cf_steps, trainer.kg_steps):
             steps.capture()
             for _ in range(3):
                 steps.replay()
+        replay_sources("cf_step", trainer.cf_steps.replay, sources["cf"],
+                       trainer.cf_steps)
+        replay_sources("kg_step", trainer.kg_steps.replay, sources["kg"],
+                       trainer.kg_steps)
         profile("cf_step_replayed", trainer.cf_steps.replay, a.steps,
                 a.trace, trainer.cf_steps)
         profile("kg_step_replayed", trainer.kg_steps.replay, a.steps,
