@@ -216,7 +216,7 @@ from kgat_tpu_torch.ops.hopper import build
 from kgat_tpu_torch.ops.row_split import CHUNK, build_row_split
 from kgat_tpu_torch.ops.hopper import remote_ring
 from kgat_tpu_torch.ops.hopper.remote_ring import reduce_send, ring_shift
-from kgat_tpu_torch.ops.hopper import adam, sddmm, transr
+from kgat_tpu_torch.ops.hopper import adam, bi_layer, sddmm, transr
 from kgat_tpu_torch.ops.hopper.sddmm import (sddmm_transr, sddmm_transr_bwd,
                                              sddmm_transr_bwd_plain,
                                              sddmm_transr_plain)
@@ -913,13 +913,15 @@ def single_device_nodes(graph, staged):
     """The CUDA launches of a single-device step's captured wrapper calls
     (``calls``: name -> count): K1 forward and on the reverse CSR, each
     as many as the row split of the CSR the staged weights ``staged``
-    reduce over needs (the graph's, or its coalesced CSRs); the KG step's
+    reduce over needs (the graph's, or its coalesced CSRs); the CF step's
+    bi-interaction layer op, ``bi_layer.CUDA_LAUNCHES``; the KG step's
     TransR op, ``transr.CUDA_LAUNCHES``; each step's Adam,
     ``adam.CUDA_LAUNCHES``."""
     csr = spmm_csr_of(graph, staged)
     per_call = {"spmm_csr": csr.split.cuda_launches,
                 "spmm_csr_rev": csr.rev_split.cuda_launches,
-                **transr.CUDA_LAUNCHES, **adam.CUDA_LAUNCHES}
+                **bi_layer.CUDA_LAUNCHES, **transr.CUDA_LAUNCHES,
+                **adam.CUDA_LAUNCHES}
     return lambda calls: sum(n * per_call[k] for k, n in calls.items())
 
 
@@ -1852,7 +1854,8 @@ def partitioned_launches(exchange, transport, n_layers, n_parts,
     step and layer, K6 or, at the P - 1 steps that send under 'fused',
     K8; the sends of the P - 1 steps by K7 under 'dma'; backward, K6 on
     every bucket's reverse CSR and (under 'dma' and 'fused') K7 the other
-    way at every send. Each of ``rows`` dp rows does all of it."""
+    way at every send; the bi-interaction layer op once per partition and
+    layer each way. Each of ``rows`` dp rows does all of it."""
     L, P = n_layers, n_parts
     sends = L * P * (P - 1)
     if exchange in ("allgather", "a2a"):
@@ -1867,6 +1870,7 @@ def partitioned_launches(exchange, transport, n_layers, n_parts,
         bwd = {"segment_sum_csr": L * P * P}
         if transport != "ppermute":
             bwd["ring_shift"] = sends
+    fwd["bi_layer_forward"] = bwd["bi_layer_backward"] = L * P
     if not backward:
         return {k: rows * n for k, n in fwd.items()}
     return {k: rows * (fwd.get(k, 0) + bwd.get(k, 0)) for k in {*fwd, *bwd}}
@@ -1877,8 +1881,8 @@ def partitioned_nodes(part, n_layers):
     kernel nodes of its captured graph: in a CF step each K1, K6 and K8
     call as many as its CSR's row split needs (the all-gather's: each
     shard's coalesced CSRs when coalescing), each K7 call one; in a KG
-    step the TransR op's, ``transr.CUDA_LAUNCHES``; in each, Adam's,
-    ``adam.CUDA_LAUNCHES``."""
+    step the TransR op's, ``transr.CUDA_LAUNCHES``; the layer op's,
+    ``bi_layer.CUDA_LAUNCHES``; in each, Adam's, ``adam.CUDA_LAUNCHES``."""
     n, P = 0, part.n_parts
     for d in range(part.n_rows):
         for p in range(P):
@@ -1894,10 +1898,11 @@ def partitioned_nodes(part, n_layers):
                 n += g.split.cuda_launches + g.rev_split.cuda_launches
 
     def nodes(calls):
-        own = {**transr.CUDA_LAUNCHES, **adam.CUDA_LAUNCHES}
-        kg = {k: c for k, c in calls.items() if k in own}
-        return (n_layers * n if len(kg) < len(calls) else 0) + sum(
-            c * own[k] for k, c in kg.items())
+        own = {**bi_layer.CUDA_LAUNCHES, **transr.CUDA_LAUNCHES,
+               **adam.CUDA_LAUNCHES}
+        ops = {k: c for k, c in calls.items() if k in own}
+        return (n_layers * n if len(ops) < len(calls) else 0) + sum(
+            c * own[k] for k, c in ops.items())
     return nodes
 
 

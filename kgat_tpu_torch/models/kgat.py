@@ -32,7 +32,7 @@ from torch import nn
 
 from kgat_tpu_torch.graph import CKGMeta, EdgeWeights, Graph, stage_weights
 from kgat_tpu_torch.ops import BACKENDS, get_backend
-from kgat_tpu_torch.ops.hopper import transr
+from kgat_tpu_torch.ops.hopper import bi_layer, transr
 from kgat_tpu_torch.utils import trace
 
 AGGREGATORS = ("gcn", "graphsage", "bi-interaction")
@@ -293,14 +293,6 @@ def apply_dropout(ego: torch.Tensor, mask: torch.Tensor,
     return torch.where(mask, ego / keep, 0.0)
 
 
-def dropout(ego: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Message dropout: each entry kept with probability 1 - rate and
-    scaled by 1 / (1 - rate), with the mask drawn from ``generator``."""
-    return apply_dropout(
-        ego, dropout_mask(ego.shape, rate, generator, ego.device), rate)
-
-
 def dropout_masks(cfg: KGATConfig, n_nodes: int,
                   generator: Optional[torch.Generator],
                   device) -> List[Optional[torch.Tensor]]:
@@ -320,6 +312,39 @@ def check_dropout(cfg: KGATConfig) -> None:
                          f"{len(cfg.conv_dims)} layers")
 
 
+def layer_kernels(cfg: KGATConfig, t: torch.Tensor) -> bool:
+    """Whether a layer over ``t`` takes the bi-interaction layer op's
+    kernels (``ops.hopper.bi_layer``): the hopper backend, CUDA tensors
+    and the bi-interaction aggregator. CPU tensors, the ref backend and
+    the gcn and graphsage aggregators keep the plain path (``aggregate``,
+    ``apply_dropout``)."""
+    return (cfg.ops_backend == "hopper" and t.is_cuda
+            and cfg.aggregator == "bi-interaction")
+
+
+def layer_forward(ego: torch.Tensor, side: torch.Tensor, layer,
+                  cfg: KGATConfig, li: int, mask: Optional[torch.Tensor],
+                  copy_dtype: Optional[torch.dtype] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Layer ``li``'s aggregator and message dropout (keep ``mask``, None
+    for none): (its output, the output's copy in ``copy_dtype`` for the
+    next layer's SpMM, the output itself when None). The layer op's
+    kernels where :func:`layer_kernels` says so, counted as
+    ``cf.layer_kernel``; else ``aggregate`` and ``apply_dropout``, counted
+    as ``cf.layer_plain``."""
+    rate = cfg.mess_dropout[li] if mask is not None else 0.0
+    if layer_kernels(cfg, ego):
+        trace.count("cf.layer_kernel")
+        out = bi_layer.bi_layer(ego, side, mask, layer, rate,
+                                cfg.leaky_relu_slope, copy_dtype)
+        return out if copy_dtype is not None else (out, out)
+    trace.count("cf.layer_plain")
+    ego = aggregate(ego, side, layer, cfg)
+    if mask is not None:
+        ego = apply_dropout(ego, mask, rate)
+    return ego, ego if copy_dtype is None else ego.to(copy_dtype)
+
+
 def propagate(model: KGAT, graph: Graph, edge_att, cfg: KGATConfig, *,
               train: bool = False,
               generator: Optional[torch.Generator] = None,
@@ -331,21 +356,27 @@ def propagate(model: KGAT, graph: Graph, edge_att, cfg: KGATConfig, *,
     ``edge_att`` is canonical (E,) weights or staged :class:`EdgeWeights`.
     ``train=True`` applies message dropout, with the keep masks ``masks``
     (:func:`dropout_masks`) or, without them, masks drawn from
-    ``generator`` (on the graph's device).
+    ``generator`` (on the graph's device), layer by layer.
     """
     ops = get_backend(cfg.ops_backend)
     low = cfg.compute_dtype if cfg.ops_backend == "hopper" else None
     if train:
         check_dropout(cfg)
     ego = model.entity_embed
+    value = ego if low is None else ego.to(low)
     outs = [ego]
+    n_layers = len(model.layers)
     for li, layer in enumerate(model.layers):
-        side = ops.spmm(graph, edge_att, ego if low is None else ego.to(low))
-        ego = aggregate(ego, side, layer, cfg)
+        side = ops.spmm(graph, edge_att, value)
         rate = cfg.mess_dropout[li]
+        mask = None
         if train and rate > 0:
-            ego = (dropout(ego, rate, generator) if masks is None
-                   else apply_dropout(ego, masks[li], rate))
+            mask = (dropout_mask((ego.shape[0], cfg.conv_dims[li]), rate,
+                                 generator, ego.device)
+                    if masks is None else masks[li])
+        ego, value = layer_forward(
+            ego, side, layer, cfg, li, mask,
+            low if li + 1 < n_layers else None)
         outs.append(l2norm(ego))
     return torch.cat(outs, dim=-1)
 
@@ -386,15 +417,62 @@ def cf_loss(model: KGAT, graph: Graph, edge_att, meta: CKGMeta,
     """BPR loss over a minibatch with full-graph propagation (SURVEY.md
     §3.3). ``weight`` (B,) optionally down-weights batch rows (the device
     sampler gives weight 0 to a row with no allowed negative); ``masks``
-    are the dropout masks (:func:`propagate`)."""
+    are the dropout masks (:func:`propagate`). Where the layers take the
+    layer op's kernels (:func:`layer_kernels`), :func:`cf_loss_rows`: the
+    same loss with the normalised concat formed at the batch's rows
+    alone."""
+    if layer_kernels(cfg, model.entity_embed):
+        if train and masks is None:
+            emb = model.entity_embed
+            masks = dropout_masks(cfg, emb.shape[0], generator, emb.device)
+        return cf_loss_rows(model, graph, edge_att, meta, users, pos_items,
+                            neg_items, cfg, weight=weight,
+                            masks=masks if train else None)
     all_embed = propagate(model, graph, edge_att, cfg, train=train,
                           generator=generator, masks=masks)
     u = all_embed[meta.user_node(users)]
     ip = all_embed[pos_items]
     ineg = all_embed[neg_items]
+    return bpr_loss(u, ip, ineg, cfg, weight)
+
+
+def bpr_loss(u: torch.Tensor, ip: torch.Tensor, ineg: torch.Tensor,
+             cfg: KGATConfig, weight: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+    """The BPR loss and its regulariser from the final representations of
+    the batch's users and positive and negative items (B, out_dim)."""
     bpr = -F.logsigmoid((u * ip).sum(-1) - (u * ineg).sum(-1))
     return weighted_mean(bpr, weight) + cfg.reg_cf * _l2_reg_mean(u, ip,
                                                                    ineg)
+
+
+def cf_loss_rows(model: KGAT, graph: Graph, edge_att, meta: CKGMeta,
+                 users: torch.Tensor, pos_items: torch.Tensor,
+                 neg_items: torch.Tensor, cfg: KGATConfig, *,
+                 weight: Optional[torch.Tensor] = None,
+                 masks: Optional[Sequence[Optional[torch.Tensor]]] = None
+                 ) -> torch.Tensor:
+    """:func:`cf_loss` with the L2-normalised concat formed only at the 3B
+    rows it reads: ``ops.hopper.bi_layer.propagate_rows`` gives each
+    layer's output at those rows, which are normalised and concatenated
+    here (``l2norm`` is row-wise: the same loss and gradients as the
+    (n_nodes, out_dim) concat's). ``masks``: the layers' keep masks (None:
+    no dropout). The bi-interaction aggregator only; CPU tensors run the
+    op's plain versions."""
+    if cfg.aggregator != "bi-interaction":
+        raise ValueError(f"cf_loss_rows: the {cfg.aggregator} aggregator "
+                         f"has no layer op")
+    if masks is None:
+        masks = [None] * len(model.layers)
+    trace.count("cf.layer_kernel" if model.entity_embed.is_cuda
+                else "cf.layer_plain", len(model.layers))
+    idx = torch.cat([meta.user_node(users), pos_items, neg_items]).long()
+    rows = bi_layer.propagate_rows(model, graph, edge_att, cfg, masks, idx)
+    widths = [cfg.embed_dim, *cfg.conv_dims]
+    parts = rows.split(widths, dim=-1)
+    rows = torch.cat([parts[0], *(l2norm(p) for p in parts[1:])], dim=-1)
+    u, ip, ineg = rows.split(users.shape[0])
+    return bpr_loss(u, ip, ineg, cfg, weight)
 
 
 def kg_pair_terms_rows(eh: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,

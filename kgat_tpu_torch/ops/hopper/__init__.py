@@ -13,6 +13,10 @@
                                     projection and its relation gradients)
      adam.adam_step                 (no TPU kernel: the trainer's Adam step,
                                     one launch over every parameter)
+     bi_layer.bi_layer_forward      (no TPU kernel: the bi-interaction
+     bi_layer.bi_layer_backward      layer, aggregator and dropout, one pass
+                                    each way; bi_layer.propagate_rows, the
+                                    CF step's training propagation)
 
 K1, K6, K8 and K4's fold share one row reduction (``csrc/row_reduce.cuh``),
 which walks the work units of a CSR's row split (``ops/row_split.py``);

@@ -87,6 +87,20 @@ _SIGNATURES = {
     # step, ticket, lr, b1, b2, eps, stream; and its values per block.
     "kgat_adam": (_P, _I, _P, _I, _P, _P) + (ctypes.c_double,) * 4 + (_P,),
     "kgat_adam_chunk": (),
+    # The CF step's bi-interaction layer: x, s, mask, w1, b1, w2, b2, n,
+    # d_in, d_out, keep, slope, y, yv, max_grid, stream; the backward's
+    # partial slots: n, d_in, d_out, max_grid; the backward: x, s, mask,
+    # w1, b1, w2, b2, ga, gb, slot, rows, rows_stride, col0, b_bf16, n,
+    # d_in, d_out, keep, slope, dx, ds, ds_bf16, partials, grads,
+    # max_grid, stream; a sum of gradient pieces: ga, gb, slot, rows,
+    # rows_stride, col0, b_bf16, n, d, out, out_bf16, max_grid, stream.
+    "kgat_bi_layer_fwd": ((_P,) * 7 + (_I,) * 3 + (ctypes.c_float,) * 2
+                          + (_P, _P, _I, _P)),
+    "kgat_bi_layer_blocks": (_I,) * 4,
+    "kgat_bi_layer_bwd": ((_P,) * 11 + (_I,) * 6 + (ctypes.c_float,) * 2
+                          + (_P, _P, _I, _P, _P, _I, _P)),
+    "kgat_bi_sum": ((_P,) * 4 + (_I, _I, _I, ctypes.c_longlong, _I, _P, _I,
+                                 _I, _P)),
 }
 
 

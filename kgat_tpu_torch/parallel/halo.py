@@ -386,14 +386,16 @@ class Partitioned:
                 for p in loc:
                     sides[p] = self.ops.spmm(self.shards[d][p].graph,
                                              staged[p], self._on(xc, p, d))
-            new = [None] * n
+            rate, new = cfg.mess_dropout[li], [None] * n
             for p in loc:
                 lp = {k: self._on(v, p, d) for k, v in layer.items()}
-                ego = kgat.aggregate(egos[p], sides[p], lp, cfg)
-                if train and cfg.mess_dropout[li] > 0:
-                    ego = kgat.dropout(ego, cfg.mess_dropout[li],
-                                       generators[p])
-                new[p] = ego
+                # Partition p's (R, d_out) keep mask, from its own
+                # generator.
+                mask = (kgat.dropout_mask((R, cfg.conv_dims[li]), rate,
+                                          generators[p], egos[p].device)
+                        if train and rate > 0 else None)
+                new[p], _ = kgat.layer_forward(egos[p], sides[p], lp, cfg,
+                                               li, mask)
             egos = new
             if self.ring or self.a2a:
                 # Rows stay owned; one all-gather of the concatenated

@@ -21,7 +21,7 @@ from kgat_tpu_torch.data import synthetic_dataset
 from kgat_tpu_torch.graph import EdgeWeights, build_graph
 from kgat_tpu_torch.models import kgat
 from kgat_tpu_torch.ops import hopper_backend, ref
-from kgat_tpu_torch.ops.hopper import build, transr
+from kgat_tpu_torch.ops.hopper import bi_layer, build, transr
 from kgat_tpu_torch.ops.row_split import CHUNK, build_row_split
 from kgat_tpu_torch.ops.hopper.sddmm import (sddmm_transr, sddmm_transr_bwd,
                                              sddmm_transr_bwd_plain,
@@ -583,7 +583,8 @@ def test_forward_kernel_path_matches_plain_path(dev):
         want = model(g, dataclasses.replace(cfg, ops_backend="ref"))
     torch.cuda.synchronize()
     assert dict(build.launch_counts) == {
-        "sddmm_transr": 1, "segment_softmax_csr": 1, "spmm_csr": 3}
+        "sddmm_transr": 1, "segment_softmax_csr": 1, "spmm_csr": 3,
+        "bi_layer_forward": 3}
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
@@ -667,7 +668,11 @@ def test_replayed_steps_match_eager_steps(dev, sparse):
     # TransR op's.
     kg = {} if sparse else {"adam": 1,
                             **{k: 1 for k in transr.CUDA_LAUNCHES}}
-    cf = {"spmm_csr": 2, "spmm_csr_rev": 2, "adam": 1}
+    # The CF step's two layers: K1 each way and the layer op each way; the
+    # embedding's gradient summed by the op (float32 value stream: no
+    # copy of the embedding).
+    cf = {"spmm_csr": 2, "spmm_csr_rev": 2, "bi_layer_forward": 2,
+          "bi_layer_backward": 2, "bi_sum": 1, "adam": 1}
     assert dict(build.launch_counts) == {
         **cf, **kg, "adam": cf["adam"] + kg.get("adam", 0)}
     assert tr.cf_steps.calls == cf
@@ -1210,6 +1215,165 @@ def test_kg_loss_kernel_route_writes_no_relation_matrices(dev):
     for g, g64 in zip(grads, grads64):
         err = float((g.to_dense().double() - g64).abs().max())
         assert err <= 1e-4 * float(g64.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The CF step's bi-interaction layer op (ops/hopper/bi_layer.py).
+# ---------------------------------------------------------------------------
+
+BI_RATE, BI_SLOPE = 0.1, 0.2
+# (rows, d_in, d_out): the reference recipe's three layers at Yelp2018's
+# 136,880 rows, and ragged widths (not multiples of 4, one under 4, the
+# widest, whose weights the kernels read through the cache).
+BI_CASES = [(136_880, 64, 64), (136_880, 64, 32), (136_880, 32, 16),
+            (1000, 33, 20), (777, 100, 7), (300, 256, 256), (501, 3, 130)]
+
+
+def _bi_inputs(n, d_in, d_out):
+    """A layer's inputs (row 0 of x and side zero), a keep mask and the
+    output's gradient in three pieces: two dense, and the rows of a compact
+    table at column 3 that a slot map gives a third of the rows."""
+    g = torch.Generator().manual_seed(n + d_in + d_out)
+    x, side = (torch.randn(n, d_in, generator=g) * 0.5 for _ in range(2))
+    x[0] = side[0] = 0
+    w1, w2 = (torch.randn(d_in, d_out, generator=g) / d_in ** 0.5
+              for _ in range(2))
+    b1, b2 = (torch.randn(d_out, generator=g) * 0.1 for _ in range(2))
+    mask = torch.rand(n, d_out, generator=g) < 1 - BI_RATE
+    ga, gb = (torch.randn(n, d_out, generator=g) for _ in range(2))
+    picked = torch.randperm(n, generator=g)[:n // 3]
+    slot = torch.full((n,), -1, dtype=torch.int32)
+    slot[picked] = torch.arange(picked.numel(), dtype=torch.int32)
+    rows = torch.randn(picked.numel(), 3 + d_out + 5, generator=g)
+    return (x, side, mask, w1, b1, w2, b2), (ga, gb, slot, rows)
+
+
+@pytest.mark.parametrize("n,d_in,d_out", BI_CASES)
+def test_bi_layer_kernels_match_float64_plain(dev, n, d_in, d_out):
+    """The forward (y and its bf16 copy) and the backward (d x, d side,
+    d w1, d b1, d w2, d b2 from the three pieces, K1's reverse output
+    rounded to bf16) against the plain versions in float64, within
+    n 2^-23 sum|terms| for a sum of n terms. An entry whose pre-activation lies within its rounding bound of 0 may
+    take either side of the leaky ReLU: its gradient's share counts whole
+    in the bounds. Two calls give the same bits, and d side in bf16 is the
+    float32 one rounded."""
+    layer, pieces = _bi_inputs(n, d_in, d_out)
+    x, side, mask, w1, b1, w2, b2 = layer
+    d64 = [t.double() if t.is_floating_point() else t for t in layer]
+    x64, s64, _, w164, b164, w264, b264 = d64
+    keep = 1 - BI_RATE
+    a64, p64 = x64 + s64, x64 * s64
+    z1, z2 = a64 @ w164 + b164, p64 @ w264 + b264
+    bz1 = 2 * U * (d_in + 2) * (a64.abs() @ w164.abs() + b164.abs())
+    bz2 = 2 * U * (d_in + 2) * (p64.abs() @ w264.abs() + b264.abs())
+    on = [t.to(dev) for t in layer]
+    build.launch_counts.clear()
+    y, yv = bi_layer.bi_layer_forward(*on, BI_RATE, BI_SLOPE, torch.bfloat16)
+    want = bi_layer.bi_layer_forward_plain(*d64, BI_RATE, BI_SLOPE)
+    _assert_within(y.cpu(), want, torch.where(
+        mask, 2 * (bz1 + bz2) / keep, 0.0) + 4 * U * want.abs(), "y")
+    assert torch.equal(yv, y.to(torch.bfloat16))
+
+    # g_b (K1's reverse output) rounded to bf16 first, as the trainer's
+    # bf16 value stream has it.
+    ga, gb, slot, rows = pieces
+    gb = gb.to(torch.bfloat16).float()
+    g64 = bi_layer.grad_sum_plain(ga.double(), gb.double(), slot,
+                                  rows.double(), 3, n, d_out)
+    ref = bi_layer.bi_layer_backward_plain(*d64, BI_RATE, BI_SLOPE, g64)
+    pc = [t.to(dev) for t in pieces]
+    bf16 = torch.bfloat16
+    got = bi_layer.bi_layer_backward(*on, BI_RATE, BI_SLOPE, *pc, col0=3,
+                                     b_dtype=bf16)
+    again = bi_layer.bi_layer_backward(*on, BI_RATE, BI_SLOPE, *pc, col0=3,
+                                       side_dtype=bf16, b_dtype=bf16)
+    assert dict(build.launch_counts) == {"bi_layer_forward": 1,
+                                         "bi_layer_backward": 2}
+    for i, (a, b) in enumerate(zip(got, again)):
+        assert torch.equal(a, b.float()) if i != 1 else torch.equal(
+            a.to(torch.bfloat16), b)
+    # |g'| bounded by the pieces' magnitudes; the ambiguous entries' share.
+    gmag = torch.where(mask, (ga.abs() + gb.abs()).double() / keep, 0.0)
+    hit = slot.long() >= 0
+    gmag += torch.where(mask & hit[:, None], rows.double().abs()[
+        slot.long().clamp(min=0), 3:3 + d_out] / keep, 0.0)
+    amb1 = (1 - BI_SLOPE) * gmag * (z1.abs() <= bz1)
+    amb2 = (1 - BI_SLOPE) * gmag * (z2.abs() <= bz2)
+    c = 2 * U * (d_out + 8)
+    ta, tp = gmag @ w164.abs().T, gmag @ w264.abs().T
+    xa, sa = x64.abs(), s64.abs()
+    dx_b = (c * (ta + tp * sa) + amb1 @ w164.abs().T
+            + (amb2 @ w264.abs().T) * sa + U * ref[0].abs())
+    ds_b = (c * (ta + tp * xa) + amb1 @ w164.abs().T
+            + (amb2 @ w264.abs().T) * xa + U * ref[1].abs())
+    cn = 2 * U * (n + d_out + 8)
+    wa, wp = a64.abs().T, p64.abs().T
+    bounds = [dx_b, ds_b, cn * (wa @ gmag) + wa @ amb1, cn * gmag.sum(0)
+              + amb1.sum(0), cn * (wp @ gmag) + wp @ amb2,
+              cn * gmag.sum(0) + amb2.sum(0)]
+    for name, g_, r_, b_ in zip(("d x", "d side", "d w1", "d b1", "d w2",
+                                 "d b2"), got, ref, bounds):
+        _assert_within(g_.cpu(), r_, b_, name)
+
+
+def test_bi_layer_refuses_what_it_cannot_take(dev):
+    """A CUDA tensor of another dtype, a width past 256 and a mask of
+    another shape raise; nothing falls back to the plain path."""
+    layer, _ = _bi_inputs(64, 16, 8)
+    on = [t.to(dev) for t in layer]
+    x, side, mask, w1, b1, w2, b2 = on
+    with pytest.raises(TypeError):
+        bi_layer.bi_layer_forward(x.double(), side, mask, w1, b1, w2, b2,
+                                  BI_RATE, BI_SLOPE)
+    with pytest.raises(TypeError):
+        bi_layer.bi_layer_forward(x, side, mask.float(), w1, b1, w2, b2,
+                                  BI_RATE, BI_SLOPE)
+    with pytest.raises(ValueError, match="widths 1 to 256"):
+        wide = torch.zeros(16, 257, device=dev)
+        bi_layer.bi_layer_forward(x, side, None, wide, wide[0], wide,
+                                  wide[0], 0.0, BI_SLOPE)
+    with pytest.raises(ValueError, match="mask"):
+        bi_layer.bi_layer_forward(x, side, mask[:, :4], w1, b1, w2, b2,
+                                  BI_RATE, BI_SLOPE)
+
+
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16],
+                         ids=["float32", "bf16"])
+def test_cf_step_takes_the_layer_kernels(dev, compute_dtype):
+    """The trainer's captured CF step on the card: every layer takes the
+    layer op's kernels (``cf.layer_kernel`` counts the layers at the eager
+    warm-up and at the capture, never at a replay; ``cf.layer_plain``
+    reads 0), the captured calls are K1 and the op each way per layer, one
+    sum of the embedding's gradient (and under bf16 its value copy) and
+    Adam; a replay equals an eager step from the same state on the batch
+    and masks it drew (losses within 1e-5, gradients 1e-4)."""
+    from kgat_tpu_torch.utils import trace
+    tr = _trainer()
+    mc = dataclasses.replace(tr.cfg.model, compute_dtype=compute_dtype)
+    tr.cfg = dataclasses.replace(tr.cfg, model=mc)
+    L = len(mc.conv_dims)
+    before = dict(trace.summary()["counts"])
+    tr.cf_steps.run(3)
+    counts = trace.summary()["counts"]
+    delta = lambda k: counts.get(k, 0) - before.get(k, 0)  # noqa: E731
+    assert (delta("cf.layer_kernel"), delta("cf.layer_plain")) == (2 * L, 0)
+    assert tr.cf_steps.calls == {
+        "spmm_csr": L, "spmm_csr_rev": L, "bi_layer_forward": L,
+        "bi_layer_backward": L, "bi_sum": 1 + (compute_dtype is not None),
+        "adam": 1}
+    snap = _snapshot(tr)
+    tr.cf_steps.loss_sum.zero_()
+    tr.cf_steps.replay()
+    loss = float(tr.cf_steps.loss_sum)
+    grads = [p.grad.clone() for p in tr.model.parameters()]
+    _restore(tr, snap)
+    eager = float(tr.cf_step(tr._step_att, *tr.cf_drawn[:4],
+                             masks=tr.cf_drawn[4]))
+    assert abs(eager - loss) <= 1e-5 * abs(loss)
+    for p, g in zip(tr.model.parameters(), grads):
+        torch.testing.assert_close(p.grad, g, rtol=1e-4, atol=1e-8)
+    assert trace.summary()["counts"].get("cf.layer_plain", 0) == \
+        before.get("cf.layer_plain", 0)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ float32. ``kgat_tpu`` asks for HIGHEST in its attention only; three
 products run at DEFAULT there:
 
 * the aggregators' dense layers (``kgat_tpu/models/kgat.py:242-250``),
-  here ``kgat_tpu_torch.models.kgat.aggregate``;
+  here ``kgat_tpu_torch.models.kgat.aggregate`` (on the hopper backend
+  the bi-interaction layer op's kernels compute them in float32, so the
+  layers are sent to the plain path: ``kgat.layer_kernels``);
 * the TransR projection of the KG loss (``kgat_tpu/models/kgat.py:319``),
   here ``kg_pair_terms_rows`` (and its copy in ``optim``, which the
   ``--sparse-adam`` KG step calls) and, on the hopper backend, the op
@@ -126,6 +128,7 @@ def evaluate(all_embed, meta, plan, k=20, ks=()):
 def install() -> None:
     """Replaces the functions in the modules that call them."""
     kgat.aggregate = aggregate
+    kgat.layer_kernels = lambda cfg, t: False
     kgat.kg_pair_terms_rows = optim.kg_pair_terms_rows = kg_pair_terms_rows
     transr.transr_project = transr_project
     evaluation.evaluate = evaluate
