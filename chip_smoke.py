@@ -2351,7 +2351,7 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
     kg_grads = torch.autograd.grad(kg_loss, params, allow_unused=True)
     kg_loss_p, grads_p, terms = plain_grads(model, lambda m: kgat.kg_loss(
         m, *kg_batch[:4], plain, weight=kg_batch[4]))
-    # The entity rows' gradient comes back sparse (kgat.gather_rows).
+    # The entity rows' gradient comes back sparse (hopper_backend.gather_rows).
     kg_errs = compare_step("KG partitioned", kg_loss.item(), kg_loss_p,
                            names, [torch.zeros_like(p) if gp is None
                                    else gp.to_dense()
@@ -3584,7 +3584,7 @@ def phase_coalesced(ds, g_host, g, sizes, check, gen, dev, timer,
         cf_batch_size=sizes.cf_batch, kg_batch_size=sizes.kg_batch),
         dataset=ds)
     mcfg = tr.cfg.model
-    if not (mcfg.coalesce and mcfg.ops_backend == "hopper"):
+    if not mcfg.coalesces:
         raise AssertionError(f"the trainer's defaults: {mcfg}")
     tr.stage(tr.attention())
     build.launch_counts.clear()

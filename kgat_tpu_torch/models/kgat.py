@@ -18,6 +18,11 @@ initial embedding enters the concat unnormalised.
 
 Randomness comes from explicit ``torch.Generator``s: the dropout masks of
 :func:`propagate` from the one passed in (on the graph's device).
+
+Which implementation computes each op is the ops backend's decision
+(``kgat_tpu_torch.ops``, named by ``KGATConfig.ops_backend``): this module
+calls the backend's attention, SpMM, layer, representation rows and
+TransR projection, and has no route of its own.
 """
 
 from __future__ import annotations
@@ -31,9 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from kgat_tpu_torch.graph import CKGMeta, EdgeWeights, Graph, stage_weights
-from kgat_tpu_torch.ops import BACKENDS, get_backend
-from kgat_tpu_torch.ops.hopper import bi_layer, transr
-from kgat_tpu_torch.utils import trace
+from kgat_tpu_torch.ops import BACKENDS, get_backend, ref, representation
 
 AGGREGATORS = ("gcn", "graphsage", "bi-interaction")
 ATT_IMPLS = ("auto", "dense", "relblock")
@@ -81,6 +84,22 @@ class KGATConfig:
     @property
     def out_dim(self) -> int:
         return self.embed_dim + sum(self.conv_dims)
+
+    @property
+    def stream_dtype(self) -> Optional[torch.dtype]:
+        """The SpMM value stream's dtype, to which the staged training
+        attention is rounded too: ``compute_dtype`` where the backend
+        stages as ``kgat_tpu``'s pallas backend (``PALLAS_STAGING``:
+        hopper), else None (float32)."""
+        staging = get_backend(self.ops_backend).PALLAS_STAGING
+        return self.compute_dtype if staging else None
+
+    @property
+    def coalesces(self) -> bool:
+        """Whether the training SpMM reduces over the coalesced CSRs (one
+        device and the all-gather's shards): ``coalesce`` where the
+        backend stages as ``kgat_tpu``'s pallas backend."""
+        return self.coalesce and get_backend(self.ops_backend).PALLAS_STAGING
 
 
 def _layer_shapes(cfg: KGATConfig):
@@ -228,53 +247,22 @@ def compute_attention(model: KGAT, graph: Graph,
     return ops.segment_softmax(graph, attention_logits(model, graph, cfg))
 
 
-def _leaky(x: torch.Tensor, slope: float) -> torch.Tensor:
-    return torch.where(x >= 0, x, slope * x)
-
-
-def l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    return x / torch.sqrt(torch.clamp((x * x).sum(-1, keepdim=True), min=eps))
-
-
 def attention_for_training(model: KGAT, graph: Graph,
                            cfg: KGATConfig) -> EdgeWeights:
     """Per-epoch attention recompute, no grad, staged for the hot loop
     (``kgat_tpu``'s ``attention_for_training``, ``models/kgat.py:
-    185-199``). On the hopper backend, as ``kgat_tpu``'s pallas backend
-    (``pallas_backend.attention_prepared``): the logits by the
-    dense-projection route where ``cfg.att_impl`` resolves to it, else by
-    K2; K3's softmax; the weights summed over the coalesced groups when
-    ``cfg.coalesce``, and rounded to ``cfg.compute_dtype``. The ref
-    backend stages the canonical float32 weights."""
+    185-199``): the softmax of the backend's ``training_logits`` (on the
+    hopper backend the dense-projection route where ``cfg.att_impl``
+    resolves to it, else K2), summed over the coalesced groups when
+    ``cfg.coalesces`` and rounded to ``cfg.stream_dtype`` (on the ref
+    backend: the canonical float32 weights)."""
+    ops = get_backend(cfg.ops_backend)
     with torch.no_grad():
-        if cfg.ops_backend != "hopper":
-            return EdgeWeights.stage(graph,
-                                     compute_attention(model, graph, cfg))
-        ops = get_backend(cfg.ops_backend)
-        if ops.use_dense_attention(graph, cfg):
-            logits = ops.attention_logits_dense(
-                graph, model.entity_embed, model.w_rel, model.rel_embed,
-                cfg.att_table_dtype)
-        else:
-            logits = attention_logits(model, graph, cfg)
+        logits = ops.training_logits(graph, model.entity_embed, model.w_rel,
+                                     model.rel_embed, cfg)
         return stage_weights(graph, ops.segment_softmax(graph, logits),
-                             dtype=cfg.compute_dtype, coalesce=cfg.coalesce,
+                             dtype=cfg.stream_dtype, coalesce=cfg.coalesces,
                              cap=cfg.coalesce_cap)
-
-
-def aggregate(ego: torch.Tensor, side: torch.Tensor, layer,
-              cfg: KGATConfig) -> torch.Tensor:
-    """One layer's aggregator (A1-A3) over a node's own embedding ``ego``
-    and its neighbourhood sum ``side``; ``layer`` maps the layer's
-    parameter names to tensors."""
-    slope = cfg.leaky_relu_slope
-    if cfg.aggregator == "gcn":
-        return _leaky((ego + side) @ layer["w"] + layer["b"], slope)
-    if cfg.aggregator == "graphsage":
-        return _leaky(torch.cat([ego, side], -1) @ layer["w"] + layer["b"],
-                      slope)
-    return (_leaky((ego + side) @ layer["w1"] + layer["b1"], slope)
-            + _leaky((ego * side) @ layer["w2"] + layer["b2"], slope))
 
 
 def dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
@@ -284,13 +272,6 @@ def dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
     if generator is None:
         raise ValueError("message dropout needs a generator")
     return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
-
-
-def apply_dropout(ego: torch.Tensor, mask: torch.Tensor,
-                  rate: float) -> torch.Tensor:
-    """The kept entries scaled by 1 / (1 - rate), the others 0."""
-    keep = 1.0 - rate
-    return torch.where(mask, ego / keep, 0.0)
 
 
 def dropout_masks(cfg: KGATConfig, n_nodes: int,
@@ -312,37 +293,19 @@ def check_dropout(cfg: KGATConfig) -> None:
                          f"{len(cfg.conv_dims)} layers")
 
 
-def layer_kernels(cfg: KGATConfig, t: torch.Tensor) -> bool:
-    """Whether a layer over ``t`` takes the bi-interaction layer op's
-    kernels (``ops.hopper.bi_layer``): the hopper backend, CUDA tensors
-    and the bi-interaction aggregator. CPU tensors, the ref backend and
-    the gcn and graphsage aggregators keep the plain path (``aggregate``,
-    ``apply_dropout``)."""
-    return (cfg.ops_backend == "hopper" and t.is_cuda
-            and cfg.aggregator == "bi-interaction")
-
-
-def layer_forward(ego: torch.Tensor, side: torch.Tensor, layer,
-                  cfg: KGATConfig, li: int, mask: Optional[torch.Tensor],
-                  copy_dtype: Optional[torch.dtype] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Layer ``li``'s aggregator and message dropout (keep ``mask``, None
-    for none): (its output, the output's copy in ``copy_dtype`` for the
-    next layer's SpMM, the output itself when None). The layer op's
-    kernels where :func:`layer_kernels` says so, counted as
-    ``cf.layer_kernel``; else ``aggregate`` and ``apply_dropout``, counted
-    as ``cf.layer_plain``."""
-    rate = cfg.mess_dropout[li] if mask is not None else 0.0
-    if layer_kernels(cfg, ego):
-        trace.count("cf.layer_kernel")
-        out = bi_layer.bi_layer(ego, side, mask, layer, rate,
-                                cfg.leaky_relu_slope, copy_dtype)
-        return out if copy_dtype is not None else (out, out)
-    trace.count("cf.layer_plain")
-    ego = aggregate(ego, side, layer, cfg)
-    if mask is not None:
-        ego = apply_dropout(ego, mask, rate)
-    return ego, ego if copy_dtype is None else ego.to(copy_dtype)
+def _train_masks(model: KGAT, cfg: KGATConfig, train: bool,
+                 generator: Optional[torch.Generator],
+                 masks: Optional[Sequence[Optional[torch.Tensor]]]
+                 ) -> Sequence[Optional[torch.Tensor]]:
+    """The keep masks of a forward: none out of training, else ``masks``,
+    or masks drawn from ``generator`` when None."""
+    if not train:
+        return [None] * len(model.layers)
+    check_dropout(cfg)
+    if masks is None:
+        emb = model.entity_embed
+        masks = dropout_masks(cfg, emb.shape[0], generator, emb.device)
+    return masks
 
 
 def propagate(model: KGAT, graph: Graph, edge_att, cfg: KGATConfig, *,
@@ -352,33 +315,15 @@ def propagate(model: KGAT, graph: Graph, edge_att, cfg: KGATConfig, *,
               ) -> torch.Tensor:
     """L-layer attentive propagation -> (n_nodes, cfg.out_dim).
 
-    SpMM per layer: e_N(h) = sum over edges (t -> h) of att * e_t.
-    ``edge_att`` is canonical (E,) weights or staged :class:`EdgeWeights`.
-    ``train=True`` applies message dropout, with the keep masks ``masks``
+    SpMM per layer: e_N(h) = sum over edges (t -> h) of att * e_t, then
+    the backend's layer call (``ops.representation``). ``edge_att`` is
+    canonical (E,) weights or staged :class:`EdgeWeights`. ``train=True``
+    applies message dropout, with the keep masks ``masks``
     (:func:`dropout_masks`) or, without them, masks drawn from
-    ``generator`` (on the graph's device), layer by layer.
+    ``generator`` (on the graph's device) in layer order.
     """
-    ops = get_backend(cfg.ops_backend)
-    low = cfg.compute_dtype if cfg.ops_backend == "hopper" else None
-    if train:
-        check_dropout(cfg)
-    ego = model.entity_embed
-    value = ego if low is None else ego.to(low)
-    outs = [ego]
-    n_layers = len(model.layers)
-    for li, layer in enumerate(model.layers):
-        side = ops.spmm(graph, edge_att, value)
-        rate = cfg.mess_dropout[li]
-        mask = None
-        if train and rate > 0:
-            mask = (dropout_mask((ego.shape[0], cfg.conv_dims[li]), rate,
-                                 generator, ego.device)
-                    if masks is None else masks[li])
-        ego, value = layer_forward(
-            ego, side, layer, cfg, li, mask,
-            low if li + 1 < n_layers else None)
-        outs.append(l2norm(ego))
-    return torch.cat(outs, dim=-1)
+    return representation(model, graph, edge_att, cfg,
+                          _train_masks(model, cfg, train, generator, masks))
 
 
 def cf_scores(all_embed: torch.Tensor, meta: CKGMeta, users: torch.Tensor,
@@ -417,22 +362,14 @@ def cf_loss(model: KGAT, graph: Graph, edge_att, meta: CKGMeta,
     """BPR loss over a minibatch with full-graph propagation (SURVEY.md
     §3.3). ``weight`` (B,) optionally down-weights batch rows (the device
     sampler gives weight 0 to a row with no allowed negative); ``masks``
-    are the dropout masks (:func:`propagate`). Where the layers take the
-    layer op's kernels (:func:`layer_kernels`), :func:`cf_loss_rows`: the
-    same loss with the normalised concat formed at the batch's rows
-    alone."""
-    if layer_kernels(cfg, model.entity_embed):
-        if train and masks is None:
-            emb = model.entity_embed
-            masks = dropout_masks(cfg, emb.shape[0], generator, emb.device)
-        return cf_loss_rows(model, graph, edge_att, meta, users, pos_items,
-                            neg_items, cfg, weight=weight,
-                            masks=masks if train else None)
-    all_embed = propagate(model, graph, edge_att, cfg, train=train,
-                          generator=generator, masks=masks)
-    u = all_embed[meta.user_node(users)]
-    ip = all_embed[pos_items]
-    ineg = all_embed[neg_items]
+    are the dropout masks (:func:`propagate`). The final representations
+    of the batch's users and items are the backend's
+    ``representation_rows``: the rows of :func:`propagate`'s concat, or,
+    by the bi-interaction layer op, formed at those rows alone."""
+    u, ip, ineg = get_backend(cfg.ops_backend).representation_rows(
+        model, graph, edge_att, cfg,
+        _train_masks(model, cfg, train, generator, masks),
+        (meta.user_node(users), pos_items, neg_items))
     return bpr_loss(u, ip, ineg, cfg, weight)
 
 
@@ -446,43 +383,13 @@ def bpr_loss(u: torch.Tensor, ip: torch.Tensor, ineg: torch.Tensor,
                                                                    ineg)
 
 
-def cf_loss_rows(model: KGAT, graph: Graph, edge_att, meta: CKGMeta,
-                 users: torch.Tensor, pos_items: torch.Tensor,
-                 neg_items: torch.Tensor, cfg: KGATConfig, *,
-                 weight: Optional[torch.Tensor] = None,
-                 masks: Optional[Sequence[Optional[torch.Tensor]]] = None
-                 ) -> torch.Tensor:
-    """:func:`cf_loss` with the L2-normalised concat formed only at the 3B
-    rows it reads: ``ops.hopper.bi_layer.propagate_rows`` gives each
-    layer's output at those rows, which are normalised and concatenated
-    here (``l2norm`` is row-wise: the same loss and gradients as the
-    (n_nodes, out_dim) concat's). ``masks``: the layers' keep masks (None:
-    no dropout). The bi-interaction aggregator only; CPU tensors run the
-    op's plain versions."""
-    if cfg.aggregator != "bi-interaction":
-        raise ValueError(f"cf_loss_rows: the {cfg.aggregator} aggregator "
-                         f"has no layer op")
-    if masks is None:
-        masks = [None] * len(model.layers)
-    trace.count("cf.layer_kernel" if model.entity_embed.is_cuda
-                else "cf.layer_plain", len(model.layers))
-    idx = torch.cat([meta.user_node(users), pos_items, neg_items]).long()
-    rows = bi_layer.propagate_rows(model, graph, edge_att, cfg, masks, idx)
-    widths = [cfg.embed_dim, *cfg.conv_dims]
-    parts = rows.split(widths, dim=-1)
-    rows = torch.cat([parts[0], *(l2norm(p) for p in parts[1:])], dim=-1)
-    u, ip, ineg = rows.split(users.shape[0])
-    return bpr_loss(u, ip, ineg, cfg, weight)
-
-
 def kg_pair_terms_rows(eh: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,
                        e_r: torch.Tensor, w_r: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row-based TransR core: per-pair losses and the 0.5 * sum-of-squares
     regularizer from gathered rows — eh/ep/en (B, d) head, positive and
     negative tail rows, e_r (B, k), w_r (B, d, k)."""
-    return kg_pair_terms_projected(*transr.project_rows(eh, ep, en, w_r),
-                                   e_r)
+    return kg_pair_terms_projected(*ref.project_rows(eh, ep, en, w_r), e_r)
 
 
 def kg_pair_terms_projected(ph: torch.Tensor, pp: torch.Tensor,
@@ -497,47 +404,19 @@ def kg_pair_terms_projected(ph: torch.Tensor, pp: torch.Tensor,
     return pair, ssq
 
 
-def gather_rows(table: torch.Tensor, ids: Sequence[torch.Tensor]
-                ) -> Tuple[torch.Tensor, ...]:
-    """The rows of ``table`` at each index tensor of ``ids``, gathered at
-    once. Their gradient reaches ``table`` as a sparse COO tensor of the
-    gathered rows, duplicate ids left unsummed, which autograd adds into a
-    dense ``.grad`` in place, row by row (an ``index_add_``): no (rows, d)
-    temporary, no whole-table add, and ``.grad`` keeps its address.
-    Without a ``.grad`` to add into, ``table.grad`` (or
-    ``torch.autograd.grad``'s result) is that sparse tensor."""
-    rows = F.embedding(torch.cat(list(ids)), table, sparse=True)
-    return rows.split([i.numel() for i in ids])
-
-
 def kg_pair_terms(model: KGAT, h: torch.Tensor, r: torch.Tensor,
                   t_pos: torch.Tensor, t_neg: torch.Tensor, cfg: KGATConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """TransR per-pair loss terms and regularizer sum for index tensors.
-    On the hopper backend the projection and the relation tables'
-    gradients are one op, ``ops.hopper.transr.transr_project`` (its
-    kernels on CUDA, which take float32 tables alone); on the ref backend
-    the rows of ``w_rel`` and ``rel_embed`` are gathered per pair, counted
-    as ``kg.transr_plain``.
-
-    The hopper backend on CUDA gathers the 3B entity rows at once, with a
-    sparse gradient (:func:`gather_rows`), so ``torch.autograd.grad``
-    returns ``entity_embed``'s gradient as a sparse tensor there. CPU
-    tensors and the ref backend gather one index tensor at a time, with
-    dense gradients: the hopper route on the CPU is held to the ref route
-    bit for bit (``tests/test_torch_transr.py::
-    test_plain_route_is_the_gathered_path``), and CPU callers read a dense
-    gradient (``tests/test_torch_multihost.py::
-    test_kg_step_matches_kgat_tpu``)."""
-    emb, rel, w_rel = model.entity_embed, model.rel_embed, model.w_rel
-    rows = (gather_rows(emb, (h, t_pos, t_neg))
-            if emb.is_cuda and cfg.ops_backend == "hopper"
-            else (emb[h], emb[t_pos], emb[t_neg]))
-    if cfg.ops_backend == "hopper":
-        return kg_pair_terms_projected(*transr.transr_project(
-            *rows, rel, w_rel, r))
-    trace.count("kg.transr_plain")
-    return kg_pair_terms_rows(*rows, rel[r], w_rel[r])
+    """TransR per-pair loss terms and regularizer sum for index tensors,
+    from the backend's ``kg_projection``: the ref backend gathers the
+    rows of ``w_rel`` and ``rel_embed`` per pair; the hopper backend's
+    TransR op sums the relation tables' gradients by relation, and on
+    CUDA gathers the 3B entity rows at once with a sparse gradient, so
+    that ``torch.autograd.grad`` returns ``entity_embed``'s gradient as a
+    sparse tensor there."""
+    return kg_pair_terms_projected(*get_backend(cfg.ops_backend).kg_projection(
+        model.entity_embed, model.rel_embed, model.w_rel, h, r, t_pos,
+        t_neg))
 
 
 def kg_loss(model: KGAT, h: torch.Tensor, r: torch.Tensor,

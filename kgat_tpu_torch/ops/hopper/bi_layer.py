@@ -6,21 +6,22 @@ A layer maps its input ``x`` (n, d_in) and neighbourhood sum ``side``
 (K1's output) to ``y = drop(leaky((x + side) W1 + b1) + leaky((x * side)
 W2 + b2))``, drop(y) = where(mask, y / (1 - rate), 0) for the layer's keep
 mask (none in evaluation). It replaces no TPU kernel (``kgat_tpu``'s
-``aggregate`` leaves the arithmetic to XLA). :func:`bi_layer` is the
-differentiable op on one layer (the serving forward, evaluation and the
-partitioned trainer's partitions); :func:`propagate_rows` the single-card
-CF step's whole training propagation, K1 included, whose backward runs
-from the top layer down the layer kernel and then K1's reverse call, so
-that autograd adds nothing at (n, d), and whose output is only the rows
-the BPR loss reads.
+``aggregate`` leaves the arithmetic to XLA). The hopper backend takes it
+for CUDA tensors under the bi-interaction aggregator: :func:`bi_layer`,
+the differentiable op on one layer, is its ``layer`` (the serving
+forward, evaluation and the partitioned trainer's partitions);
+:func:`propagate_rows`, its ``representation_rows``, the
+single-card CF step's whole training propagation, K1 included, whose
+backward runs from the top layer down the layer kernel and then K1's
+reverse call, so that autograd adds nothing at (n, d), and whose output
+is only the rows the BPR loss reads, normalised there.
 
 CPU tensors take the plain versions (``*_plain``: the forward as
-``models.kgat``'s ``aggregate`` and ``apply_dropout`` compute it, the
-backward written out), CUDA tensors the kernels, which take float32
-tables and bool masks alone and raise for any other dtype. The callers
-count their route, ``cf.layer_kernel`` or ``cf.layer_plain``
-(``utils.trace``). The kernels sum in a fixed order and without atomics,
-so two calls give the same bits.
+``ops.ref``'s ``aggregate`` and ``apply_dropout`` compute it, the
+backward written out; the kernels' references in the tests), CUDA
+tensors the kernels, which take float32 tables and bool masks alone and
+raise for any other dtype. The kernels sum in a fixed order and without
+atomics, so two calls give the same bits.
 """
 
 from __future__ import annotations
@@ -31,8 +32,10 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from kgat_tpu_torch.graph import EdgeWeights, spmm_csr_of
+from kgat_tpu_torch.ops import l2norm
 from kgat_tpu_torch.ops.hopper import build
 from kgat_tpu_torch.ops.hopper.segment_sum import spmm_csr, spmm_csr_rev
+from kgat_tpu_torch.ops.ref import leaky
 
 MAX_WIDTH = 256
 # CUDA launches per wrapper call.
@@ -51,17 +54,13 @@ def check_widths(d_in: int, d_out: int) -> None:
                          f"{d_out}")
 
 
-def _leaky(x: torch.Tensor, slope: float) -> torch.Tensor:
-    return torch.where(x >= 0, x, slope * x)
-
-
 def bi_layer_forward_plain(x, side, mask, w1, b1, w2, b2, rate: float,
                            slope: float) -> torch.Tensor:
     """Plain PyTorch version of :func:`bi_layer_forward`'s output (in
     float64 when the inputs are): the aggregator and the dropout in
-    ``models.kgat``'s operations and order."""
-    y = (_leaky((x + side) @ w1 + b1, slope)
-         + _leaky((x * side) @ w2 + b2, slope))
+    ``ops.ref``'s operations and order."""
+    y = (leaky((x + side) @ w1 + b1, slope)
+         + leaky((x * side) @ w2 + b2, slope))
     return y if mask is None else torch.where(mask, y / (1.0 - rate), 0.0)
 
 
@@ -392,16 +391,18 @@ class _BiPropagate(torch.autograd.Function):
 
 def propagate_rows(model, graph, edge_w, cfg,
                    masks: Sequence[Optional[torch.Tensor]],
-                   idx: torch.Tensor) -> torch.Tensor:
-    """The training propagation's layer outputs at rows ``idx`` only:
-    (len(idx), cfg.out_dim), the embedding's rows then each layer's,
-    unnormalised; differentiable in every parameter of ``model``.
-    ``masks`` are the layers' keep masks (``kgat.dropout_masks``; None
-    where a rate is 0), ``edge_w`` the staged attention (no gradient).
-    Per layer K1 and the layer op; the backward from the top layer down,
-    each layer's kernel then K1 on the reverse CSR, and the embedding's
-    gradient summed in one pass. CPU tensors take the plain versions of
-    every piece."""
+                   ids: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """The training propagation's final representations at the rows of
+    each index tensor of ``ids`` only, ((len, cfg.out_dim) each),
+    differentiable in every parameter of ``model``: the layer outputs at
+    those rows, each layer's L2-normalised there (``l2norm`` is
+    row-wise: the rows of the (n_nodes, out_dim) concat's). ``masks``
+    are the layers' keep masks (``kgat.dropout_masks``; None where a rate
+    is 0), ``edge_w`` the staged attention (no gradient). Per layer K1
+    and the layer op; the backward from the top layer down, each layer's
+    kernel then K1 on the reverse CSR, and the embedding's gradient
+    summed in one pass. CPU tensors take the plain versions of every
+    piece."""
     if isinstance(edge_w, EdgeWeights):
         w_fwd, w_rev = edge_w.fwd, edge_w.rev
     else:
@@ -409,11 +410,13 @@ def propagate_rows(model, graph, edge_w, cfg,
     if w_fwd.requires_grad and torch.is_grad_enabled():
         raise ValueError("propagate_rows: the staged attention must not "
                          "need a gradient")
-    low = cfg.compute_dtype if cfg.ops_backend == "hopper" else None
     params: List[torch.Tensor] = []
     for layer in model.layers:
         params += [layer["w1"], layer["b1"], layer["w2"], layer["b2"]]
     plan = (spmm_csr_of(graph, edge_w), w_fwd.detach(), w_rev.detach(),
-            list(masks), list(cfg.mess_dropout), cfg.leaky_relu_slope, low,
-            idx.long())
-    return _BiPropagate.apply(plan, model.entity_embed, *params)
+            list(masks), list(cfg.mess_dropout), cfg.leaky_relu_slope,
+            cfg.stream_dtype, torch.cat(list(ids)).long())
+    rows = _BiPropagate.apply(plan, model.entity_embed, *params)
+    parts = rows.split([cfg.embed_dim, *cfg.conv_dims], dim=-1)
+    rows = torch.cat([parts[0], *(l2norm(p) for p in parts[1:])], dim=-1)
+    return rows.split([i.numel() for i in ids])

@@ -8,7 +8,7 @@ autograd's accumulating ``index_put``.
 and the relations ``r`` (B,), and returns ``eh W_r``, ``ep W_r``, ``en
 W_r`` and ``e_r`` (B, k), differentiable in the rows and both tables.
 It replaces no TPU kernel (``kgat_tpu``'s ``kg_loss`` leaves the products
-to XLA). ``models.kgat.kg_pair_terms`` calls it on the hopper backend.
+to XLA). The hopper backend's ``kg_projection`` calls it.
 
 A call first makes a plan (:class:`TransRPlan`): the batch sorted by
 relation, stably, and each relation's run cut into units of at most
@@ -16,10 +16,8 @@ relation, stably, and each relation's run cut into units of at most
 backward the units' partial sums and their fold by relation. CPU tensors
 take the plain version (the per-pair gather of ``w_rel`` and
 ``rel_embed``, through autograd), CUDA tensors the kernels, which take
-float32 alone and raise for any other dtype. Each call counts its route,
-``kg.transr_kernel`` or ``kg.transr_plain`` (``utils.trace``). The
-kernels sum in a fixed order and without atomics, so two calls give the
-same bits.
+float32 alone and raise for any other dtype. The kernels sum in a fixed
+order and without atomics, so two calls give the same bits.
 """
 
 from __future__ import annotations
@@ -30,8 +28,8 @@ from typing import Tuple
 
 import torch
 
+from kgat_tpu_torch.ops import ref
 from kgat_tpu_torch.ops.hopper import build
-from kgat_tpu_torch.utils import trace
 
 # Rows per unit, chosen on an H100 (PERF.md, the kernel table): short
 # enough that the interaction relations' runs (some 380 and 830 rows of a
@@ -141,18 +139,10 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def project_rows(eh: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,
-                 w_r: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """The plain TransR products: the rows eh, ep, en (B, d) times their
-    pairs' gathered W_r, ``w_r`` (B, d, k)."""
-    proj = lambda e: torch.einsum("bd,bdk->bk", e, w_r)  # noqa: E731
-    return proj(eh), proj(ep), proj(en)
-
-
 def transr_forward_plain(eh, ep, en, rel_embed, w_rel, r):
     """Plain PyTorch version of :func:`transr_project`: ``w_rel`` and
-    ``rel_embed`` gathered per pair, then :func:`project_rows`."""
-    return (*project_rows(eh, ep, en, w_rel[r]), rel_embed[r])
+    ``rel_embed`` gathered per pair, then ``ref.project_rows``."""
+    return (*ref.project_rows(eh, ep, en, w_rel[r]), rel_embed[r])
 
 
 def transr_forward(plan: TransRPlan, eh: torch.Tensor, ep: torch.Tensor,
@@ -274,7 +264,5 @@ def transr_project(eh: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,
     relations in [0, R). CPU tensors take :func:`transr_forward_plain`;
     CUDA tensors the kernels, float32 only."""
     if not eh.is_cuda:
-        trace.count("kg.transr_plain")
         return transr_forward_plain(eh, ep, en, rel_embed, w_rel, r)
-    trace.count("kg.transr_kernel")
     return _TransRProject.apply(eh, ep, en, rel_embed, w_rel, r)

@@ -21,6 +21,12 @@ The training attention may take the dense-projection route instead of
 K2 (:func:`use_dense_attention`, :func:`attention_logits_dense`), as
 ``kgat_tpu``'s pallas backend does: plain torch, as it is XLA there.
 
+The model's ops (``ops/__init__.py``) take two hand-written ops that
+replace no TPU kernel: :func:`layer` and :func:`representation_rows` the
+bi-interaction layer op (``ops/hopper/bi_layer.py``) for CUDA tensors,
+:func:`kg_projection` the TransR op (``ops/hopper/transr.py``), whose
+wrappers take their plain versions for CPU tensors, as every op here.
+
 DGL's op surface (``kgat_tpu/ops/pallas_backend.py:32-61``): :func:`gspmm`
 sends the weighted sum and mean, and ``copy_u`` with either, through K1;
 every other case, and the segment reductions, ``gsddmm`` and
@@ -28,12 +34,14 @@ every other case, and the segment reductions, ``gsddmm`` and
 XLA too.
 """
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from kgat_tpu_torch.graph import Graph
 from kgat_tpu_torch.ops import ref
+from kgat_tpu_torch.ops.hopper import bi_layer, transr
 from kgat_tpu_torch.ops.hopper.remote_ring import (  # noqa: F401
     bucket_spmm_send, ring_send)
 from kgat_tpu_torch.ops.hopper.segment_sum import bucket_spmm, spmm  # noqa: F401
@@ -42,6 +50,12 @@ from kgat_tpu_torch.ops.hopper.softmax import segment_softmax  # noqa: F401
 from kgat_tpu_torch.ops.ref import (  # noqa: F401
     MSG_OPS, REDUCE_OPS, gsddmm, sddmm_dot, segment_max, segment_mean,
     segment_min, segment_sum)
+
+# As kgat_tpu's pallas backend, the SpMM reads the value stream in the
+# config's compute_dtype and, on one device and the all-gather's shards,
+# reduces over the coalesced CSRs when the config coalesces
+# (models.kgat.KGATConfig).
+PALLAS_STAGING = True
 
 
 def gspmm(graph: Graph, msg: str, reduce: str,
@@ -129,3 +143,76 @@ def attention_logits_dense(graph: Graph, emb: torch.Tensor,
         out[lo:hi] = (q.index_select(0, rows_t).float()
                       * t.index_select(0, rows_h).float()).sum(-1)
     return out
+
+
+def training_logits(graph: Graph, emb: torch.Tensor, w_rel: torch.Tensor,
+                    rel_embed: torch.Tensor, cfg) -> torch.Tensor:
+    """The per-epoch training attention's logits, as ``kgat_tpu``'s pallas
+    backend takes them (``pallas_backend.attention_prepared``): by the
+    dense route where :func:`use_dense_attention` says so, else by K2."""
+    if use_dense_attention(graph, cfg):
+        return attention_logits_dense(graph, emb, w_rel, rel_embed,
+                                      cfg.att_table_dtype)
+    return attention_logits(graph, emb, w_rel, rel_embed)
+
+
+def _layer_op(cfg, t: torch.Tensor) -> bool:
+    """Whether the layer op computes the layers over ``t``: bi-interaction
+    on CUDA tensors. Else ``ref``'s layers through autograd, the path that
+    ``benchmark/tests/test_bench_reference.py`` holds to the benchmark's
+    reference at rtol 1e-4 on the CPU (the op's written-out plain backward
+    rounds other float32 sums to the bf16 stream and misses it)."""
+    return cfg.aggregator == "bi-interaction" and t.is_cuda
+
+
+def layer(x: torch.Tensor, side: torch.Tensor, params,
+          mask: Optional[torch.Tensor], rate: float, cfg,
+          copy_dtype: Optional[torch.dtype] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ref.layer``'s surface: by the layer op (``bi_layer.bi_layer``)
+    where :func:`_layer_op` says so, else by ``ref.layer``."""
+    if not _layer_op(cfg, x):
+        return ref.layer(x, side, params, mask, rate, cfg, copy_dtype)
+    out = bi_layer.bi_layer(x, side, mask, params, rate,
+                            cfg.leaky_relu_slope, copy_dtype)
+    return out if copy_dtype is not None else (out, out)
+
+
+def representation_rows(model, graph: Graph, edge_w, cfg,
+                        masks: Sequence[Optional[torch.Tensor]],
+                        ids: Sequence[torch.Tensor]
+                        ) -> Tuple[torch.Tensor, ...]:
+    """``ref.representation_rows``'s surface: where :func:`_layer_op` says
+    so, the whole propagation as one op, K1 inside, normalised at the
+    rows alone (``bi_layer.propagate_rows``); else
+    ``ref.representation_rows`` over this backend's SpMM."""
+    if not _layer_op(cfg, model.entity_embed):
+        return ref.representation_rows(model, graph, edge_w, cfg, masks, ids)
+    return bi_layer.propagate_rows(model, graph, edge_w, cfg, masks, ids)
+
+
+def gather_rows(table: torch.Tensor, ids: Sequence[torch.Tensor]
+                ) -> Tuple[torch.Tensor, ...]:
+    """The rows of ``table`` at each index tensor of ``ids``, gathered at
+    once. Their gradient reaches ``table`` as a sparse COO tensor of the
+    gathered rows, duplicate ids left unsummed, which autograd adds into a
+    dense ``.grad`` in place, row by row (an ``index_add_``): no (rows, d)
+    temporary, no whole-table add, and ``.grad`` keeps its address.
+    Without a ``.grad`` to add into, ``table.grad`` (or
+    ``torch.autograd.grad``'s result) is that sparse tensor."""
+    rows = F.embedding(torch.cat(list(ids)), table, sparse=True)
+    return rows.split([i.numel() for i in ids])
+
+
+def kg_projection(emb: torch.Tensor, rel_embed: torch.Tensor,
+                  w_rel: torch.Tensor, h: torch.Tensor, r: torch.Tensor,
+                  t_pos: torch.Tensor, t_neg: torch.Tensor
+                  ) -> Tuple[torch.Tensor, ...]:
+    """``ref.kg_projection``'s surface by the TransR op (its kernels on
+    CUDA, float32 alone). CUDA tensors gather the 3B entity rows at once
+    with a sparse gradient (:func:`gather_rows`, so ``torch.autograd.grad``
+    returns ``emb``'s gradient sparse); CPU tensors as ``ref``, one index
+    tensor at a time (``tests/test_torch_transr.py``: the same bits)."""
+    rows = (gather_rows(emb, (h, t_pos, t_neg)) if emb.is_cuda
+            else (emb[h], emb[t_pos], emb[t_neg]))
+    return transr.transr_project(*rows, rel_embed, w_rel, r)

@@ -9,16 +9,29 @@ that lie on the CPU. Besides the model's ops it holds DGL's
 ``segment_max``, ``segment_min``, ``segment_mean``, :func:`gspmm`,
 :func:`gsddmm` and :func:`sddmm_dot`.
 
+The model's ops of the ``ref`` backend are here too, the plain
+arithmetic every backend falls back to: the aggregators and message
+dropout (:func:`aggregate`, :func:`apply_dropout`, :func:`layer`), the
+final representations at the CF loss's rows
+(:func:`representation_rows`), the TransR products of the KG loss
+(:func:`project_rows`, :func:`kg_projection`) and the training
+attention's logits (:func:`training_logits`).
+
 The port's graph has no pad edges, so nothing here needs an edge mask.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, Sequence, Tuple, Union
+from typing import Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from kgat_tpu_torch.graph import EdgeWeights, Graph, spmm_csr_of
+from kgat_tpu_torch.ops import representation
+
+# The SpMM reads a float32 value stream over every edge, whatever the
+# config's compute_dtype and coalesce say (models.kgat.KGATConfig).
+PALLAS_STAGING = False
 
 
 def offsets_to_dst(row_offsets: torch.Tensor) -> torch.Tensor:
@@ -484,3 +497,85 @@ def attention_logits(graph: Graph, emb: torch.Tensor, w_rel: torch.Tensor,
     ranges = [(r, off[r], off[r + 1]) for r in range(graph.n_relations)]
     return transr_logits(graph.rel_perm, ranges, graph.src, graph.dst, emb,
                          w_rel, rel_embed)
+
+
+def training_logits(graph: Graph, emb: torch.Tensor, w_rel: torch.Tensor,
+                    rel_embed: torch.Tensor, cfg) -> torch.Tensor:
+    """The per-epoch training attention's logits: :func:`attention_logits`.
+    ``cfg`` is unused here; it is on the surface because the hopper
+    backend's rule between its two routes reads it, and the model makes
+    the same call whatever the backend."""
+    return attention_logits(graph, emb, w_rel, rel_embed)
+
+
+# --- the model's layers and TransR products -------------------------------
+
+def leaky(x: torch.Tensor, slope: float) -> torch.Tensor:
+    return torch.where(x >= 0, x, slope * x)
+
+
+def aggregate(ego: torch.Tensor, side: torch.Tensor, layer,
+              cfg) -> torch.Tensor:
+    """One layer's aggregator (A1-A3) over a node's own embedding ``ego``
+    and its neighbourhood sum ``side``; ``layer`` maps the layer's
+    parameter names to tensors."""
+    slope = cfg.leaky_relu_slope
+    if cfg.aggregator == "gcn":
+        return leaky((ego + side) @ layer["w"] + layer["b"], slope)
+    if cfg.aggregator == "graphsage":
+        return leaky(torch.cat([ego, side], -1) @ layer["w"] + layer["b"],
+                     slope)
+    return (leaky((ego + side) @ layer["w1"] + layer["b1"], slope)
+            + leaky((ego * side) @ layer["w2"] + layer["b2"], slope))
+
+
+def apply_dropout(ego: torch.Tensor, mask: torch.Tensor,
+                  rate: float) -> torch.Tensor:
+    """The kept entries scaled by 1 / (1 - rate), the others 0."""
+    keep = 1.0 - rate
+    return torch.where(mask, ego / keep, 0.0)
+
+
+def layer(x: torch.Tensor, side: torch.Tensor, params,
+          mask: Optional[torch.Tensor], rate: float, cfg,
+          copy_dtype: Optional[torch.dtype] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One propagation layer, :func:`aggregate` and message dropout (keep
+    ``mask``, None for none): (y, y's copy in ``copy_dtype`` for the next
+    layer's SpMM, y itself when None)."""
+    y = aggregate(x, side, params, cfg)
+    if mask is not None:
+        y = apply_dropout(y, mask, rate)
+    return y, y if copy_dtype is None else y.to(copy_dtype)
+
+
+def representation_rows(model, graph: Graph, edge_w, cfg,
+                        masks: Sequence[Optional[torch.Tensor]],
+                        ids: Sequence[torch.Tensor]
+                        ) -> Tuple[torch.Tensor, ...]:
+    """The training propagation's final representations at the rows of
+    each index tensor of ``ids`` ((len, cfg.out_dim) each): the plain
+    layer loop's (n_nodes, out_dim) concat (``ops.representation``, keep
+    masks ``masks``), gathered once per index tensor."""
+    all_embed = representation(model, graph, edge_w, cfg, masks)
+    return tuple(all_embed[i] for i in ids)
+
+
+def project_rows(eh: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,
+                 w_r: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The plain TransR products: the rows eh, ep, en (B, d) times their
+    pairs' gathered W_r, ``w_r`` (B, d, k)."""
+    proj = lambda e: torch.einsum("bd,bdk->bk", e, w_r)  # noqa: E731
+    return proj(eh), proj(ep), proj(en)
+
+
+def kg_projection(emb: torch.Tensor, rel_embed: torch.Tensor,
+                  w_rel: torch.Tensor, h: torch.Tensor, r: torch.Tensor,
+                  t_pos: torch.Tensor, t_neg: torch.Tensor
+                  ) -> Tuple[torch.Tensor, ...]:
+    """The KG loss's TransR projection (eh W_r, ep W_r, en W_r, e_r), each
+    (B, k): the head, positive- and negative-tail rows of ``emb``
+    gathered one index tensor at a time, ``w_rel`` and ``rel_embed``
+    gathered per pair, then :func:`project_rows`."""
+    return (*project_rows(emb[h], emb[t_pos], emb[t_neg], w_rel[r]),
+            rel_embed[r])

@@ -79,7 +79,7 @@ from kgat_tpu_torch.graph import (CKGMeta, EdgeWeights, build_coalesced,
                                   round_weights, stage_weights)
 from kgat_tpu_torch.models import kgat
 from kgat_tpu_torch.models.kgat import KGAT, KGATConfig
-from kgat_tpu_torch.ops import get_backend
+from kgat_tpu_torch.ops import get_backend, l2norm
 from kgat_tpu_torch.ops.hopper.remote_ring import (ProcessRing,
                                                    bucket_spmm_send,
                                                    ring_send)
@@ -143,12 +143,12 @@ class Partitioned:
         self.ring, self.a2a = exchange == "ring", exchange == "a2a"
         self.transport = ring_transport
         self.ops = get_backend(cfg.ops_backend)
-        # The all-gather's shards reduce over their coalesced CSRs on the
-        # hopper backend, as kgat_tpu/train.py:315-319 builds coalesced
-        # shards for the all-gather alone; ring buckets and a2a halos keep
-        # every edge. Built on the host for this process's partitions.
-        self.coalesce = (exchange == "allgather" and cfg.coalesce
-                         and cfg.ops_backend == "hopper")
+        # The all-gather's shards reduce over their coalesced CSRs where
+        # the config coalesces, as kgat_tpu/train.py:315-319 builds
+        # coalesced shards for the all-gather alone; ring buckets and a2a
+        # halos keep every edge. Built on the host for this process's
+        # partitions.
+        self.coalesce = exchange == "allgather" and cfg.coalesces
         if self.coalesce:
             mine = {p for d in mesh.local_rows() for p in mesh.local_parts(d)}
             shards = [dataclasses.replace(s, graph=dataclasses.replace(
@@ -181,8 +181,7 @@ class Partitioned:
     def _ring_keys(self) -> dict:
         """(layer, ring step, direction) -> the (shape, dtype) of the chunk
         (or its gradient) a process receives under it."""
-        low = self.cfg.compute_dtype if self.cfg.ops_backend == "hopper" \
-            else None
+        low = self.cfg.stream_dtype
         dims = (self.cfg.embed_dim, *self.cfg.conv_dims)
         R = self.info.rows_per_part
         return {(li, s, dirn): ((R, dims[li]), low or torch.float32)
@@ -352,7 +351,7 @@ class Partitioned:
                     generators is None or len(generators) != n):
                 raise ValueError(f"training dropout needs one generator per "
                                  f"partition ({n})")
-        low = cfg.compute_dtype if cfg.ops_backend == "hopper" else None
+        low = cfg.stream_dtype
         cast = (lambda v: v) if low is None else (lambda v: v.to(low))  # noqa: E731
         emb = model.entity_embed
         x = F.pad(emb, (0, 0, 0, info.n_nodes_pad - N))    # (n_pad, d)
@@ -394,20 +393,20 @@ class Partitioned:
                 mask = (kgat.dropout_mask((R, cfg.conv_dims[li]), rate,
                                           generators[p], egos[p].device)
                         if train and rate > 0 else None)
-                new[p], _ = kgat.layer_forward(egos[p], sides[p], lp, cfg,
-                                               li, mask)
+                new[p], _ = self.ops.layer(egos[p], sides[p], lp, mask,
+                                           rate, cfg)
             egos = new
             if self.ring or self.a2a:
                 # Rows stay owned; one all-gather of the concatenated
                 # representation after the last layer.
                 for p in loc:
-                    own_outs[p].append(kgat.l2norm(egos[p]))
+                    own_outs[p].append(l2norm(egos[p]))
                 if self.a2a and li < n_layers - 1:
                     tables = self._a2a_tables(d, egos)
             else:
                 # One all-gather per layer.
                 x = self._gather(d, egos)
-                outs.append(kgat.l2norm(x[:N]))
+                outs.append(l2norm(x[:N]))
         if self.ring or self.a2a:
             return self._gather(d, [None if o is None else torch.cat(o, -1)
                                     for o in own_outs])[:N]

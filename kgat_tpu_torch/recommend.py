@@ -122,11 +122,9 @@ def recommend(model: KGAT, graph: Graph, meta: CKGMeta, cfg: KGATConfig,
     -inf (fewer than k unmasked items) are returned as they are; the CLI
     drops them.
     """
-    with trace.span("recommend.request"):
-        users = _validate(model, meta, cfg, users)
-        all_embed = _forward(cfg, model, graph)
-        return _blocked_topk(all_embed, meta, users, k, train_user_dict,
-                             block)
+    return Recommender(model, graph, meta, cfg,
+                       train_user_dict=train_user_dict).recommend(
+                           users, k=k, block=block)
 
 
 def _score_block(all_embed: torch.Tensor, user_nodes: torch.Tensor,

@@ -308,7 +308,7 @@ class Trainer:
         self.part: Optional[halo.Partitioned] = None
         self.part_generators = []
         mc = cfg.model
-        if not self.partitioned and mc.coalesce and mc.ops_backend == "hopper":
+        if not self.partitioned and mc.coalesces:
             # The coalesced CSRs, built here rather than in the first
             # epoch's attention (a no-op when the graph cache held them).
             coalesced(self.graph, mc.coalesce_cap)

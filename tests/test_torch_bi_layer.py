@@ -2,16 +2,17 @@
 the CPU.
 
 The op's plain versions, the references its kernels are held to on the
-card: the forward is ``models.kgat``'s ``aggregate`` and
+card: the forward is ``ops.ref``'s ``aggregate`` and
 ``apply_dropout``, and the backward, from its output's gradient given in
 pieces (a dense piece, another, and rows through a slot map), is
 autograd's through that chain and ``l2norm``, in float64, for the three
 layer shapes of the reference recipe, with and without a mask and with
 and without the value stream's copy, over a zero row and a row at
-``l2norm``'s clamp. The rows-only CF loss (``kgat.cf_loss_rows``: the
-whole training propagation as one op, the normalised concat formed at
-the batch's rows alone) against the full concat's loss and every
-gradient, for a batch with repeated users and items. The partitioned CF
+``l2norm``'s clamp. The rows-only CF loss (``bi_layer.propagate_rows``,
+the hopper backend's CF rows on the card: the whole training propagation
+as one op, the normalised concat formed at the batch's rows alone)
+against the full concat's loss and every gradient, for a batch with
+repeated users and items. The partitioned CF
 step applies the masks that its partitions' generators give when drawn
 again from their states. The kernels run in ``tests/test_torch_cuda.py``.
 """
@@ -25,8 +26,8 @@ from kgat_tpu_torch import train
 from kgat_tpu_torch.data import synthetic_dataset
 from kgat_tpu_torch.graph import EdgeWeights
 from kgat_tpu_torch.models import kgat
+from kgat_tpu_torch.ops import hopper_backend, l2norm, ref
 from kgat_tpu_torch.ops.hopper import bi_layer
-from kgat_tpu_torch.utils import trace
 from kgat_tpu_torch.utils.config import TrainConfig
 
 import torch_threads  # noqa: F401  (one intra-op thread)
@@ -70,15 +71,15 @@ def test_plain_layer_holds_to_the_autograd_chain(d_in, d_out, masked, copy):
               (x, side, w1, b1, w2, b2)]
     lx, ls, lw1, lb1, lw2, lb2 = leaves
     layer = {"w1": lw1, "b1": lb1, "w2": lw2, "b2": lb2}
-    y = kgat.aggregate(lx, ls, layer, _cfg())
+    y = ref.aggregate(lx, ls, layer, _cfg())
     if mask is not None:
-        y = kgat.apply_dropout(y, mask, RATE)
+        y = ref.apply_dropout(y, mask, RATE)
     # Today's chain: the output feeds the next layer (one cotangent) and
     # the concat through l2norm (another).
     g = torch.Generator().manual_seed(2)
     r_next = torch.randn(n, d_out, generator=g, **F64)
     r_cat = torch.randn(n, d_out, generator=g, **F64)
-    normed = kgat.l2norm(y)
+    normed = l2norm(y)
     assert float((y[0].detach() ** 2).sum()) < 1e-12
     loss = (y * r_next).sum() + (normed * r_cat).sum()
     want = torch.autograd.grad(loss, leaves, retain_graph=True)
@@ -122,7 +123,7 @@ def test_plain_layer_holds_to_the_autograd_chain(d_in, d_out, masked, copy):
     out = bi_layer.bi_layer(leaves2[0], leaves2[1], mask, dict(zip(
         ("w1", "b1", "w2", "b2"), leaves2[2:])), RATE if masked else 0.0,
         SLOPE)
-    loss2 = (out * r_next).sum() + (kgat.l2norm(out) * r_cat).sum()
+    loss2 = (out * r_next).sum() + (l2norm(out) * r_cat).sum()
     for a, b in zip(torch.autograd.grad(loss2, leaves2), want):
         torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
 
@@ -180,13 +181,15 @@ def _grads(model, loss_fn):
     (torch.float32, torch.bfloat16, 2e-5)],
     ids=["float64", "float32", "float32_bf16_stream"])
 def test_rows_only_cf_loss_matches_the_full_concat(dtype, compute, tol):
-    """The loss and every parameter's gradient of ``cf_loss_rows`` (the
-    whole propagation as one op, its plain pieces on the CPU) against
-    ``cf_loss`` through the (n_nodes, out_dim) concat, on a batch whose
-    users and items repeat (a user twice, an item as two positives and
-    as a negative), with weights; the CPU route of ``cf_loss`` counts the
-    plain layers and no kernel. Under a bf16 value stream the op rounds
-    K1's reverse output to bf16 where autograd's cast of the stream did."""
+    """The loss and every parameter's gradient of the layer op's rows-only
+    BPR loss (``bi_layer.propagate_rows``: the whole propagation as
+    one op, its plain pieces on the CPU) against the BPR loss of
+    ``propagate``'s (n_nodes, out_dim) concat, on a batch whose users and
+    items repeat (a user twice, an item as two positives and as a
+    negative), with weights; ``cf_loss`` with CPU tensors is that full
+    concat's loss and gradients, bit for bit. Under a bf16 value stream
+    the op rounds K1's reverse output to bf16 where autograd's cast of
+    the stream did."""
     g, meta, cfg, model, ew = _small_setup(dtype)
     cfg = dataclasses.replace(cfg, compute_dtype=compute)
     gen = torch.Generator().manual_seed(1)
@@ -200,16 +203,22 @@ def test_rows_only_cf_loss_matches_the_full_concat(dtype, compute, tol):
     w = torch.rand(B, generator=gen, dtype=dtype)
     masks = kgat.dropout_masks(cfg, meta.n_nodes,
                                torch.Generator().manual_seed(5), "cpu")
-    before = dict(trace.summary()["counts"])
-    l_full, g_full = _grads(model, lambda: kgat.cf_loss(
+
+    def full_concat():
+        all_embed = kgat.propagate(model, g, ew, cfg, train=True,
+                                   masks=masks)
+        return kgat.bpr_loss(all_embed[meta.user_node(u)], all_embed[ip],
+                             all_embed[ineg], cfg, w)
+    l_full, g_full = _grads(model, full_concat)
+    l_cf, g_cf = _grads(model, lambda: kgat.cf_loss(
         model, g, ew, meta, u, ip, ineg, cfg, weight=w, masks=masks))
-    counts = trace.summary()["counts"]
-    assert (counts.get("cf.layer_plain", 0)
-            - before.get("cf.layer_plain", 0)) == 3
-    assert counts.get("cf.layer_kernel", 0) == before.get("cf.layer_kernel",
-                                                          0)
-    l_rows, g_rows = _grads(model, lambda: kgat.cf_loss_rows(
-        model, g, ew, meta, u, ip, ineg, cfg, weight=w, masks=masks))
+    assert torch.equal(l_cf, l_full)
+    for name, want in g_full.items():
+        assert torch.equal(g_cf[name], want), name
+    l_rows, g_rows = _grads(model, lambda: kgat.bpr_loss(
+        *bi_layer.propagate_rows(model, g, ew, cfg, masks,
+                                 (meta.user_node(u), ip, ineg)),
+        cfg, w))
     torch.testing.assert_close(l_rows, l_full, rtol=tol, atol=tol)
     for name, want in g_full.items():
         scale = float(want.abs().max()) or 1.0
@@ -222,9 +231,9 @@ def test_partitioned_cf_step_applies_masks_redrawn_from_generator_states(
         monkeypatch, exchange):
     """The partitioned trainer's CF step draws each partition's (rows,
     d_out) keep mask from that partition's generator, layer by layer,
-    just before the layer op: the masks it applies are those drawn again
-    from the generators' states saved before the step, in that order (as
-    the benchmark re-draws them)."""
+    just before the backend's layer call: the masks it applies are those
+    drawn again from the generators' states saved before the step, in
+    that order (as the benchmark re-draws them)."""
     P = 4
     cfg = TrainConfig(
         dataset="synthetic", epochs=1, device="cpu", log_dir=None,
@@ -236,23 +245,22 @@ def test_partitioned_cf_step_applies_masks_redrawn_from_generator_states(
             mess_dropout=(0.1, 0.3), ops_backend="hopper"))
     tr = train.Trainer(cfg)
     applied = []
-    layer_forward = kgat.layer_forward
+    layer = hopper_backend.layer
 
-    def recording(ego, side, layer, mc, li, mask, copy_dtype=None):
-        applied.append((li, mask.clone()))
-        return layer_forward(ego, side, layer, mc, li, mask, copy_dtype)
+    def recording(x, side, params, mask, rate, mc, copy_dtype=None):
+        applied.append((mask.shape[1], mask.clone()))
+        return layer(x, side, params, mask, rate, mc, copy_dtype)
 
-    monkeypatch.setattr(kgat, "layer_forward", recording)
+    monkeypatch.setattr(hopper_backend, "layer", recording)
     states = [gen.get_state() for gen in tr.part_generators]
     tr.cf_step(tr.attention(), *tr.sample_cf())
     rows = tr.part.info.rows_per_part
     redrawn = []
     gens = [torch.Generator().set_state(s) for s in states]
-    for li, (d, rate) in enumerate(zip(cfg.model.conv_dims,
-                                       cfg.model.mess_dropout)):
+    for d, rate in zip(cfg.model.conv_dims, cfg.model.mess_dropout):
         for gen in gens:
-            redrawn.append((li, torch.rand((rows, d), generator=gen)
+            redrawn.append((d, torch.rand((rows, d), generator=gen)
                             < 1.0 - rate))
     assert len(applied) == len(redrawn) == 2 * P
-    for (li_a, a), (li_b, b) in zip(applied, redrawn):
-        assert li_a == li_b and torch.equal(a, b)
+    for (d_a, a), (d_b, b) in zip(applied, redrawn):
+        assert d_a == d_b and torch.equal(a, b)

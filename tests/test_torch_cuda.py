@@ -12,6 +12,7 @@ import dataclasses
 import math
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -719,8 +720,9 @@ def _old_adam(params, state, lr):
 
 def _three_gather_kg_loss(model, h, r, t_pos, t_neg, weight, cfg):
     """``kgat.kg_loss`` on the hopper backend as it was before
-    ``kgat.gather_rows``: the entity rows gathered one index tensor at a
-    time, each gather's backward a dense (n_nodes, d) gradient."""
+    ``hopper_backend.gather_rows``: the entity rows gathered one index
+    tensor at a time, each gather's backward a dense (n_nodes, d)
+    gradient."""
     emb = model.entity_embed
     pair, ssq = kgat.kg_pair_terms_projected(*transr.transr_project(
         emb[h], emb[t_pos], emb[t_neg], model.rel_embed, model.w_rel, r))
@@ -1149,17 +1151,14 @@ def test_replayed_kg_step_gathers_only_entity_rows(dev):
     their gradient added into ``.grad`` by one index_add_ (indexFunc; no
     indexing_backward launch: none for the entity rows, w_rel or
     rel_embed), no kernel named like K1's (the benchmark's K1
-    roofline reads those names); the route counted at the warm-up and the
-    capture, never the plain one."""
+    roofline reads those names); each of the op's wrappers launched at
+    the warm-up and at the capture (``build.launch_counts``)."""
     from chip_smoke import graph_kernel_names
-    from kgat_tpu_torch.utils import trace
     tr = _trainer()
-    before = trace.summary()["counts"]
+    before = dict(build.launch_counts)
     tr.kg_steps.capture()
-    after = trace.summary()["counts"]
-    assert after.get("kg.transr_kernel", 0) == before.get(
-        "kg.transr_kernel", 0) + 2
-    assert after.get("kg.transr_plain", 0) == before.get("kg.transr_plain", 0)
+    for name in transr.CUDA_LAUNCHES:
+        assert build.launch_counts[name] - before.get(name, 0) == 2, name
     names = graph_kernel_names(tr.kg_steps.graph.raw_cuda_graph())
     count = lambda s: sum(s in n for n in names)  # noqa: E731
     assert count("indexing_backward_kernel") == 0, names
@@ -1178,9 +1177,9 @@ def test_replayed_kg_step_gathers_only_entity_rows(dev):
 def test_kg_loss_kernel_route_writes_no_relation_matrices(dev):
     """At the benchmark's KG batch and widths, the kernel route's loss and
     gradients against the float64 plain path (the entity table's comes
-    back sparse: ``kgat.gather_rows``), and its peak memory: under one
-    (B, d, k) float32 tensor more than the parameters hold, where the
-    plain float32 path allocates several."""
+    back sparse: ``hopper_backend.gather_rows``), and its peak memory:
+    under one (B, d, k) float32 tensor more than the parameters hold,
+    where the plain float32 path allocates several."""
     cfg = kgat.KGATConfig(ops_backend="hopper")
     n_nodes, n_rel, B = 5000, 20, 2048
     model = kgat.init_params(n_nodes, n_rel, cfg,
@@ -1249,7 +1248,7 @@ def _bi_inputs(n, d_in, d_out):
 
 
 @pytest.mark.parametrize("n,d_in,d_out", BI_CASES)
-def test_bi_layer_kernels_match_float64_plain(dev, n, d_in, d_out):
+def test_bi_layer_op_kernels_match_float64_plain(dev, n, d_in, d_out):
     """The forward (y and its bf16 copy) and the backward (d x, d side,
     d w1, d b1, d w2, d b2 from the three pieces, K1's reverse output
     rounded to bf16) against the plain versions in float64, within
@@ -1339,24 +1338,24 @@ def test_bi_layer_refuses_what_it_cannot_take(dev):
 
 @pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16],
                          ids=["float32", "bf16"])
-def test_cf_step_takes_the_layer_kernels(dev, compute_dtype):
+def test_cf_step_takes_the_layer_op_kernels(dev, compute_dtype):
     """The trainer's captured CF step on the card: every layer takes the
-    layer op's kernels (``cf.layer_kernel`` counts the layers at the eager
-    warm-up and at the capture, never at a replay; ``cf.layer_plain``
-    reads 0), the captured calls are K1 and the op each way per layer, one
-    sum of the embedding's gradient (and under bf16 its value copy) and
-    Adam; a replay equals an eager step from the same state on the batch
-    and masks it drew (losses within 1e-5, gradients 1e-4)."""
-    from kgat_tpu_torch.utils import trace
+    layer op's kernels (``build.launch_counts`` counts each layer's
+    forward and backward at the eager warm-up and at the capture, never
+    at a replay, and again at an eager step), the captured calls are K1
+    and the op each way per layer, one sum of the embedding's gradient
+    (and under bf16 its value copy) and Adam; a replay equals an eager
+    step from the same state on the batch and masks it drew (losses
+    within 1e-5, gradients 1e-4)."""
     tr = _trainer()
     mc = dataclasses.replace(tr.cfg.model, compute_dtype=compute_dtype)
     tr.cfg = dataclasses.replace(tr.cfg, model=mc)
     L = len(mc.conv_dims)
-    before = dict(trace.summary()["counts"])
+    layer_ops = ("bi_layer_forward", "bi_layer_backward")
+    before = dict(build.launch_counts)
+    delta = lambda k: build.launch_counts[k] - before.get(k, 0)  # noqa: E731
     tr.cf_steps.run(3)
-    counts = trace.summary()["counts"]
-    delta = lambda k: counts.get(k, 0) - before.get(k, 0)  # noqa: E731
-    assert (delta("cf.layer_kernel"), delta("cf.layer_plain")) == (2 * L, 0)
+    assert [delta(k) for k in layer_ops] == [2 * L, 2 * L]
     assert tr.cf_steps.calls == {
         "spmm_csr": L, "spmm_csr_rev": L, "bi_layer_forward": L,
         "bi_layer_backward": L, "bi_sum": 1 + (compute_dtype is not None),
@@ -1372,8 +1371,39 @@ def test_cf_step_takes_the_layer_kernels(dev, compute_dtype):
     assert abs(eager - loss) <= 1e-5 * abs(loss)
     for p, g in zip(tr.model.parameters(), grads):
         torch.testing.assert_close(p.grad, g, rtol=1e-4, atol=1e-8)
-    assert trace.summary()["counts"].get("cf.layer_plain", 0) == \
-        before.get("cf.layer_plain", 0)
+    assert [delta(k) for k in layer_ops] == [3 * L, 3 * L]
+
+
+def test_tpu_precision_tool_reaches_every_layer_on_the_card(dev,
+                                                            monkeypatch):
+    """``tools/tpu_default_precision.py`` on the card under a bf16 value
+    stream: with its replacements the trainer's captured CF and KG steps
+    launch none of the layer op's or the TransR op's kernels, K1 still
+    reduces, every layer calls the rounded aggregator at the warm-up and
+    at the capture, and the replayed losses are finite."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import tpu_default_precision as tdp
+    for module, name, fn in tdp.patches():
+        monkeypatch.setattr(module, name, fn)
+    calls = []
+
+    def counted(ego, side, layer, cfg):
+        calls.append(ego.shape)
+        return tdp.aggregate(ego, side, layer, cfg)
+    monkeypatch.setattr(ref, "aggregate", counted)
+    tr = _trainer()
+    mc = dataclasses.replace(tr.cfg.model, compute_dtype=torch.bfloat16)
+    tr.cfg = dataclasses.replace(tr.cfg, model=mc)
+    L = len(mc.conv_dims)
+    ops = {**bi_layer.CUDA_LAUNCHES, **transr.CUDA_LAUNCHES}
+    before = dict(build.launch_counts)
+    cf = float(tr.cf_steps.run(2))
+    kg = float(tr.kg_steps.run(2))
+    assert {k: build.launch_counts[k] - before.get(k, 0) for k in ops} == {
+        k: 0 for k in ops}
+    assert tr.cf_steps.calls["spmm_csr"] == L
+    assert len(calls) == 2 * L
+    assert math.isfinite(cf) and math.isfinite(kg)
 
 
 # ---------------------------------------------------------------------------

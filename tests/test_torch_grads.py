@@ -24,7 +24,7 @@ from kgat_tpu.ops import ref as jref
 from kgat_tpu_torch import data as tdata
 from kgat_tpu_torch.graph import EdgeWeights, build_graph
 from kgat_tpu_torch.models import kgat as tkgat
-from kgat_tpu_torch.ops import hopper_backend, ref
+from kgat_tpu_torch.ops import hopper_backend, l2norm, ref
 from kgat_tpu_torch.ops.hopper.sddmm import sddmm_transr_bwd_plain
 from kgat_tpu_torch.ops.hopper.softmax import segment_softmax_csr_bwd_plain
 from kgat_tpu_torch.recommend import disable_tf32
@@ -277,14 +277,14 @@ def test_dropout_scales_the_layer_output_before_the_norm(graphs):
                               generator=torch.Generator().manual_seed(2))
         full = tkgat.propagate(model, tg, att, cfg)[:, 64:]
         layer = model.layers[0]
-        ego = tkgat._leaky((model.entity_embed + ref.spmm(tg, att,
-                                                          model.entity_embed))
-                           @ layer["w"] + layer["b"], cfg.leaky_relu_slope)
+        ego = ref.leaky((model.entity_embed + ref.spmm(tg, att,
+                                                       model.entity_embed))
+                        @ layer["w"] + layer["b"], cfg.leaky_relu_slope)
         keep = torch.rand(ego.shape,
                           generator=torch.Generator().manual_seed(2)) < 0.7
-        want = tkgat.l2norm(torch.where(keep, ego / 0.7, 0.0))
+        want = l2norm(torch.where(keep, ego / 0.7, 0.0))
     torch.testing.assert_close(got[:, 64:], want)
-    torch.testing.assert_close(tkgat.l2norm(ego), full)
+    torch.testing.assert_close(l2norm(ego), full)
     assert 0.6 < keep.float().mean() < 0.8
     with pytest.raises(ValueError, match="generator"):
         tkgat.propagate(model, tg, att, cfg, train=True)
@@ -341,12 +341,12 @@ def test_adam_alternating_phases_match_optax(entity_route):
     it still moves), and every leaf counts each step, as optax's one
     count does. ``gathered_rows``: the KG-like phase's entity gradient
     comes as the trainer's KG step delivers it, through
-    ``kgat.gather_rows`` with a sparse gradient (duplicate ids included)
-    added into the persistent ``.grad``. Tolerance: rtol 1e-5 and, for the
-    parameters, atol 1e-6: optax rounds its bias correction 1 - 0.999^t
-    in float32, which loses three digits, and its updates (of size lr,
-    1e-2) drift from float64's by some 1e-7 a step here; the port's keep
-    within 2e-8."""
+    ``hopper_backend.gather_rows`` with a sparse gradient (duplicate ids
+    included) added into the persistent ``.grad``. Tolerance: rtol 1e-5
+    and, for the parameters, atol 1e-6: optax rounds its bias correction
+    1 - 0.999^t in float32, which loses three digits, and its updates (of
+    size lr, 1e-2) drift from float64's by some 1e-7 a step here; the
+    port's keep within 2e-8."""
     rs = np.random.default_rng(7)
     p0 = {k: rs.normal(size=s).astype(np.float32)
           for k, s in PHASE_LEAVES.items()}
@@ -368,7 +368,7 @@ def test_adam_alternating_phases_match_optax(entity_route):
             cots = rs.normal(size=(15, 4)).astype(np.float32)
             g["entity"][:] = 0.0
             np.add.at(g["entity"], torch.cat(ids).numpy(), cots)
-            rows = tkgat.gather_rows(tp["entity"], ids)
+            rows = hopper_backend.gather_rows(tp["entity"], ids)
             (torch.cat(rows) * torch.tensor(cots)).sum().backward()
             tp["rel"].grad.add_(torch.tensor(g["rel"]))
         else:
@@ -394,7 +394,7 @@ def test_adam_alternating_phases_match_optax(entity_route):
 
 @pytest.mark.parametrize("grad", ["none", "persistent", "flat_view"])
 def test_one_gather_gives_the_three_gathers_gradient(grad):
-    """``kgat.gather_rows`` over (h, t+, t-) against ``emb[h]``,
+    """``hopper_backend.gather_rows`` over (h, t+, t-) against ``emb[h]``,
     ``emb[t_pos]``, ``emb[t_neg]``: the same rows, and the same gradient,
     duplicate ids summed (ids repeat within each tensor and across
     them), into no ``.grad`` (it is then a sparse tensor), into a
@@ -419,7 +419,7 @@ def test_one_gather_gives_the_three_gathers_gradient(grad):
         flat = torch.full((3 + n * d + 2,), 7.0, dtype=torch.float64)
         emb.grad = flat[3:3 + n * d].view_as(emb).zero_()
     ptr = None if emb.grad is None else emb.grad.data_ptr()
-    rows = tkgat.gather_rows(emb, (h, tp, tn))
+    rows = hopper_backend.gather_rows(emb, (h, tp, tn))
     for r, i in zip(rows, (h, tp, tn)):
         assert torch.equal(r, base[i])
     sum((r * c).sum() for r, c in zip(rows, cots)).backward()

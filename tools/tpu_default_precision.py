@@ -7,14 +7,17 @@ float32. ``kgat_tpu`` asks for HIGHEST in its attention only; three
 products run at DEFAULT there:
 
 * the aggregators' dense layers (``kgat_tpu/models/kgat.py:242-250``),
-  here ``kgat_tpu_torch.models.kgat.aggregate`` (on the hopper backend
-  the bi-interaction layer op's kernels compute them in float32, so the
-  layers are sent to the plain path: ``kgat.layer_kernels``);
+  here ``kgat_tpu_torch.ops.ref.aggregate``, the plain layer arithmetic.
+  The hopper backend computes its bi-interaction layers on the card by
+  its layer op (``ops/hopper/bi_layer.py``), in float32: this script
+  sends that backend's ``layer`` and ``representation_rows`` to
+  ``ref``'s, so that every layer of either backend is ``ref.aggregate``
+  (its SpMM stays the backend's);
 * the TransR projection of the KG loss (``kgat_tpu/models/kgat.py:319``),
-  here ``kg_pair_terms_rows`` (and its copy in ``optim``, which the
-  ``--sparse-adam`` KG step calls) and, on the hopper backend, the op
-  ``ops/hopper/transr.py::transr_project``, whose kernels compute in
-  float32 (here the per-pair gather and one-pass products);
+  here ``ops.ref.project_rows`` (the ref backend's products, which the
+  ``--sparse-adam`` KG step also calls). The hopper backend's
+  ``kg_projection`` is its TransR op, in float32: this script sends it
+  to ``ref``'s per-pair gather, whose products are ``project_rows``;
 * the evaluation's scores (``kgat_tpu/eval.py:88``), here
   ``kgat_tpu_torch.eval.evaluate``.
 
@@ -39,15 +42,13 @@ import os
 import sys
 
 import torch
-import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from kgat_tpu_torch import eval as evaluation  # noqa: E402
-from kgat_tpu_torch import optim, train  # noqa: E402
-from kgat_tpu_torch.models import kgat  # noqa: E402
-from kgat_tpu_torch.ops.hopper import transr  # noqa: E402
+from kgat_tpu_torch import train  # noqa: E402
+from kgat_tpu_torch.ops import hopper_backend, ref  # noqa: E402
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -83,36 +84,22 @@ def one_pass(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def aggregate(ego, side, layer, cfg):
-    """``kgat.aggregate`` with its dense layers at DEFAULT precision."""
+    """``ref.aggregate`` with its dense layers at DEFAULT precision."""
     mm = lambda x, w: one_pass("nd,de->ne", x, w)  # noqa: E731
     slope = cfg.leaky_relu_slope
     if cfg.aggregator == "gcn":
-        return kgat._leaky(mm(ego + side, layer["w"]) + layer["b"], slope)
+        return ref.leaky(mm(ego + side, layer["w"]) + layer["b"], slope)
     if cfg.aggregator == "graphsage":
-        return kgat._leaky(mm(torch.cat([ego, side], -1), layer["w"])
-                           + layer["b"], slope)
-    return (kgat._leaky(mm(ego + side, layer["w1"]) + layer["b1"], slope)
-            + kgat._leaky(mm(ego * side, layer["w2"]) + layer["b2"], slope))
+        return ref.leaky(mm(torch.cat([ego, side], -1), layer["w"])
+                         + layer["b"], slope)
+    return (ref.leaky(mm(ego + side, layer["w1"]) + layer["b1"], slope)
+            + ref.leaky(mm(ego * side, layer["w2"]) + layer["b2"], slope))
 
 
-def kg_pair_terms_rows(eh, ep, en, e_r, w_r):
-    """``kgat.kg_pair_terms_rows`` with the TransR projection at DEFAULT
-    precision."""
+def project_rows(eh, ep, en, w_r):
+    """``ref.project_rows`` at DEFAULT precision."""
     proj = lambda e: one_pass("bd,bdk->bk", e, w_r)  # noqa: E731
-    ph, pp, pn = proj(eh), proj(ep), proj(en)
-    g_pos = ((ph + e_r - pp) ** 2).sum(-1)
-    g_neg = ((ph + e_r - pn) ** 2).sum(-1)
-    pair = -F.logsigmoid(g_neg - g_pos)
-    ssq = sum(0.5 * (t.float() ** 2).sum() for t in (ph, e_r, pp, pn))
-    return pair, ssq
-
-
-def transr_project(eh, ep, en, rel_embed, w_rel, r):
-    """``transr.transr_project`` with the TransR projection at DEFAULT
-    precision, on the per-pair gather of the plain path."""
-    w_r = w_rel[r]
-    proj = lambda e: one_pass("bd,bdk->bk", e, w_r)  # noqa: E731
-    return proj(eh), proj(ep), proj(en), rel_embed[r]
+    return proj(eh), proj(ep), proj(en)
 
 
 _evaluate = evaluation.evaluate
@@ -125,13 +112,23 @@ def evaluate(all_embed, meta, plan, k=20, ks=()):
     return _evaluate(bf16_round(all_embed), meta, plan, k=k, ks=ks)
 
 
+def patches() -> list:
+    """(module, name, replacement) of each function this script replaces,
+    in the module that owns it: the three products, and the hopper
+    backend's three model ops that compute them in float32, each by its
+    ``ref`` counterpart, which reaches the replaced products."""
+    return [(ref, "aggregate", aggregate),
+            (ref, "project_rows", project_rows),
+            (evaluation, "evaluate", evaluate),
+            (hopper_backend, "layer", ref.layer),
+            (hopper_backend, "representation_rows", ref.representation_rows),
+            (hopper_backend, "kg_projection", ref.kg_projection)]
+
+
 def install() -> None:
-    """Replaces the functions in the modules that call them."""
-    kgat.aggregate = aggregate
-    kgat.layer_kernels = lambda cfg, t: False
-    kgat.kg_pair_terms_rows = optim.kg_pair_terms_rows = kg_pair_terms_rows
-    transr.transr_project = transr_project
-    evaluation.evaluate = evaluate
+    """Replaces the functions."""
+    for module, name, fn in patches():
+        setattr(module, name, fn)
 
 
 def main(argv=None) -> dict:
