@@ -35,7 +35,10 @@ Phases, each announced by a line ``[n/15] ...``:
                loss must fall; an attention recompute; evaluate(); ms per
                step, eager and replayed, and launch counts; the Adam
                kernel's step over the parameters' shapes by replay, its
-               launches and its bound by bytes, beside torch's Adam.
+               launches and its bound by bytes, beside torch's Adam; the
+               batch draws' kernel against the plain draw from the same
+               draws (the same bits) at the trainer's batch sizes, each
+               by replay; the replayed steps' kernel nodes.
   7. the trainer CLI — ``kgat_tpu_torch.train`` for one epoch of replayed
                steps (the launches of its K1 calls counted from the
                graphs' kernel nodes times the replays), its losses within
@@ -217,6 +220,7 @@ from kgat_tpu_torch.ops.row_split import CHUNK, build_row_split
 from kgat_tpu_torch.ops.hopper import remote_ring
 from kgat_tpu_torch.ops.hopper.remote_ring import reduce_send, ring_shift
 from kgat_tpu_torch.ops.hopper import adam, bi_layer, sddmm, transr
+from kgat_tpu_torch.ops.hopper import sampler as draw
 from kgat_tpu_torch.ops.hopper.sddmm import (sddmm_transr, sddmm_transr_bwd,
                                              sddmm_transr_bwd_plain,
                                              sddmm_transr_plain)
@@ -232,6 +236,7 @@ from kgat_tpu_torch.parallel.partition import (build_ring_buckets,
                                                build_selective_halo,
                                                partition_graph)
 from kgat_tpu_torch.sampler import (CFSampleTable, KGSampleTable,
+                                    cf_draw_plain, kg_draw_plain,
                                     sample_cf_batch, sample_kg_batch)
 from kgat_tpu_torch.utils.checkpoint import (load_checkpoint, load_params,
                                              save_params)
@@ -436,6 +441,20 @@ def csr_lengths(row_offsets):
     return (row_offsets[1:] - row_offsets[:-1]).double()
 
 
+def captured_kernel_names(fn) -> list:
+    """The kernel nodes' names of a CUDA graph captured from one call of
+    ``fn``, after a warm call on a side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    return graph_kernel_names(graph.raw_cuda_graph())
+
+
 class CudaTimer:
     """Device and host timing on the card."""
 
@@ -490,17 +509,9 @@ class CudaTimer:
         warm call) whose mangled names hold the name of a ``__global__``
         function of the port's sources (PyTorch's fills and copies in the
         call not counted)."""
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph):
-            fn()
         own = [f"{len(n)}{n}" for n in own_kernels()]  # as mangled
         return sum(any(o in name for o in own)
-                   for name in graph_kernel_names(graph.raw_cuda_graph()))
+                   for name in captured_kernel_names(fn))
 
     def host_ms(self, fn, reps: int) -> float:
         """Median wall milliseconds of ``fn`` ending in a synchronize."""
@@ -916,12 +927,12 @@ def single_device_nodes(graph, staged):
     reduce over needs (the graph's, or its coalesced CSRs); the CF step's
     bi-interaction layer op, ``bi_layer.CUDA_LAUNCHES``; the KG step's
     TransR op, ``transr.CUDA_LAUNCHES``; each step's Adam,
-    ``adam.CUDA_LAUNCHES``."""
+    ``adam.CUDA_LAUNCHES``, and its batch's draw, ``draw.CUDA_LAUNCHES``."""
     csr = spmm_csr_of(graph, staged)
     per_call = {"spmm_csr": csr.split.cuda_launches,
                 "spmm_csr_rev": csr.rev_split.cuda_launches,
                 **bi_layer.CUDA_LAUNCHES, **transr.CUDA_LAUNCHES,
-                **adam.CUDA_LAUNCHES}
+                **adam.CUDA_LAUNCHES, **draw.CUDA_LAUNCHES}
     return lambda calls: sum(n * per_call[k] for k, n in calls.items())
 
 
@@ -1530,6 +1541,51 @@ def transr_op_ms(trainer, timer):
             timer.replay_ms(op(transr.transr_forward_plain), 20))
 
 
+def draw_times(trainer, timer, dev) -> dict:
+    """The batch draws at the trainer's tables and batch sizes, from one
+    set of draws: the kernel's batch against the plain draw's, bit for bit
+    (KG and CF), then each by CUDA-graph replay. Returns {"kg": ..., "cf":
+    ...}, each (kernel ms, plain ms, the kernel's CUDA launches a call,
+    the plain draw's kernel nodes, bytes the batch reads and writes once:
+    draws, table entries, outputs). On the CPU both are the plain draw
+    and nothing is counted (None)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    kg, cf = trainer.kg_table, trainer.cf_table
+    B, C = trainer.kg_batch_size, trainer.cf_batch_size
+
+    def rand(n):
+        return torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
+
+    def randint(high, n):
+        return torch.randint(high, (n,), generator=gen, device=dev)
+    cuda = dev.type == "cuda"
+    calls = {
+        # (kernel, plain, args, bytes: draws + table entries + outputs)
+        "kg": (draw.kg_draw if cuda else kg_draw_plain, kg_draw_plain,
+               (randint(kg.h.shape[0], B), rand(B), kg),
+               B * (16 + 40 + 36)),
+        "cf": (draw.cf_draw if cuda else cf_draw_plain, cf_draw_plain,
+               (randint(cf.active_users.shape[0], C),
+                randint(1 << 30, C), rand(C), cf), C * (24 + 32 + 28))}
+    out = {}
+    for name, (kernel, plain, args, nbytes) in calls.items():
+        got, want = kernel(*args), plain(*args)
+        if not all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(got, want)):
+            raise AssertionError(f"{name}_draw: the kernel's batch differs "
+                                 f"from the plain draw's")
+        launches = timer.kernel_launches(lambda: kernel(*args))
+        if launches is not None and launches != draw.CUDA_LAUNCHES[
+                f"{name}_draw"]:
+            raise AssertionError(f"{name}_draw: {launches} CUDA launches")
+        nodes = (len(captured_kernel_names(lambda: plain(*args)))
+                 if cuda else None)
+        out[name] = (timer.replay_ms(lambda: kernel(*args), 20),
+                     timer.replay_ms(lambda: plain(*args), 20), launches,
+                     nodes, nbytes)
+    return out
+
+
 def adam_bound(p, m0, v0, g, m, v, count, lr):
     """Elementwise bounds on a float32 Adam step's distance from optax's
     arithmetic in float64 (``optim._adam``: new ``p``, ``m``, ``v`` from
@@ -1731,6 +1787,17 @@ def phase_train_steps(trainer, sizes, check, timer, dev) -> str:
     kg_ms = timer.host_ms(lambda: trainer.kg_step(*trainer.sample_kg()), 10)
     kg_replay_ms = timer.host_ms(lambda: replayed_step(trainer.kg_steps), 20)
     transr_ms = transr_op_ms(trainer, timer)
+    draws = draw_times(trainer, timer, dev)
+    draw_line = "; ".join(
+        f"{name.upper()} ({n} rows) {k_ms:.4f} ms by replay, {launches} CUDA "
+        f"launches (plain draw {p_ms:.4f} ms, {nodes} kernel nodes; bound by "
+        f"bytes {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms for {nbytes} bytes)"
+        for (name, (k_ms, p_ms, launches, nodes, nbytes)), n in zip(
+            draws.items(), (trainer.kg_batch_size, trainer.cf_batch_size)))
+    graph_nodes = {what: len(graph_kernel_names(steps.graph.raw_cuda_graph()))
+                   for what, steps in (("CF", trainer.cf_steps),
+                                       ("KG", trainer.kg_steps))
+                   if steps.graph is not None}
     (adam_ms, multi_ms, fused_ms, n_values, adam_launches, adam_ms_bound,
      adam_share) = adam_step_ms(trainer, timer, dev, check)
     torch_ms = ("" if multi_ms is None else
@@ -1759,7 +1826,10 @@ def phase_train_steps(trainer, sizes, check, timer, dev) -> str:
             f"{kg_losses[0]:.5f} -> {kg_losses[-1]:.5f}; CF step (sample + "
             f"step) median {cf_ms:.2f} ms eager, {cf_replay_ms:.2f} ms "
             f"replayed (plain path {cf_plain_ms:.2f} ms), KG step "
-            f"{kg_ms:.2f} ms eager, {kg_replay_ms:.2f} ms replayed, its "
+            f"{kg_ms:.2f} ms eager, {kg_replay_ms:.2f} ms replayed; the "
+            f"replayed steps' kernel nodes {graph_nodes or 'not captured'}; "
+            f"batch draws, kernel against plain from the same draws, the "
+            f"same bits: {draw_line}; the KG step's "
             f"TransR op forward and backward {transr_ms[0]:.4f} ms by "
             f"replay (plain path {transr_ms[1]:.4f} ms), Adam step over "
             f"{n_values} values {adam_ms:.4f} ms by replay ({adam_launches} "
@@ -1882,7 +1952,8 @@ def partitioned_nodes(part, n_layers):
     call as many as its CSR's row split needs (the all-gather's: each
     shard's coalesced CSRs when coalescing), each K7 call one; in a KG
     step the TransR op's, ``transr.CUDA_LAUNCHES``; the layer op's,
-    ``bi_layer.CUDA_LAUNCHES``; in each, Adam's, ``adam.CUDA_LAUNCHES``."""
+    ``bi_layer.CUDA_LAUNCHES``; in each, Adam's, ``adam.CUDA_LAUNCHES``,
+    and the batch's draw, ``draw.CUDA_LAUNCHES``."""
     n, P = 0, part.n_parts
     for d in range(part.n_rows):
         for p in range(P):
@@ -1899,7 +1970,7 @@ def partitioned_nodes(part, n_layers):
 
     def nodes(calls):
         own = {**bi_layer.CUDA_LAUNCHES, **transr.CUDA_LAUNCHES,
-               **adam.CUDA_LAUNCHES}
+               **adam.CUDA_LAUNCHES, **draw.CUDA_LAUNCHES}
         ops = {k: c for k, c in calls.items() if k in own}
         return (n_layers * n if len(ops) < len(calls) else 0) + sum(
             c * own[k] for k, c in ops.items())
@@ -2142,7 +2213,7 @@ def replay_against_eager(tmp, ds, sizes, dev, timer, exchange, transport):
         steps.run(1)            # the warm-up step, then the capture
     if dev.type == "cuda" and tr.cf_steps.calls != {
             **partitioned_launches(exchange, transport, L, P_PARTS),
-            **adam.CUDA_LAUNCHES}:
+            **adam.CUDA_LAUNCHES, "cf_draw": 1}:
         raise AssertionError(f"{exchange}/{transport}: captured calls "
                              f"{tr.cf_steps.calls}")
     params = list(tr.model.parameters())
@@ -2408,13 +2479,15 @@ def phase_partitioned(tmp, ds, g_host, g, meta, sizes, check, times, gen,
     evalf = partitioned_launches("ring", "fused", L, P, backward=False)
     # Per CF step a forward and backward; the eval forward once; K2 and K3
     # on every shard at the epoch's two attention recomputes; the TransR
-    # op's wrappers once per KG step; Adam once per step.
+    # op's wrappers once per KG step; Adam and the batch's draw once per
+    # step.
     want_launches = {k: n_cf * step.get(k, 0) + evalf.get(k, 0)
                      for k in {*step, *evalf}}
     want_launches.update(sddmm_transr=2 * P, segment_softmax_csr=2 * P)
     want_launches.update({k: start["kg_batches"]
                           for k in transr.CUDA_LAUNCHES})
     want_launches["adam"] = n_cf + start["kg_batches"]
+    want_launches.update(cf_draw=n_cf, kg_draw=start["kg_batches"])
     expect_exact(dev, launches, want_launches, "partitioned trainer CLI")
     print(f"[8/15] partitioned trainer CLI (python -m kgat_tpu_torch.train "
           f"{' '.join(argv[argv.index('--n-devices'):])}): 1 epoch of "

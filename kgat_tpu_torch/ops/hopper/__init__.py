@@ -17,6 +17,9 @@
      bi_layer.bi_layer_backward      layer, aggregator and dropout, one pass
                                     each way; bi_layer.propagate_rows, the
                                     CF step's training propagation)
+     sampler.kg_draw                (no TPU kernel: the device samplers'
+     sampler.cf_draw                 negative draw, gathers and rank_skip
+                                    search, one launch a batch)
 
 K1, K6, K8 and K4's fold share one row reduction (``csrc/row_reduce.cuh``),
 which walks the work units of a CSR's row split (``ops/row_split.py``);
@@ -24,9 +27,11 @@ K3 walks the same units. The caller passes the split that was built with
 the CSR. K2 and K4 share their TF32 products on the tensor cores
 (``csrc/tf32_mma.cuh``).
 
-Each wrapper but ``adam_step`` has a plain PyTorch version beside it
-(``*_plain``), which it uses only for tensors on the CPU; Adam's plain
-version is ``optim._adam``, and the CPU keeps ``torch.optim.Adam``. ``build.launch_counts`` counts kernel
+Each wrapper but ``adam_step`` and the draws has a plain PyTorch version
+beside it (``*_plain``), which it uses only for tensors on the CPU; Adam's
+plain version is ``optim._adam``, and the CPU keeps ``torch.optim.Adam``;
+the draws' are ``kgat_tpu_torch.sampler.kg_draw_plain`` and
+``cf_draw_plain``, which the samplers call for CPU tables. ``build.launch_counts`` counts kernel
 launches per wrapper. ``segment_sum.spmm``, ``sddmm.attention_logits`` and
 ``softmax.segment_softmax`` are the differentiable ops built on them.
 """

@@ -101,6 +101,11 @@ _SIGNATURES = {
                           + (_P, _P, _I, _P, _P, _I, _P)),
     "kgat_bi_sum": ((_P,) * 4 + (_I, _I, _I, ctypes.c_longlong, _I, _P, _I,
                                  _I, _P)),
+    # The device samplers' negative draw: idx, u01, h, r, t, rg_lo, rg_hi,
+    # t_sorted, n_entities, n, out, weight, stream; a_idx, p_bits, u01,
+    # active_users, user_ptr, items, n_items, n, out, weight, stream.
+    "kgat_kg_draw": (_P,) * 8 + (ctypes.c_longlong, _I, _P, _P, _P),
+    "kgat_cf_draw": (_P,) * 6 + (ctypes.c_longlong, _I, _P, _P, _P),
 }
 
 

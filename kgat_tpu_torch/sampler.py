@@ -17,6 +17,15 @@ row's sorted forbidden run. The distribution is the one rejection sampling
 converges to, uniform over the allowed set, with no retries and no failed
 rows; a row whose allowed set is empty (the user has every item) gets
 weight 0, and the losses drop it from the batch mean.
+
+A batch is first drawn from the generator (``torch.randint`` and
+``torch.rand``), then formed from those draws: for tables on CUDA by one
+launch of ``ops/hopper/sampler.py`` (the gathers, the rank, a 32-way
+``rank_skip`` search on a warp a row, the weight), and for tables on the
+CPU by the plain versions :func:`kg_draw_plain` and :func:`cf_draw_plain`
+(torch gathers and :func:`rank_skip`'s bisection). Both give the same
+bits from the same draws, so a generator state gives one batch on either
+path.
 """
 
 from __future__ import annotations
@@ -26,6 +35,9 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from kgat_tpu_torch.ops.hopper import build
+from kgat_tpu_torch.ops.hopper import sampler as draw
 
 
 def _log_steps(max_len: int) -> int:
@@ -93,15 +105,29 @@ def sample_cf_batch(table: CFSampleTable, generator: torch.Generator,
     dev = table.items.device
     randint = lambda high, **kw: torch.randint(  # noqa: E731
         high, (batch_size,), generator=generator, device=dev, **kw)
-    u = table.active_users[randint(table.active_users.shape[0])]
-    lo, hi = table.user_ptr[u], table.user_ptr[u + 1]
-    deg = hi - lo
-    i_pos = table.items[lo + randint(1 << 30) % deg.clamp(min=1)]
-    n_allowed = table.n_items - deg
+    a_idx = randint(table.active_users.shape[0])
+    p_bits = randint(1 << 30)
     # A rank in [0, n_allowed): a uniform float times n_allowed, as
     # torch.randint takes no per-row bound.
-    k = (torch.rand(batch_size, generator=generator, device=dev,
-                    dtype=torch.float64) * n_allowed.clamp(min=1)).long()
+    u01 = torch.rand(batch_size, generator=generator, device=dev,
+                     dtype=torch.float64)
+    if build.use_kernel("cf_draw", a_idx, table.items):
+        return draw.cf_draw(a_idx, p_bits, u01, table)
+    return cf_draw_plain(a_idx, p_bits, u01, table)
+
+
+def cf_draw_plain(a_idx: torch.Tensor, p_bits: torch.Tensor,
+                  u01: torch.Tensor,
+                  table: CFSampleTable) -> Tuple[torch.Tensor, ...]:
+    """The CF batch from its draws (``active_users`` indices, positive
+    bits, uniforms) in torch ops: the plain version of
+    ``ops.hopper.sampler.cf_draw``, on any device."""
+    u = table.active_users[a_idx]
+    lo, hi = table.user_ptr[u], table.user_ptr[u + 1]
+    deg = hi - lo
+    i_pos = table.items[lo + p_bits % deg.clamp(min=1)]
+    n_allowed = table.n_items - deg
+    k = (u01 * n_allowed.clamp(min=1)).long()
     k = torch.minimum(k, (n_allowed - 1).clamp(min=0))
     i_neg = k + rank_skip(table.items, lo, deg, k, _log_steps(table.max_deg))
     valid = n_allowed > 0
@@ -154,12 +180,23 @@ def sample_kg_batch(table: KGSampleTable, generator: torch.Generator,
     dev = table.h.device
     idx = torch.randint(table.h.shape[0], (batch_size,), generator=generator,
                         device=dev)
+    u01 = torch.rand(batch_size, generator=generator, device=dev,
+                     dtype=torch.float64)
+    if build.use_kernel("kg_draw", idx, table.h):
+        return draw.kg_draw(idx, u01, table)
+    return kg_draw_plain(idx, u01, table)
+
+
+def kg_draw_plain(idx: torch.Tensor, u01: torch.Tensor,
+                  table: KGSampleTable) -> Tuple[torch.Tensor, ...]:
+    """The KG batch from its draws (triple indices, uniforms) in torch
+    ops: the plain version of ``ops.hopper.sampler.kg_draw``, on any
+    device."""
     h, r, t_pos = table.h[idx], table.r[idx], table.t[idx]
     lo, hi = table.rg_lo[idx], table.rg_hi[idx]
     g = hi - lo
     n_allowed = table.n_entities - g
-    k = (torch.rand(batch_size, generator=generator, device=dev,
-                    dtype=torch.float64) * n_allowed.clamp(min=1)).long()
+    k = (u01 * n_allowed.clamp(min=1)).long()
     k = torch.minimum(k, (n_allowed - 1).clamp(min=0))
     t_neg = k + rank_skip(table.t_sorted, lo, g, k, _log_steps(table.max_rg))
     valid = n_allowed > 0

@@ -665,8 +665,9 @@ def test_replayed_steps_match_eager_steps(dev, sparse):
             else:
                 torch.testing.assert_close(p.grad, g, rtol=1e-4, atol=1e-8)
     # Replays launch nothing through the wrappers: only the eager steps
-    # above counted their launches, K1's, Adam's and (with dense Adam) the
-    # TransR op's.
+    # above (on the batches the replays drew) counted their launches, K1's,
+    # Adam's and (with dense Adam) the TransR op's. Each captured step also
+    # drew its batch with one launch of the sampler's draw.
     kg = {} if sparse else {"adam": 1,
                             **{k: 1 for k in transr.CUDA_LAUNCHES}}
     # The CF step's two layers: K1 each way and the layer op each way; the
@@ -676,8 +677,8 @@ def test_replayed_steps_match_eager_steps(dev, sparse):
           "bi_layer_backward": 2, "bi_sum": 1, "adam": 1}
     assert dict(build.launch_counts) == {
         **cf, **kg, "adam": cf["adam"] + kg.get("adam", 0)}
-    assert tr.cf_steps.calls == cf
-    assert tr.kg_steps.calls == kg
+    assert tr.cf_steps.calls == {**cf, "cf_draw": 1}
+    assert tr.kg_steps.calls == {**kg, "kg_draw": 1}
 
 
 def _adam_bound(p, m0, v0, g, m, v, count, lr, float32_corrections=False):
@@ -1168,7 +1169,7 @@ def test_replayed_kg_step_gathers_only_entity_rows(dev):
     for name in ("transr_plan_kernel", "transr_fwd_kernel",
                  "transr_bwd_units_kernel", "transr_bwd_fold_kernel"):
         assert count(name) == 1, name
-    assert tr.kg_steps.calls == {"adam": 1,
+    assert tr.kg_steps.calls == {"adam": 1, "kg_draw": 1,
                                  **{k: 1 for k in transr.CUDA_LAUNCHES}}
     tr.kg_steps.replay()
     torch.cuda.synchronize()
@@ -1359,7 +1360,7 @@ def test_cf_step_takes_the_layer_op_kernels(dev, compute_dtype):
     assert tr.cf_steps.calls == {
         "spmm_csr": L, "spmm_csr_rev": L, "bi_layer_forward": L,
         "bi_layer_backward": L, "bi_sum": 1 + (compute_dtype is not None),
-        "adam": 1}
+        "adam": 1, "cf_draw": 1}
     snap = _snapshot(tr)
     tr.cf_steps.loss_sum.zero_()
     tr.cf_steps.replay()
